@@ -1,15 +1,19 @@
 """bre_tpu_torch — the PyTorch / CUDA port of ``bre_tpu``.
 
 The JAX package ``bre_tpu`` is the reference; this package mirrors its module
-layout (``core/``, ``scene/``, ``integrators/``, ``accel/``, ``ops/``) so each
-function has a counterpart of the same name.  Tensors are float32 with
-explicit integer dtypes; the device follows the scene's tensors.
+layout (``core/``, ``scene/``, ``integrators/``, ``accel/``, ``ops/``,
+``parallel/``) so each function has a counterpart of the same name.  Tensors
+are float32 with explicit integer dtypes; the device follows the scene's
+tensors, and the entry points that make them build on "cuda" unless the
+caller asks for the CPU.
 
-The ported slice is the forward progressive photon-beam render
-(``integrators.photonbeam.render_photonbeam``) on homogeneous media, with the
-packed beam-radiance gather running on hand-written CUDA kernels
-(``ops/gather.py``, ``csrc/beam_gather_fwd.cu``).  Paths outside the slice
-raise ``NotImplementedError`` naming their ROADMAP item.
+The ported slices: the forward progressive photon-beam render
+(``integrators.photonbeam.render_photonbeam``) on homogeneous media, and its
+gradient in the medium parameters (``parallel.mesh.make_inverse_train_step``,
+``integrators.inverse.optimize_medium``, one device), with the packed
+beam-radiance gather and its backward on hand-written CUDA kernels
+(``ops/gather.py``, ``ops/gather_bwd.py``, ``csrc/``).  Paths outside the
+slices raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam

@@ -1,17 +1,20 @@
-"""Beam radiance gather, packed forward path (counterpart of
-``bre_tpu/accel/beam_gather.py:893-1033, 1214-1318``).
+"""Beam radiance gather, packed path (counterpart of
+``bre_tpu/accel/beam_gather.py:893-1318``, homogeneous media).
 
 The beam buffer is validity-compacted and Morton-sorted once per camera pass
 (``pack_beams_compact``); each depth step packs its camera segments, builds
 the exact chunk x tile AABB cull mask (``_block_overlap_mask``) and runs the
-forward kernels of ``ops/gather.py``, picking at run time between the
-sparse live-block kernel (live blocks within ``sparse_cap``) and the dense
-masked kernel, as the reference does.  Ray tiles and beam chunks are 256
-wide on every device: the reference's own off-TPU branch
-(``_pallas_tile``, beam_gather.py:74-75), so the pick matches it.
+kernels of ``ops/gather.py``, picking at run time between the sparse
+live-block kernel (live blocks within ``sparse_cap``) and the dense masked
+kernel, as the reference does.  Ray tiles and beam chunks are 256 wide on
+every device: the reference's own off-TPU branch (``_pallas_tile``,
+beam_gather.py:74-75), so the pick matches it.
 
-Forward only: geometry is detached where the reference stop-gradients it;
-the backward kernels are ROADMAP Queue 2 items 3-4.
+The gradient is the reference's custom VJP (``_packed_bwd``): geometry is
+detached where the reference stop-gradients it, and ``_GatherCorePacked``
+returns the analytic cotangents of the backward kernels of
+``ops/gather_bwd.py`` for the beam powers and radii, the camera
+transmittance, sigma_s and g, on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -20,8 +23,12 @@ import torch
 
 from ..core.math import length
 from ..media import gather_medium
-from ..ops.gather import (BF_B0, BF_B1, BF_RAD, BF_VALID, NB, gather_forward,
-                          gather_sparse, pack_rays, sparse_block_ids)
+from ..ops.gather import (BF_B0, BF_B1, BF_RAD, BF_VALID, NB, RF_G, RF_SIGS,
+                          RF_TR, gather_forward, gather_sparse, pack_rays,
+                          sparse_block_ids)
+from ..ops.gather_bwd import (DR_G, DR_SIGS, DR_TR, NDR, gather_backward_fused,
+                              gather_backward_sparse,
+                              sparse_block_ids_chunk_major)
 from ..scene.scene import Media
 from .lbvh import morton3
 
@@ -100,29 +107,93 @@ def _block_overlap_mask(beams_packed, seg_a0, seg_a1, tile: int, cam_radius):
 def _packed_forward(beams_packed, rays_packed, scalars, block_mask,
                     sparse_cap: int):
     """Run the forward kernel for one packed sweep: the sparse live-block
-    kernel when the live count fits ``sparse_cap``, the dense masked kernel
-    otherwise (both exact).  Returns (n_tiles*T, 3).  The live count is
-    read on the host: one sync per sweep in this eager slice."""
-    out = None
-    if sparse_cap > 0:
-        n_live = int((block_mask > 0).sum())
-        if n_live <= sparse_cap:
-            idx, _ = sparse_block_ids(block_mask, sparse_cap)
-            out = gather_sparse(rays_packed, beams_packed, scalars, idx)
-    if out is None:
+    kernel when the live blocks fit ``sparse_cap`` (the reference's runtime
+    pick; the live count is read on the host, one sync per sweep in this
+    eager port), the dense masked kernel otherwise (both exact).  Returns
+    ((n_tiles*T, 3), the tile-major block ids of the sparse pick or None)."""
+    idx = None
+    if sparse_cap > 0 and int((block_mask > 0).sum()) <= sparse_cap:
+        idx, _ = sparse_block_ids(block_mask, sparse_cap)
+        out = gather_sparse(rays_packed, beams_packed, scalars, idx)
+    else:
         out = gather_forward(rays_packed, beams_packed, scalars, block_mask)
     n_tiles, tile = rays_packed.shape[0], rays_packed.shape[2]
-    return out[:, :3, :].transpose(1, 2).reshape(n_tiles * tile, 3)
+    return out[:, :3, :].transpose(1, 2).reshape(n_tiles * tile, 3), idx
+
+
+def pack_ct(ct, n_tiles: int):
+    """(n_tiles*T, 3) output cotangent -> the kernels' (n_tiles, 8, T)
+    layout, RGB in rows 0-2 (beam_gather.py:1139-1141)."""
+    return torch.cat(
+        [ct.reshape(n_tiles, TILE, 3).transpose(1, 2),
+         torch.zeros((n_tiles, NDR - 3, TILE), dtype=torch.float32,
+                     device=ct.device)], 1).contiguous()
+
+
+def _packed_backward(beams_packed, rays_packed, scalars, block_mask, ct,
+                     idx_t, grad_extras: bool):
+    """The reference's ``_packed_bwd`` (beam_gather.py:1121-1208),
+    homogeneous branch: (n_tiles*T, 3) output cotangent -> (d_beams,
+    d_rays) in the packed layouts.  Takes the forward's pick: the sparse
+    kernels over its tile-major ids ``idx_t`` and chunk-major ids of the
+    same cap, the dense kernels where ``idx_t`` is None.  The geometry rows
+    get zero cotangents."""
+    ct_packed = pack_ct(ct, rays_packed.shape[0])
+    if idx_t is not None:
+        cap = idx_t.shape[0] - rays_packed.shape[0]
+        idx_c, _ = sparse_block_ids_chunk_major(block_mask, cap)
+        d_rays8, d_beams = gather_backward_sparse(
+            rays_packed, beams_packed, scalars, ct_packed, idx_t, idx_c,
+            want_extras=grad_extras)
+    else:
+        d_rays8, d_beams = gather_backward_fused(
+            rays_packed, beams_packed, scalars, ct_packed, block_mask,
+            want_extras=grad_extras)
+    d_rays = torch.zeros_like(rays_packed)
+    d_rays[:, RF_TR:RF_TR + 3] = d_rays8[:, DR_TR:DR_TR + 3]
+    d_rays[:, RF_SIGS:RF_SIGS + 3] = d_rays8[:, DR_SIGS:DR_SIGS + 3]
+    d_rays[:, RF_G] = d_rays8[:, DR_G]
+    return d_beams, d_rays
+
+
+class _GatherCorePacked(torch.autograd.Function):
+    """The packed gather with the reference's custom VJP
+    (``_gather_core_packed``, beam_gather.py:1036-1211): the forward
+    launches the forward kernels, the backward the backward kernels, on
+    the CPU through their plain versions.  The cam_radius cotangent
+    (``DR_CAMR``) is not returned: the progressive radius is a schedule,
+    not a parameter, so scalars and mask get None."""
+
+    @staticmethod
+    def forward(ctx, beams_packed, rays_packed, scalars, block_mask,
+                sparse_cap, grad_extras):
+        out, idx_t = _packed_forward(beams_packed, rays_packed, scalars,
+                                     block_mask, sparse_cap)
+        ctx.save_for_backward(beams_packed, rays_packed, scalars, block_mask,
+                              idx_t)
+        ctx.grad_extras = grad_extras
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        beams_packed, rays_packed, scalars, block_mask, idx_t = \
+            ctx.saved_tensors
+        d_beams, d_rays = _packed_backward(
+            beams_packed, rays_packed, scalars, block_mask, ct, idx_t,
+            ctx.grad_extras)
+        return d_beams, d_rays, None, None, None, None
 
 
 def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
                         seg_dir, seg_medium, seg_tr_full, cam_radius,
                         power_scale: float = 1.0, min_sin_theta: float = 0.05,
+                        grad_extras: bool = True,
                         sparse_cap: int = 0) -> torch.Tensor:
     """Packed-mode gather (normalized BRE, geometry detached) over
     ``pack_beams_compact``'s chunks: per-ray medium factors are gathered
     here, rays are padded to a tile multiple and packed, and
-    ``sparse_cap > 0`` enables the sparse-block kernel.  Returns (R, 3)."""
+    ``sparse_cap > 0`` enables the sparse-block kernels.  ``grad_extras``
+    False skips the radius and HG g cotangents.  Returns (R, 3)."""
     R = seg_a0.shape[0]
     dev = seg_a0.device
     _, sigma_s_seg, g_seg, seg_in_med = gather_medium(media, seg_medium)
@@ -146,5 +217,5 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
                            f32(min_sin_theta), f32(n_valid)]).reshape(1, 4)
     mask = _block_overlap_mask(beams_packed, seg["a0"], seg["a1"], TILE,
                                cam_radius)
-    return _packed_forward(beams_packed, rays_packed, scalars, mask,
-                           sparse_cap)[:R]
+    return _GatherCorePacked.apply(beams_packed, rays_packed, scalars, mask,
+                                   sparse_cap, grad_extras)[:R]

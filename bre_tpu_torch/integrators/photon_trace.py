@@ -78,7 +78,8 @@ def trace_photon_beams_by_index(scene: Scene, light_distr: Distribution1D,
     the normalized BRE gather needs); False stores scatter-truncated
     segments.  ``detach_sampling``: the sampled distances and continuation
     geometry are detached, at the same points as the reference's
-    stop_gradient (no-op for this forward-only slice)."""
+    stop_gradient: the detached estimator, whose gradient keeps only the
+    explicit medium-parameter dependence of weights and transmittances."""
     check_slice(scene)
     P = halton_index.shape[0]
     dev = scene.device

@@ -44,6 +44,19 @@ def hg_sample_p(wo: torch.Tensor, g: torch.Tensor,
     return wi, phase_hg(-cos_theta, g)
 
 
+def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a table of a few rows (one per medium) and many
+    ids, as one select per row.  The values are the same; the gradient is
+    one reduction per row, where indexing's backward on a card adds up the
+    cotangents of equal ids one after another, which took most of a
+    fwd+bwd iteration (PERF.md, profile_step.py)."""
+    out = table[0].expand(idx.shape + table.shape[1:])
+    for m in range(1, table.shape[0]):
+        sel = (idx == m).reshape(idx.shape + (1,) * (table.dim() - 1))
+        out = torch.where(sel, table[m], out)
+    return out
+
+
 def gather_medium(media: Media, med_idx: torch.Tensor):
     """Per-ray (sigma_a, sigma_s, g, in_medium) from int64 medium ids; zeros
     in vacuum (-1)."""
@@ -55,9 +68,11 @@ def gather_medium(media: Media, med_idx: torch.Tensor):
         return z, z, z[..., 0], in_medium
     safe = torch.clamp(med_idx, 0, M - 1)
     zero = torch.zeros((), dtype=torch.float32, device=med_idx.device)
-    sigma_a = torch.where(in_medium[..., None], media.sigma_a[safe], zero)
-    sigma_s = torch.where(in_medium[..., None], media.sigma_s[safe], zero)
-    g = torch.where(in_medium, media.g[safe], zero)
+    sigma_a = torch.where(in_medium[..., None], _lookup(media.sigma_a, safe),
+                          zero)
+    sigma_s = torch.where(in_medium[..., None], _lookup(media.sigma_s, safe),
+                          zero)
+    g = torch.where(in_medium, _lookup(media.g, safe), zero)
     return sigma_a, sigma_s, g, in_medium
 
 

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``bre_tpu_torch/csrc/`` are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``bre_tpu_torch/_build/<source hash>/``, a shared
-library with a plain C interface that ``ctypes`` loads.  The build is keyed
-by a hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the cached library.  No fast-math: the gather's exp, log
-and divisions must stay close to the reference's.
+The sources in ``bre_tpu_torch/csrc/`` are compiled at first use, one
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+-c`` per source, all started together, and linked with ``nvcc -shared`` into
+``bre_tpu_torch/_build/<source hash>/``, a shared library with a plain C
+interface that ``ctypes`` loads.  The build is keyed by a hash of the
+sources, the headers and the flags, so an edited file rebuilds and an
+unchanged tree loads the cached library.  No fast-math: the gather's exp,
+log and divisions must stay close to the reference's.
 
 Nothing here runs at import time; a missing ``nvcc`` raises a RuntimeError
 when a kernel is first needed.
@@ -27,9 +28,10 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("beam_gather_fwd.cu",)
+SOURCES = ("beam_gather_fwd.cu", "beam_gather_bwd.cu")
+HEADERS = ("pair_math.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libbre_tpu_torch_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -53,7 +55,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -71,18 +73,31 @@ def build_library() -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        t0 = time.perf_counter()
+        objs = [os.path.join(tmp_dir, Path(src).stem + ".o") for src in SOURCES]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)]
+            for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        outs = [proc.communicate() for proc in procs]
+        for cmd, proc, (out, err) in zip(compiles, procs, outs):
+            _check_nvcc(cmd, proc.returncode, out, err)
+        tmp = os.path.join(tmp_dir, LIB_NAME)
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, lib_path)
     return lib_path
+
+
+def _check_nvcc(cmd, returncode, out, err) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{out}\n{err}")
 
 
 def load_library() -> ctypes.CDLL:
@@ -100,6 +115,15 @@ def load_library() -> ctypes.CDLL:
     # rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks, stream
     lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.bre_gather_sparse.restype = i
+    # rays, beams, scalars, mask, ct, d_rays, d_beams, n_tiles, n_chunks,
+    # want_extras, stream
+    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.bre_gather_backward.restype = i
+    # rays, beams, scalars, ct, idx_t, tile_start, idx_c, chunk_start,
+    # d_rays, d_beams, n_tiles, n_chunks, want_extras, stream
+    lib.bre_gather_backward_sparse.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                               i, i, i, p]
+    lib.bre_gather_backward_sparse.restype = i
     _lib = lib
     return lib
 

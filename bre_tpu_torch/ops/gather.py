@@ -96,13 +96,25 @@ def sparse_block_ids(block_mask: torch.Tensor, cap: int):
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _pair_blocks_ref(rays_b, beams_b, cam_radius, min_sin):
-    """The pair math of ``_pair_block_update`` (pallas_gather.py:134-242)
-    on a batch of blocks: rays_b (nb, NF, T), beams_b (nb, NB, C) ->
-    (nb, 3, T) sums over each block's beams.  Every guard is a torch.where
-    with safe operands, so no inf or NaN forms even in unselected lanes."""
-    row = lambda k: rays_b[:, k:k + 1, :]  # (nb,1,T)  # noqa: E731
-    col = lambda k: beams_b[:, k, :, None]  # (nb,C,1)  # noqa: E731
+def block_row(rays_b, k):
+    """Ray row k of a batch of ray tiles, (nb, 1, T)."""
+    return rays_b[:, k:k + 1, :]
+
+
+def block_col(beams_b, k):
+    """Beam field k of a batch of beam chunks, (nb, C, 1)."""
+    return beams_b[:, k, :, None]
+
+
+def pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin):
+    """The geometry of ``_pair_block_update`` (pallas_gather.py:134-242) on
+    a batch of blocks, rays_b (nb, NF, T) against beams_b (nb, NB, C):
+    Ericson closest points, r^2 against the blur width, the HG denominator's
+    rsqrt and the clamped 1/sin(theta), each (nb, C, T).  Every guard is a
+    torch.where with safe operands, so no inf or NaN forms even in
+    unselected lanes."""
+    row = lambda k: block_row(rays_b, k)  # noqa: E731
+    col = lambda k: block_col(beams_b, k)  # noqa: E731
     a0 = [row(RF_A0 + c) for c in range(3)]
     d1 = [row(RF_A1 + c) - a0[c] for c in range(3)]
     b0 = [col(BF_B0 + c) for c in range(3)]
@@ -142,26 +154,42 @@ def _pair_blocks_ref(rays_b, beams_b, cam_radius, min_sin):
     cos_theta = sum(row(RF_DIR + c) * (d2[c] * inv_beam_len) for c in range(3))
     gg = row(RF_G)
     rs = torch.rsqrt(torch.clamp_min(1.0 + gg * gg + 2.0 * gg * cos_theta, 1e-12))
-    rho = 0.07957747154594767 * (1.0 - gg * gg) * (rs * rs * rs)
     inv_sin = torch.clamp_max(
         torch.rsqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 1e-12)),
         1.0 / min_sin)
-    k1 = 0.75 * (1.0 - r2) * inv_width
-    w = rho * k1 * inv_sin * in_range
+    return dict(s=s, t_cl=t_cl, r2=r2, in_range=in_range, inv_width=inv_width,
+                cos_theta=cos_theta, g=gg, rs=rs, inv_sin=inv_sin)
+
+
+def beam_power_ref(rays_b, beams_b, ch, t_cl, s):
+    """p_at * tr_cam for channel ch as ONE exp, ps * exp(t_b*log(pe/ps) +
+    t_c*log(tr)), zero where the start power is dead (_log_decay,
+    pallas_gather.py:94-102).  Returns (pt, ps_s, pe_s)."""
+    ps, pe = block_col(beams_b, BF_PS + ch), block_col(beams_b, BF_PE + ch)
+    ok = ps > 1e-20
+    one = torch.ones_like(ps)
+    ps_s = torch.where(ok, ps, one)
+    pe_s = torch.where(ok, torch.maximum(pe, 1e-12 * ps_s), one)
+    lp = torch.log(pe_s / ps_s)
+    lt = torch.log(torch.clamp_min(block_row(rays_b, RF_TR + ch), 1e-30))
+    pt = ps_s * torch.exp(t_cl * lp + s * lt)
+    return torch.where(ok, pt, torch.zeros_like(pt)), ps_s, pe_s
+
+
+def _pair_blocks_ref(rays_b, beams_b, cam_radius, min_sin):
+    """The pair math of ``_pair_block_update`` (pallas_gather.py:134-242)
+    on a batch of blocks: rays_b (nb, NF, T), beams_b (nb, NB, C) ->
+    (nb, 3, T) sums over each block's beams."""
+    q = pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin)
+    gg, rs = q["g"], q["rs"]
+    rho = 0.07957747154594767 * (1.0 - gg * gg) * (rs * rs * rs)
+    k1 = 0.75 * (1.0 - q["r2"]) * q["inv_width"]
+    w = rho * k1 * q["inv_sin"] * q["in_range"]
 
     out = []
     for ch in range(3):
-        # p_at * tr_cam as ONE exp: ps * exp(t_b*log(pe/ps) + t_c*log(tr))
-        ps, pe = col(BF_PS + ch), col(BF_PE + ch)
-        ok = ps > 1e-20
-        one = torch.ones_like(ps)
-        ps_s = torch.where(ok, ps, one)
-        pe_s = torch.where(ok, torch.maximum(pe, 1e-12 * ps_s), one)
-        lp = torch.log(pe_s / ps_s)
-        lt = torch.log(torch.clamp_min(row(RF_TR + ch), 1e-30))
-        pt = ps_s * torch.exp(t_cl * lp + s * lt)
-        pt = torch.where(ok, pt, torch.zeros_like(pt))
-        out.append((w * pt * row(RF_SIGS + ch)).sum(1))
+        pt, _, _ = beam_power_ref(rays_b, beams_b, ch, q["t_cl"], q["s"])
+        out.append((w * pt * block_row(rays_b, RF_SIGS + ch)).sum(1))
     return torch.stack(out, 1)
 
 
@@ -232,6 +260,14 @@ def _check_cuda(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def run_starts(idx, n_runs, run_len):
+    """Where each of ``n_runs`` runs of a sorted extended id list starts,
+    plus its end: run r holds the ids in [r*run_len, (r+1)*run_len)."""
+    bounds = torch.arange(n_runs + 1, device=idx.device,
+                          dtype=torch.int32) * run_len
+    return torch.searchsorted(idx, bounds).to(torch.int32)
+
+
 def _check_packed(rays_packed, beams_packed, scalars):
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     _check_cuda("rays_packed", rays_packed, torch.float32,
@@ -284,10 +320,7 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
 
     n_tiles, n_chunks = _check_packed(rays_packed, beams_packed, scalars)
     _check_cuda("idx", idx, torch.int32, (idx.shape[0],))
-    # each tile's run of the tile-major id list
-    bounds = (torch.arange(n_tiles + 1, device=idx.device, dtype=torch.int32)
-              * (n_chunks + 1))
-    tile_start = torch.searchsorted(idx, bounds).to(torch.int32)
+    tile_start = run_starts(idx, n_tiles, n_chunks + 1)
     lib = load_library()
     out = torch.empty((n_tiles, OUT_ROWS, KERNEL_TILE), dtype=torch.float32,
                       device=rays_packed.device)

@@ -1,0 +1,291 @@
+"""Packed beam-radiance gather, backward: plain PyTorch versions and the
+CUDA kernel wrappers (counterpart of ``bre_tpu/ops/pallas_gather_bwd.py``,
+homogeneous media).
+
+With the gather geometry held fixed (``grad_geometry=False``), the
+cotangents of the forward's per-segment sums are analytic in the pair
+quantities: per ray d tr, d sigma_s, d g and d cam_radius, per beam d ps,
+d pe and d radius (``_bwd_fused_body``, pallas_gather_bwd.py:182-238).  The
+pair geometry is recomputed, never stored.
+
+Layouts are the forward's (``ops/gather.py``) plus:
+- ct ``(n_tiles, 8, T)``: the output cotangent, RGB in rows 0-2;
+- d_rays ``(n_tiles, 8, T)``: rows ``DR_*``;
+- d_beams ``(n_chunks, NB, C)``: d ps in rows BF_PS.., d pe in BF_PE..,
+  d radius in BF_RAD, zeros in the geometry and padding rows.
+
+``gather_backward_fused`` (dense, block mask) and ``gather_backward_sparse``
+(compacted live blocks, tile-major for d_rays and chunk-major for d_beams)
+take their plain versions only for CPU tensors; for CUDA tensors they launch
+the kernels of ``csrc/beam_gather_bwd.cu`` or raise.  Each wrapper counts
+its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .gather import (BF_PE, BF_PS, BF_RAD, KERNEL_CHUNK, KERNEL_TILE, NB,
+                     RF_SIGS, RF_TR, _check_cuda, _check_packed, _live_chunks,
+                     _REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU,
+                     beam_power_ref, block_col, block_row, pair_geometry_ref,
+                     run_starts)
+
+# per-ray cotangent rows of d_rays (pallas_gather_bwd.py:59-62); the hetero
+# rows DR_DC/DR_SIGTC/DR_DENS follow with grid media (ROADMAP Queue 1)
+DR_TR = 0  # d tr_full rgb rows 0..2
+DR_SIGS = 3  # d sigma_s rgb rows 3..5
+DR_G = 6
+DR_CAMR = 7  # per-ray partial of d cam_radius
+NDR = 8
+
+# each cotangent's rows in d_rays and in d_beams; the other rows of d_beams
+# (geometry, validity, padding) are zero
+D_RAYS_ROWS = dict(tr=slice(DR_TR, DR_TR + 3),
+                   sigma_s=slice(DR_SIGS, DR_SIGS + 3),
+                   g=slice(DR_G, DR_G + 1),
+                   cam_radius=slice(DR_CAMR, DR_CAMR + 1))
+D_BEAMS_ROWS = dict(power_start=slice(BF_PS, BF_PS + 3),
+                    power_end=slice(BF_PE, BF_PE + 3),
+                    radius=slice(BF_RAD, BF_RAD + 1))
+
+_INV_4PI = 0.07957747154594767
+
+
+def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
+    """Chunk-major companion of ``sparse_block_ids``
+    (pallas_gather_bwd.py:592-604): live blocks are ``chunk*(n_tiles+1) +
+    tile+1``, each chunk's seed entry is ``chunk*(n_tiles+1)``, fill entries
+    are ``n_chunks*(n_tiles+1)``.  Returns (idx (n_chunks + cap,) int32,
+    n_live () int64)."""
+    n_chunks, n_tiles = block_mask.shape
+    ext = torch.cat([torch.ones((n_chunks, 1), dtype=block_mask.dtype,
+                                device=block_mask.device), block_mask], 1)
+    nz = torch.nonzero(ext.reshape(-1) != 0).reshape(-1)[: n_chunks + cap]
+    idx = torch.full((n_chunks + cap,), n_chunks * (n_tiles + 1),
+                     dtype=torch.int32, device=block_mask.device)
+    idx[: nz.shape[0]] = nz.to(torch.int32)
+    return idx, (block_mask > 0).sum()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _bwd_blocks_ref(rays_b, beams_b, ct_b, cam_radius, min_sin, want_extras,
+                    side):
+    """The analytic cotangents of ``_bwd_fused_body`` on a batch of blocks.
+    ``side == "rays"`` returns the per-block (nb, 8, T) d_rays rows (sums
+    over each block's beams); ``side == "beams"`` the per-block (nb, NB, C)
+    d_beams fields (sums over each block's rays).  Each sum over a block is
+    taken before the division by ps_s, pe_s or tr, as in the reference; the
+    gates at the clamps are the reference's, not autograd's."""
+    q = pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin)
+    gg, rs, cos_t = q["g"], q["rs"], q["cos_theta"]
+    r2, inv_width = q["r2"], q["inv_width"]
+    frac_b, frac_c = q["t_cl"], q["s"]  # beam and camera fractions
+    rs3 = rs * rs * rs
+    rho = _INV_4PI * (1.0 - gg * gg) * rs3
+    k1 = 0.75 * (1.0 - r2) * inv_width
+    base = q["in_range"] * q["inv_sin"]
+    w0 = base * rho * k1
+    if want_extras:
+        drho_dg = _INV_4PI * ((-2.0 * gg) * rs3 + (1.0 - gg * gg) * (-1.5)
+                              * (rs3 * rs * rs) * (2.0 * gg + 2.0 * cos_t))
+        dk1_dw = 0.75 * (inv_width * inv_width) * (3.0 * r2 - 1.0)
+        wrad = base * rho * dk1_dw
+        wg = base * k1 * drho_dg
+
+    zero_ray = torch.zeros_like(block_row(rays_b, 0)[:, 0])  # (nb, T)
+    zero_beam = torch.zeros_like(block_col(beams_b, 0)[..., 0])  # (nb, C)
+    d_g, d_camr, d_rad = zero_ray, zero_ray, zero_beam
+    d_tr, d_sig, d_ps, d_pe = [], [], [], []
+    for ch in range(3):
+        ct = ct_b[:, ch:ch + 1, :]  # (nb, 1, T)
+        sig = block_row(rays_b, RF_SIGS + ch)
+        pt, ps_s, pe_s = beam_power_ref(rays_b, beams_b, ch, frac_b, frac_c)
+        coef = ct * sig
+        A = w0 * pt
+        if side == "rays":
+            trf_raw = block_row(rays_b, RF_TR + ch)
+            trf = torch.clamp_min(trf_raw, 1e-30)
+            trf_live = (trf_raw > 1e-30).to(torch.float32)
+            d_sig.append((ct * A.sum(1, keepdim=True))[:, 0])
+            d_tr.append((ct * sig * (A * frac_c).sum(1, keepdim=True) / trf
+                         * trf_live)[:, 0])
+            if want_extras:
+                d_g = d_g + (coef * wg * pt).sum(1)
+                d_camr = d_camr + (coef * wrad * pt).sum(1)
+        else:
+            cA = coef * A
+            pe = block_col(beams_b, BF_PE + ch)
+            pe_live = (pe > 1e-12 * ps_s).to(torch.float32)
+            d_ps.append(((cA * (1.0 - frac_b)).sum(2, keepdim=True)
+                         / ps_s)[..., 0])
+            d_pe.append(((cA * frac_b * pe_live).sum(2, keepdim=True)
+                         / pe_s)[..., 0])
+            if want_extras:
+                d_rad = d_rad + (coef * wrad * pt).sum(2)
+    if side == "rays":
+        return torch.stack(d_tr + d_sig + [d_g, d_camr], 1)
+    cols = [zero_beam] * BF_PS + d_ps + d_pe + [d_rad]
+    cols += [zero_beam] * (NB - len(cols))
+    return torch.stack(cols, 1)
+
+
+def _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
+             want_extras, side):
+    """Accumulate the listed (tile, chunk) blocks, in list order, into d_rays
+    (``side == "rays"``) or d_beams (``side == "beams"``)."""
+    n_tiles, _, T = rays_packed.shape
+    n_chunks, _, C = beams_packed.shape
+    cam_radius, min_sin = scalars[0, 0], scalars[0, 2]
+    dev = rays_packed.device
+    if side == "rays":
+        out = torch.zeros((n_tiles, NDR, T), dtype=torch.float32, device=dev)
+        dst = tiles
+    else:
+        out = torch.zeros((n_chunks, NB, C), dtype=torch.float32, device=dev)
+        dst = chunks
+    pairs = _REF_BATCH_PAIRS_CPU if dev.type == "cpu" else _REF_BATCH_PAIRS_CARD
+    nb = max(1, pairs // (T * C))
+    for lo in range(0, tiles.shape[0], nb):
+        ti, ch = tiles[lo:lo + nb], chunks[lo:lo + nb]
+        upd = _bwd_blocks_ref(rays_packed[ti], beams_packed[ch], ct[ti],
+                              cam_radius, min_sin, want_extras, side)
+        out.index_add_(0, dst[lo:lo + nb], upd)
+    return out
+
+
+def gather_backward_fused_ref(rays_packed, beams_packed, scalars, ct,
+                              block_mask=None, want_extras=True):
+    """Plain version of the dense backward: every block with
+    ``block_mask[j, i] > 0`` whose chunk lies before ``n_valid``; d_rays
+    sums tile-major, d_beams chunk-major.  Returns (d_rays, d_beams)."""
+    n_tiles = rays_packed.shape[0]
+    n_chunks, _, C = beams_packed.shape
+    live = _live_chunks(n_chunks, C, scalars[0, 3], rays_packed.device)
+    live = live[:, None].expand(n_chunks, n_tiles)
+    if block_mask is not None:
+        live = live & (block_mask > 0)
+    tiles, chunks = torch.nonzero(live.T, as_tuple=True)  # tile-major
+    d_rays = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
+                      want_extras, "rays")
+    chunks, tiles = torch.nonzero(live, as_tuple=True)  # chunk-major
+    d_beams = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
+                       want_extras, "beams")
+    return d_rays, d_beams
+
+
+def gather_backward_sparse_ref(rays_packed, beams_packed, scalars, ct,
+                               idx_tile_major, idx_chunk_major,
+                               want_extras=True):
+    """Plain version of the sparse backward: d_rays over the tile-major ids
+    of ``sparse_block_ids``, d_beams over the chunk-major ids of
+    ``sparse_block_ids_chunk_major``.  Returns (d_rays, d_beams)."""
+    n_tiles = rays_packed.shape[0]
+    n_chunks, _, C = beams_packed.shape
+    live_c = _live_chunks(n_chunks, C, scalars[0, 3], rays_packed.device)
+
+    def blocks(idx, n_outer, n_inner):
+        idx = idx.to(torch.int64)
+        outer, sub = idx // (n_inner + 1), idx % (n_inner + 1)
+        keep = (outer < n_outer) & (sub > 0)
+        return outer[keep], sub[keep] - 1
+
+    tiles, chunks = blocks(idx_tile_major, n_tiles, n_chunks)
+    keep = live_c[chunks]
+    d_rays = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles[keep],
+                      chunks[keep], want_extras, "rays")
+    chunks, tiles = blocks(idx_chunk_major, n_chunks, n_tiles)
+    keep = live_c[chunks]
+    d_beams = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles[keep],
+                       chunks[keep], want_extras, "beams")
+    return d_rays, d_beams
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_ct(ct, n_tiles, device):
+    _check_cuda("ct", ct, torch.float32, (n_tiles, NDR, KERNEL_TILE))
+    if ct.device != device:
+        raise ValueError("gather inputs must share one device")
+
+
+def _outputs(rays_packed, n_tiles, n_chunks):
+    dev = rays_packed.device
+    return (torch.empty((n_tiles, NDR, KERNEL_TILE), dtype=torch.float32,
+                        device=dev),
+            torch.empty((n_chunks, NB, KERNEL_CHUNK), dtype=torch.float32,
+                        device=dev))
+
+
+def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
+                          block_mask=None, want_extras=True):
+    """Dense backward (replaces ``pallas_gather_backward_fused``): returns
+    (d_rays (n_tiles, 8, T), d_beams (n_chunks, NB, C)).  CPU tensors take
+    ``gather_backward_fused_ref``; CUDA tensors launch the two sweeps of
+    ``csrc/beam_gather_bwd.cu`` (d_rays tile by tile, d_beams chunk by
+    chunk)."""
+    n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
+    if block_mask is None:
+        block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
+                                device=rays_packed.device)
+    if rays_packed.device.type == "cpu":
+        return gather_backward_fused_ref(rays_packed, beams_packed, scalars,
+                                         ct, block_mask, want_extras)
+    from .cuda_build import check_status, load_library
+
+    _check_packed(rays_packed, beams_packed, scalars)
+    _check_cuda("block_mask", block_mask, torch.float32, (n_chunks, n_tiles))
+    _check_ct(ct, n_tiles, rays_packed.device)
+    lib = load_library()
+    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks)
+    stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
+    err = lib.bre_gather_backward(
+        rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
+        block_mask.data_ptr(), ct.data_ptr(), d_rays.data_ptr(),
+        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)), stream)
+    check_status(lib, err, "gather_backward kernels")
+    gather_backward_fused.launches += 1
+    return d_rays, d_beams
+
+
+def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
+                           idx_tile_major, idx_chunk_major, want_extras=True):
+    """Sparse live-block backward (replaces ``pallas_gather_backward_sparse``)
+    over ``sparse_block_ids`` (d_rays) and ``sparse_block_ids_chunk_major``
+    (d_beams) ids: returns (d_rays, d_beams).  CPU tensors take
+    ``gather_backward_sparse_ref``; CUDA tensors launch the sparse sweeps of
+    ``csrc/beam_gather_bwd.cu``."""
+    if rays_packed.device.type == "cpu":
+        return gather_backward_sparse_ref(rays_packed, beams_packed, scalars,
+                                          ct, idx_tile_major, idx_chunk_major,
+                                          want_extras)
+    from .cuda_build import check_status, load_library
+
+    n_tiles, n_chunks = _check_packed(rays_packed, beams_packed, scalars)
+    _check_ct(ct, n_tiles, rays_packed.device)
+    _check_cuda("idx_tile_major", idx_tile_major, torch.int32,
+                (idx_tile_major.shape[0],))
+    _check_cuda("idx_chunk_major", idx_chunk_major, torch.int32,
+                (idx_chunk_major.shape[0],))
+    tile_start = run_starts(idx_tile_major, n_tiles, n_chunks + 1)
+    chunk_start = run_starts(idx_chunk_major, n_chunks, n_tiles + 1)
+    lib = load_library()
+    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks)
+    stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
+    err = lib.bre_gather_backward_sparse(
+        rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
+        ct.data_ptr(), idx_tile_major.data_ptr(), tile_start.data_ptr(),
+        idx_chunk_major.data_ptr(), chunk_start.data_ptr(), d_rays.data_ptr(),
+        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)), stream)
+    check_status(lib, err, "gather_backward_sparse kernels")
+    gather_backward_sparse.launches += 1
+    return d_rays, d_beams
+
+
+gather_backward_fused.launches = 0
+gather_backward_sparse.launches = 0

@@ -16,7 +16,7 @@ import torch
 
 from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_POINT, MAT_MATTE,
                     MEDIUM_HOMOGENEOUS, SHAPE_TRIANGLE, Lights, Materials,
-                    Media, Scene, Spheres, Triangles)
+                    Media, Scene, Spheres, Triangles, resolve_device)
 
 
 def _rgb(v) -> np.ndarray:
@@ -105,7 +105,9 @@ class SceneBuilder:
         return ids[0]
 
     # --- freeze ---
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
+        device = resolve_device(device)
+
         def f(a) -> torch.Tensor:
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 

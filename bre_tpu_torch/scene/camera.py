@@ -10,6 +10,7 @@ import torch
 
 from ..core import transform as tfm
 from ..core.math import normalize
+from .scene import resolve_device
 
 
 class Camera(NamedTuple):
@@ -18,7 +19,7 @@ class Camera(NamedTuple):
 
 
 def make_perspective_camera(camera_to_world, fov_deg: float, width: int,
-                            height: int, device="cpu") -> Camera:
+                            height: int, device="cuda") -> Camera:
     """pbrt's ProjectiveCamera screen window: [-1,1] on the shorter axis,
     scaled by the aspect on the longer (api.cpp:651-680).  The matrices are
     built in numpy with the reference's exact arithmetic."""
@@ -37,6 +38,7 @@ def make_perspective_camera(camera_to_world, fov_deg: float, width: int,
     raster_to_screen = np.linalg.inv(screen_to_raster)
     raster_to_camera = np.linalg.inv(cam_to_screen) @ raster_to_screen
     c2w = np.asarray(camera_to_world, np.float32)
+    device = resolve_device(device)
     return Camera(
         camera_to_world=torch.as_tensor(c2w, device=device),
         raster_to_camera=torch.as_tensor(raster_to_camera.astype(np.float32),

@@ -155,14 +155,28 @@ def check_slice(scene: Scene) -> None:
             "heterogeneous media)")
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on.  Entry points default to
+    "cuda"; asking for CUDA without a card raises instead of carrying on
+    on the CPU, which runs only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card, and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "on the CPU")
+    return dev
+
+
 def _t(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def scene_from_jax(scene_jax, device="cpu") -> Scene:
+def scene_from_jax(scene_jax, device="cuda") -> Scene:
     """A ``bre_tpu`` Scene (its leaves read with ``np.asarray``) -> this
     package's Scene on ``device``.  Grid media and the tri-BVH cannot be
     carried and raise NotImplementedError."""
+    device = resolve_device(device)
     if scene_jax.tri_bvh is not None:
         raise NotImplementedError(
             "tri-BVH scenes are not ported (ROADMAP Queue 1: breadth, "

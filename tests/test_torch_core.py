@@ -98,7 +98,7 @@ def test_transforms_and_camera_rays():
                                   to_np(jtfm.perspective(50.0, 1e-2, 1e3)))
     W, H = 24, 16
     cj = jcam.make_perspective_camera(c2w_j, 50.0, W, H)
-    ct = tcam.make_perspective_camera(c2w_t, 50.0, W, H)
+    ct = tcam.make_perspective_camera(c2w_t, 50.0, W, H, device="cpu")
     np.testing.assert_array_equal(to_np(ct.raster_to_camera),
                                   to_np(cj.raster_to_camera))
     pj = jcam.pixel_centers(W, H)

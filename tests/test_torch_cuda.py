@@ -6,10 +6,12 @@ JAX, so on a CUDA machine without JAX they run from the repository root as
   python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
       tests/test_torch_cuda.py -q
 
-Tolerances: kernel vs plain version rtol 2e-4 / atol 1e-8 (the reference's
-Pallas tolerance, tests/test_pallas_gather.py:47; measured ~1e-6: the kernel
-rounds every product and sum as the plain version does and only the sum
-order and the math library's exp/log/rsqrt differ).  CUDA vs CPU image
+Tolerances: forward kernels vs plain versions rtol 2e-4 / atol 1e-8 (the
+reference's Pallas tolerance, tests/test_pallas_gather.py:47; measured ~1e-6:
+the kernel rounds every product and sum as the plain version does and only
+the sum order and the math library's exp/log/rsqrt differ); backward kernels
+max|d| <= 2e-4 * (max|ref| + 1e-9) per cotangent (the reference's backward
+criterion, tests/test_pallas_gather.py:448, held per gradient there).  CUDA vs CPU image
 means 1e-3: same PCG32 streams, float-ulp flips of a few photon decisions
 at most."""
 
@@ -17,9 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from bre_tpu_torch.accel import beam_gather as BG
 from bre_tpu_torch.core import transform as tfm
+from bre_tpu_torch.integrators.photon_trace import Beams
 from bre_tpu_torch.integrators.photonbeam import PhotonBeamConfig, render_photonbeam
 from bre_tpu_torch.ops import gather as G
+from bre_tpu_torch.ops import gather_bwd as GB
 from bre_tpu_torch.scene.builder import SceneBuilder
 from bre_tpu_torch.scene.camera import make_perspective_camera
 
@@ -116,3 +121,93 @@ def test_render_on_card_matches_cpu(dev):
     assert bool(torch.isfinite(imgs[0]).all()) and float(imgs[1].mean()) > 0
     rel = float((imgs[0].mean() / imgs[1].mean() - 1).abs())
     assert rel < 1e-3, rel
+
+
+def _close(out, ref):
+    assert float(ref.abs().max()) > 0
+    err = float((out - ref).abs().max())
+    assert err <= 2e-4 * (float(ref.abs().max()) + 1e-9), err
+
+
+def _close_by_cotangent(out, ref):
+    """The backward criterion per cotangent (rows of d_rays and d_beams),
+    not over the packed tensors, whose largest rows would hide the small
+    ones; d_beams rows outside the cotangents stay zero."""
+    for o, r, rows in zip(out, ref, (GB.D_RAYS_ROWS, GB.D_BEAMS_ROWS)):
+        for name, sl in rows.items():
+            err = float((o[:, sl] - r[:, sl]).abs().max())
+            r_max = float(r[:, sl].abs().max())
+            assert err <= 2e-4 * (r_max + 1e-9), (name, err, r_max)
+    other = torch.ones(G.NB, dtype=torch.bool, device=out[1].device)
+    for sl in GB.D_BEAMS_ROWS.values():
+        other[sl] = False
+    assert float(out[1][:, other].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("want_extras", [True, False])
+def test_backward_kernels_match_plain_versions(dev, want_extras):
+    rays, beams, scal, mask = _inputs(dev)
+    ct = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (rays.shape[0], GB.NDR, 256)).astype(np.float32)).to(dev)
+    ct[:, 3:] = 0.0
+    cap = int(mask.sum())
+    idx_t, _ = G.sparse_block_ids(mask, cap)
+    idx_c, _ = GB.sparse_block_ids_chunk_major(mask, cap)
+    n0 = (GB.gather_backward_fused.launches, GB.gather_backward_sparse.launches)
+    dense = GB.gather_backward_fused(rays, beams, scal, ct, mask, want_extras)
+    sparse = GB.gather_backward_sparse(rays, beams, scal, ct, idx_t, idx_c,
+                                       want_extras)
+    torch.cuda.synchronize()
+    assert (GB.gather_backward_fused.launches,
+            GB.gather_backward_sparse.launches) == (n0[0] + 1, n0[1] + 1)
+    ref = GB.gather_backward_fused_ref(rays, beams, scal, ct, mask, want_extras)
+    assert float(ref[0].abs().max()) > 0
+    _close_by_cotangent(dense, ref)
+    _close_by_cotangent(sparse, GB.gather_backward_sparse_ref(
+        rays, beams, scal, ct, idx_t, idx_c, want_extras))
+    # same live blocks in the same order: bit-identical, and deterministic
+    for a, b, c in zip(dense, sparse, GB.gather_backward_fused(
+            rays, beams, scal, ct, mask, want_extras)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # a tile without live blocks, the chunk past n_valid, the extras
+    assert float(dense[0][1].abs().max()) == 0.0
+    assert float(dense[1][-1].abs().max()) == 0.0
+    assert (float(dense[0][:, GB.DR_G:].abs().max()) > 0) == want_extras
+
+
+def test_gather_gradient_on_card(dev):
+    """On CUDA tensors the packed gather's output carries a grad_fn and its
+    gradients (through the backward kernels) equal the CPU ones (through
+    the plain versions) within the backward criterion."""
+    rs = np.random.RandomState(4)
+    B, R = 3000, 700
+    beams_np = dict(
+        start=rs.uniform(-1, 1, (B, 3)), end=rs.uniform(-1, 1, (B, 3)),
+        power_start=rs.uniform(0.5, 2, (B, 3)),
+        power_end=rs.uniform(0.05, 0.5, (B, 3)), radius=np.full(B, 0.2))
+    a0 = rs.uniform(-2, -1, (R, 3))
+    a1 = rs.uniform(1, 2, (R, 3))
+    seg = dict(a0=a0, a1=a1, dir=(a1 - a0) / np.linalg.norm(
+        a1 - a0, axis=-1, keepdims=True), tr=rs.uniform(0.2, 0.9, (R, 3)))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        f = {k: torch.tensor(v, dtype=torch.float32, device=d)
+             for k, v in {**beams_np, **seg}.items()}
+        leaves = [f[k].requires_grad_() for k in
+                  ("power_start", "power_end", "tr")]
+        beams = Beams(start=f["start"], end=f["end"],
+                      power_start=f["power_start"], power_end=f["power_end"],
+                      radius=f["radius"],
+                      medium=torch.zeros(B, dtype=torch.int64, device=d),
+                      valid=torch.ones(B, dtype=torch.bool, device=d))
+        scene = _cornell(d)
+        sig = scene.media.sigma_s.detach().clone().requires_grad_()
+        bp, nv = BG.pack_beams_compact(beams)
+        out = BG.gather_beams_packed(
+            bp, nv, scene.media._replace(sigma_s=sig), f["a0"], f["a1"],
+            f["dir"], torch.zeros(R, dtype=torch.int64, device=d), f["tr"],
+            0.2, power_scale=1e-3, sparse_cap=4096 if d.type == "cuda" else 0)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad(out.sum(), leaves + [sig]))
+    for g_card, g_cpu in zip(*grads):
+        _close(g_card.cpu(), g_cpu)

@@ -166,7 +166,7 @@ def test_gather_beams_packed_matches(sparse_cap):
     jb.homogeneous_medium((0.05,) * 3, (0.5,) * 3, 0.3)
     jb.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
     js = jb.build()
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, device="cpu")
     b = _beams_np()
     bp_j, nv_j = jbg.pack_beams_compact(_jbeams(b), 256)
     bp_t, nv_t = tbg.pack_beams_compact(_tbeams(b))

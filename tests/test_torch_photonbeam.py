@@ -36,7 +36,7 @@ P, MAXDEPTH, RADIUS, ITER = 2000, 5, 0.12, 3
 
 def _trace_both():
     js = cornell_fog(JBuilder())
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, device="cpu")
     bj, sj = jtrace(js, jdistr(js), ITER, P, MAXDEPTH, jnp.float32(RADIUS),
                     detach_sampling=True, long_beams=True, early_exit=True)
     bt, st = ttrace(ts, tdistr(ts), ITER, P, MAXDEPTH, RADIUS,
@@ -75,7 +75,7 @@ def test_camera_pass_same_beams_matches():
     bt = bt._replace(medium=bt.medium.to(torch.int64))
     args = ((0, 0, -2.2), (0, 0, 1), (0, 1, 0))
     cj = jcam(jtfm.look_at(*args), 50.0, W, H)
-    ct = tcam(ttfm.look_at(*args), 50.0, W, H)
+    ct = tcam(ttfm.look_at(*args), 50.0, W, H, device="cpu")
     kw = dict(gather="auto", grad_geometry=False, tr_crossings=2,
               maxdepth=MAXDEPTH)
     Lj, _ = jpb.camera_pass(js, cj, W, H, bj, jnp.float32(RADIUS), ITER,

@@ -35,7 +35,7 @@ def test_render_photonbeam_matches():
         jpb.PhotonBeamConfig(grad_extras=False, **CFG))
     writes = []
     it, st = tpb.render_photonbeam(
-        cornell_fog(TBuilder()), tcam(ttfm.look_at(*LOOK), 50.0, W, W), W, W,
+        cornell_fog(TBuilder(), device="cpu"), tcam(ttfm.look_at(*LOOK), 50.0, W, W, device="cpu"), W, W,
         tpb.PhotonBeamConfig(imagewritefrequency=1, **CFG),
         write_callback=lambda i, img: writes.append((i, img)))
     ij, it = np.asarray(ij), it.numpy()
@@ -57,8 +57,8 @@ def test_render_photonbeam_matches():
 ])
 def test_unported_options_raise(over, match):
     cfg = tpb.PhotonBeamConfig(**{**CFG, **over})
-    scene = cornell_fog(TBuilder())
-    cam = tcam(ttfm.look_at(*LOOK), 50.0, 8, 8)
+    scene = cornell_fog(TBuilder(), device="cpu")
+    cam = tcam(ttfm.look_at(*LOOK), 50.0, 8, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         tpb.render_photonbeam(scene, cam, 8, 8, cfg)
     with pytest.raises(NotImplementedError, match="checkpoint"):

@@ -8,6 +8,8 @@ frameworks' sqrt/exp/log/sin/cos and XLA's contracted multiply-adds differ
 in the last ulps (measured ~1e-7 relative), which the hit distances and the
 NEE shadow walk amplify by at most a few tens of ulps."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from bre_tpu_torch.core import rng as trng
 from bre_tpu_torch.integrators import common as tcommon
 from bre_tpu_torch.scene import intersect as tint
 from bre_tpu_torch.scene.builder import SceneBuilder as TBuilder
+from bre_tpu_torch.scene.camera import make_perspective_camera as tcam
 from bre_tpu_torch.scene.scene import check_slice, scene_from_jax
 from torch_parity import cornell_fog, to_np
 
@@ -34,7 +37,7 @@ from torch_parity import cornell_fog, to_np
 @pytest.fixture(scope="module")
 def scenes():
     js = cornell_fog(JBuilder(), point_light=True)
-    return js, scene_from_jax(js)
+    return js, scene_from_jax(js, device="cpu")
 
 
 def _rays(n=3000, seed=0):
@@ -51,8 +54,9 @@ def _rays(n=3000, seed=0):
 def test_builder_matches_scene_from_jax():
     """The port's SceneBuilder leaves equal the JAX builder's scene carried
     across, leaf for leaf, on the Cornell scene."""
-    ts = cornell_fog(TBuilder(), point_light=True)
-    cs = scene_from_jax(cornell_fog(JBuilder(), point_light=True))
+    ts = cornell_fog(TBuilder(), point_light=True, device="cpu")
+    cs = scene_from_jax(cornell_fog(JBuilder(), point_light=True),
+                        device="cpu")
     for group in ts._fields:
         a, b = getattr(ts, group), getattr(cs, group)
         if isinstance(a, torch.Tensor):
@@ -66,21 +70,45 @@ def test_builder_matches_scene_from_jax():
     assert ts.n_triangles == 24 and ts.n_lights == 3
 
 
+def test_entry_points_default_to_cuda():
+    """SceneBuilder.build, scene_from_jax and make_perspective_camera build
+    on "cuda" unless the caller asks for the CPU; without a card the
+    default call raises instead of carrying on on the CPU."""
+    for fn in (TBuilder.build, scene_from_jax, tcam):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    b = TBuilder()
+    b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    calls = (b.build, lambda: scene_from_jax(JBuilder().build()),
+             lambda: tcam(np.eye(4), 45.0, 8, 8))
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            assert _device_of(out).type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()
+
+
+def _device_of(x):
+    """Device of a Scene or Camera (the first tensor leaf)."""
+    return x.world_min.device if hasattr(x, "world_min") else x[0].device
+
+
 def test_unported_content_raises():
     """Scenes outside the slice fail loudly instead of rendering wrongly."""
     b = JBuilder()
     b.glass()
     b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), material=0)
     with pytest.raises(NotImplementedError, match="matte"):
-        check_slice(scene_from_jax(b.build()))
+        check_slice(scene_from_jax(b.build(), device="cpu"))
     b = JBuilder()
     b.area_light_sphere((0, 0, 0), 0.5, (1, 1, 1))
     with pytest.raises(NotImplementedError, match="lights"):
-        check_slice(scene_from_jax(b.build()))
+        check_slice(scene_from_jax(b.build(), device="cpu"))
     b = JBuilder()
     b.grid_medium(np.ones((2, 2, 2), np.float32), np.eye(4))
     with pytest.raises(NotImplementedError, match="heterogeneous"):
-        scene_from_jax(b.build())
+        scene_from_jax(b.build(), device="cpu")
 
 
 def test_intersect_matches(scenes):
@@ -90,7 +118,7 @@ def test_intersect_matches(scenes):
     b.sphere((0.2, 0.1, 1.0), 0.3, material=0)
     b.triangle((-1, -1, 1.5), (1, -1, 1.5), (0, 1, 1.5), material=0)
     for jsc, tsc in ((js, ts), (b.build(), None)):
-        tsc = tsc if tsc is not None else scene_from_jax(jsc)
+        tsc = tsc if tsc is not None else scene_from_jax(jsc, device="cpu")
         o, d = _rays()
         hj = jint.intersect(jsc, jnp.asarray(o), jnp.asarray(d))
         ht = tint.intersect(tsc, torch.from_numpy(o), torch.from_numpy(d))
@@ -200,7 +228,7 @@ def test_nee_with_boundary_walk_matches():
     jb.box((-1.01, -1.01, -0.01), (1.01, 1.01, 2.01), material=-1,
            medium_inside=0, medium_outside=-1)
     js = jb.build()
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, device="cpu")
     assert jcommon.default_tr_crossings(js) == tcommon.default_tr_crossings(ts) == 2
     rs = np.random.RandomState(5)
     o, d = _rays(1000, seed=5)

@@ -14,9 +14,10 @@ def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def cornell_fog(b, point_light=False):
+def cornell_fog(b, point_light=False, **build_kw):
     """examples/cornell_fog.py's scene (BASELINE config 2) on either
-    package's SceneBuilder; optionally one extra point light in the fog."""
+    package's SceneBuilder; optionally one extra point light in the fog.
+    ``build_kw`` goes to ``build`` (the port's takes ``device="cpu"``)."""
     fog = b.homogeneous_medium((0.02,) * 3, (0.35,) * 3, g=0.0)
     white = b.matte((0.73, 0.73, 0.73))
     red = b.matte((0.63, 0.065, 0.05))
@@ -33,4 +34,4 @@ def cornell_fog(b, point_light=False):
                       (6.0, 5.5, 4.5), medium=fog)
     if point_light:
         b.point_light((0.2, -0.4, 1.1), (0.8, 0.9, 1.0), medium=fog)
-    return b.build()
+    return b.build(**build_kw)
