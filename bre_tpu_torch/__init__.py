@@ -8,8 +8,9 @@ tensors, and the entry points that make them build on "cuda" unless the
 caller asks for the CPU.
 
 The ported slices: the forward progressive photon-beam render
-(``integrators.photonbeam.render_photonbeam``) on homogeneous media, and its
-gradient in the medium parameters (``parallel.mesh.make_inverse_train_step``,
+(``integrators.photonbeam.render_photonbeam``) on homogeneous and
+grid-density media, and its gradient in the medium parameters and the
+density grid (``parallel.mesh.make_inverse_train_step``,
 ``integrators.inverse.optimize_medium``, one device), with the packed
 beam-radiance gather and its backward on hand-written CUDA kernels
 (``ops/gather.py``, ``ops/gather_bwd.py``, ``csrc/``).  Paths outside the

@@ -1,5 +1,5 @@
 """Beam radiance gather, packed path (counterpart of
-``bre_tpu/accel/beam_gather.py:893-1318``, homogeneous media).
+``bre_tpu/accel/beam_gather.py:193-323, 893-1318``).
 
 The beam buffer is validity-compacted and Morton-sorted once per camera pass
 (``pack_beams_compact``); each depth step packs its camera segments, builds
@@ -10,23 +10,37 @@ kernel, as the reference does.  Ray tiles and beam chunks are 256 wide on
 every device: the reference's own off-TPU branch (``_pallas_tile``,
 beam_gather.py:74-75), so the pick matches it.
 
+Grid-density media take the heterogeneous layouts: per segment, the
+polynomial tables of ``medium_interval_poly`` (K = 8 quadrature nodes of the
+trilinear density, fitted by fixed least-squares maps), once per camera
+pass for the beams (packed beside them) and per sweep for the camera
+segments.
+
 The gradient is the reference's custom VJP (``_packed_bwd``): geometry is
 detached where the reference stop-gradients it, and ``_GatherCorePacked``
 returns the analytic cotangents of the backward kernels of
 ``ops/gather_bwd.py`` for the beam powers and radii, the camera
-transmittance, sigma_s and g, on the CPU and on the card alike.
+transmittance, sigma_s and g, and in grid media the tables' coefficients
+(and through them the density grid and sigma_t), on the CPU and on the card
+alike.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..core import transform as tfm
 from ..core.math import length
-from ..media import gather_medium
-from ..ops.gather import (BF_B0, BF_B1, BF_RAD, BF_VALID, NB, RF_G, RF_SIGS,
-                          RF_TR, gather_forward, gather_sparse, pack_rays,
-                          sparse_block_ids)
-from ..ops.gather_bwd import (DR_G, DR_SIGS, DR_TR, NDR, gather_backward_fused,
+from ..media import gather_medium, grid_density
+from ..ops.gather import (BF_B0, BF_B1, BF_RAD, BF_VALID, NB, POLY_D_COEFS,
+                          POLY_DENS_COEFS, RF_DC, RF_DENSC, RF_G, RF_SIGS,
+                          RF_SIGTC, RF_TR, gather_forward, gather_sparse,
+                          is_hetero, pack_rays, sparse_block_ids)
+from ..ops.gather_bwd import (DR_DC, DR_DENS, DR_G, DR_SIGS, DR_SIGTC, DR_TR,
+                              NDR, gather_backward_fused,
                               gather_backward_sparse,
                               sparse_block_ids_chunk_major)
 from ..scene.scene import Media
@@ -35,10 +49,79 @@ from .lbvh import morton3
 TILE = 256  # camera segments per ray tile
 CHUNK = 256  # beams per packed chunk
 
+HETERO_NODES = 8  # quadrature nodes per segment in grid media
+POLY_D_DEG = 5  # D(f) = c1 f + ... + c5 f^5
+POLY_DENS_DEG = 5  # dens(f) = e0 + e1 f + ... + e5 f^5
 
-def pack_beams_compact(beams):
+
+def medium_interval_nodes(media: Media, med_idx, p0, p1, K: int = HETERO_NODES):
+    """Factored per-segment node tables (beam_gather.py:196-236) for
+    segments p0 -> p1 (N, 3): ``(dk, dens, sigma_t)``, dk (N, K) the
+    density times len/K at K midpoints (0 outside media), dens (N, K) the
+    trilinear density (1 for homogeneous media and outside), sigma_t (N, 3)
+    the segment medium's constant extinction (not masked: dk = 0 zeroes
+    both tau and its sigma_t cotangent outside media)."""
+    sigma_a, sigma_s, _, is_grid, in_med = gather_medium(media, med_idx)
+    sigma_t = sigma_a + sigma_s
+    seg_len = length(p1 - p0)
+    fr = (torch.arange(K, dtype=torch.float32, device=p0.device) + 0.5) / K
+    pts = p0[:, None, :] + fr[None, :, None] * (p1 - p0)[:, None, :]
+    one = torch.ones((), dtype=torch.float32, device=p0.device)
+    if media.density.numel() > 1:
+        # grid_density samples medium space [0,1]^3 (grid.cpp:46-60)
+        dens = grid_density(media.density,
+                            tfm.apply_point(media.world_to_medium, pts))
+        dens = torch.where(is_grid[:, None], dens, one)
+    else:
+        dens = torch.ones(seg_len.shape + (K,), dtype=torch.float32,
+                          device=p0.device)
+    dk = torch.where(in_med[:, None], dens * (seg_len / K)[:, None],
+                     torch.zeros((), dtype=torch.float32, device=p0.device))
+    dens = torch.where(in_med[:, None], dens, one)
+    return dk, dens, sigma_t
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_matrices(K: int):
+    """Least-squares maps from K nodes to the polynomial coefficients
+    (beam_gather.py:270-282), numpy float32 constants: D from the clamp
+    basis of the cumulative sum, dens from the hat basis of the node
+    interpolation, both sampled at 129 fractions."""
+    fs = np.linspace(0.0, 1.0, 129)
+    clamp_basis = np.clip(fs[:, None] * K - np.arange(K)[None, :], 0, 1)
+    xq = np.clip(fs * K, 0.5, K - 0.5) - 0.5
+    hat_basis = np.clip(1.0 - np.abs(xq[:, None] - np.arange(K)[None, :]), 0, 1)
+    VD = np.stack([fs ** i for i in range(1, POLY_D_DEG + 1)], -1)
+    VN = np.stack([fs ** i for i in range(0, POLY_DENS_DEG + 1)], -1)
+    MD = np.linalg.lstsq(VD, clamp_basis, rcond=None)[0]  # (5, K)
+    MN = np.linalg.lstsq(VN, hat_basis, rcond=None)[0]  # (6, K)
+    return MD.astype(np.float32), MN.astype(np.float32)
+
+
+def nodes_to_poly(dk, dens):
+    """(N, K) node tables -> (d_poly (N, 5), dens_poly (N, 6)): the fixed
+    linear fit maps, so autograd chains the coefficient cotangents back to
+    the nodes and through them to the density grid.  Full float32 products
+    (matmul TF32 is off by default on the card)."""
+    MD, MN = (torch.from_numpy(m).to(dk.device)
+              for m in _fit_matrices(dk.shape[-1]))
+    return dk @ MD.T, dens @ MN.T
+
+
+def medium_interval_poly(media: Media, med_idx, p0, p1, K: int = HETERO_NODES):
+    """Per-segment polynomial tables: ``(d_poly (N, 5), dens_poly (N, 6),
+    sigma_t (N, 3))`` with tau_ch(f) = sigma_t[ch] * D(f)."""
+    dk, dens, sigma_t = medium_interval_nodes(media, med_idx, p0, p1, K)
+    d_poly, dens_poly = nodes_to_poly(dk, dens)
+    return d_poly, dens_poly, sigma_t
+
+
+def pack_beams_compact(beams, d_poly=None, sigma_t=None):
     """Validity-compact and pack a Beams SoA into the (n_chunks, NB, CHUNK)
     field-major chunk layout.  Returns (beams_packed, n_valid f32 ()).
+    ``d_poly`` (B, 5) and ``sigma_t`` (B, 3), a grid medium's per-beam
+    tables (``medium_interval_poly``), append the NB_HET - NB extension
+    fields, permuted and padded with the rest.
 
     Sort key: validity-major, Morton-minor, one stable argsort — valid beams
     first (the dead-chunk skip) and spatially local chunks (tight chunk
@@ -71,11 +154,15 @@ def pack_beams_compact(beams):
         pe[:, 0], pe[:, 1], pe[:, 2],
         beams.radius, valid_f, zeros, zeros,
     ]
-    mat = torch.stack(cols, 0)[:, order]  # (NB, B), field-major
+    if d_poly is not None:  # grid-medium extension fields
+        cols += [d_poly[:, k] for k in range(POLY_D_COEFS)]
+        cols += [sigma_t[:, ch] for ch in range(3)]
+    nb = len(cols)
+    mat = torch.stack(cols, 0)[:, order]  # (nb, B), field-major
     if Bp != B:
-        mat = torch.cat([mat, torch.zeros((NB, Bp - B), dtype=torch.float32,
+        mat = torch.cat([mat, torch.zeros((nb, Bp - B), dtype=torch.float32,
                                           device=dev)], 1)
-    packed = mat.reshape(NB, n_chunks, CHUNK).permute(1, 0, 2).contiguous()
+    packed = mat.reshape(nb, n_chunks, CHUNK).permute(1, 0, 2).contiguous()
     return packed, valid_f.sum()
 
 
@@ -132,14 +219,18 @@ def pack_ct(ct, n_tiles: int):
 
 def _packed_backward(beams_packed, rays_packed, scalars, block_mask, ct,
                      idx_t, grad_extras: bool):
-    """The reference's ``_packed_bwd`` (beam_gather.py:1121-1208),
-    homogeneous branch: (n_tiles*T, 3) output cotangent -> (d_beams,
-    d_rays) in the packed layouts.  Takes the forward's pick: the sparse
-    kernels over its tile-major ids ``idx_t`` and chunk-major ids of the
-    same cap, the dense kernels where ``idx_t`` is None.  The geometry rows
-    get zero cotangents."""
+    """The reference's ``_packed_bwd`` (beam_gather.py:1121-1208): (n_tiles*T,
+    3) output cotangent -> (d_beams, d_rays) in the packed layouts.  Takes
+    the forward's pick: the sparse kernels over its tile-major ids ``idx_t``
+    and chunk-major ids of the same cap, the dense kernels where ``idx_t``
+    is None.  Grid media always take the dense kernels with the block mask
+    (the reference has no sparse heterogeneous backward, :1147; the
+    skipped blocks hold no in-range pair, so the result is the same).  The
+    geometry rows get zero cotangents, and in grid media the tr_full rows
+    too (the transmittance rides the tables)."""
     ct_packed = pack_ct(ct, rays_packed.shape[0])
-    if idx_t is not None:
+    hetero = is_hetero(rays_packed)
+    if idx_t is not None and not hetero:
         cap = idx_t.shape[0] - rays_packed.shape[0]
         idx_c, _ = sparse_block_ids_chunk_major(block_mask, cap)
         d_rays8, d_beams = gather_backward_sparse(
@@ -150,9 +241,16 @@ def _packed_backward(beams_packed, rays_packed, scalars, block_mask, ct,
             rays_packed, beams_packed, scalars, ct_packed, block_mask,
             want_extras=grad_extras)
     d_rays = torch.zeros_like(rays_packed)
-    d_rays[:, RF_TR:RF_TR + 3] = d_rays8[:, DR_TR:DR_TR + 3]
     d_rays[:, RF_SIGS:RF_SIGS + 3] = d_rays8[:, DR_SIGS:DR_SIGS + 3]
     d_rays[:, RF_G] = d_rays8[:, DR_G]
+    if hetero:
+        d_rays[:, RF_DC:RF_DC + POLY_D_COEFS] = \
+            d_rays8[:, DR_DC:DR_DC + POLY_D_COEFS]
+        d_rays[:, RF_SIGTC:RF_SIGTC + 3] = d_rays8[:, DR_SIGTC:DR_SIGTC + 3]
+        d_rays[:, RF_DENSC:RF_DENSC + POLY_DENS_COEFS] = \
+            d_rays8[:, DR_DENS:DR_DENS + POLY_DENS_COEFS]
+    else:
+        d_rays[:, RF_TR:RF_TR + 3] = d_rays8[:, DR_TR:DR_TR + 3]
     return d_beams, d_rays
 
 
@@ -191,12 +289,14 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
                         sparse_cap: int = 0) -> torch.Tensor:
     """Packed-mode gather (normalized BRE, geometry detached) over
     ``pack_beams_compact``'s chunks: per-ray medium factors are gathered
-    here, rays are padded to a tile multiple and packed, and
-    ``sparse_cap > 0`` enables the sparse-block kernels.  ``grad_extras``
-    False skips the radius and HG g cotangents.  Returns (R, 3)."""
+    here (and, for beams packed with grid tables, the camera segments'
+    tables, geometry detached, medium parameters attached), rays are padded
+    to a tile multiple and packed, and ``sparse_cap > 0`` enables the
+    sparse-block kernels.  ``grad_extras`` False skips the radius and HG g
+    cotangents.  Returns (R, 3)."""
     R = seg_a0.shape[0]
     dev = seg_a0.device
-    _, sigma_s_seg, g_seg, seg_in_med = gather_medium(media, seg_medium)
+    _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
     in_med_f = seg_in_med.to(torch.float32)
     seg = dict(
         a0=seg_a0.detach(), a1=seg_a1.detach(), dir=seg_dir.detach(),
@@ -206,6 +306,10 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
         sigma_s=sigma_s_seg * (power_scale * in_med_f)[:, None],
         g=g_seg, in_med_f=in_med_f,
     )
+    if beams_packed.shape[1] > NB:  # grid media: the camera-side tables
+        dp_c, dens_c, sigt_c = medium_interval_poly(
+            media, seg_medium, seg_a0.detach(), seg_a1.detach())
+        seg.update(d_cam_poly=dp_c, sigma_t_cam=sigt_c, dens_cam_poly=dens_c)
     R_pad = -(-R // TILE) * TILE
     if R_pad != R:
         seg = {k: torch.cat([v, torch.zeros((R_pad - R,) + v.shape[1:],

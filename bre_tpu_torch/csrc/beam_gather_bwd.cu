@@ -3,11 +3,12 @@
 // through ctypes by bre_tpu_torch/ops/gather_bwd.py.
 //
 // Replaces the two Pallas TPU backward kernels of
-// bre_tpu/ops/pallas_gather_bwd.py (homogeneous layouts):
+// bre_tpu/ops/pallas_gather_bwd.py:
 //   - pallas_gather_backward_fused (:373, body _bwd_fused_body :182 over
 //     _pair_quantities :73) — one sweep over the dense (chunk x tile) grid
 //     with the block mask: bre_gather_backward launches bwd_rays_dense and
-//     bwd_beams_dense;
+//     bwd_beams_dense; their grid-medium instances (template argument
+//     HETERO) replace its heterogeneous body _bwd_fused_body_het (:241);
 //   - pallas_gather_backward_sparse (:607, bodies _ray_rows_update :470 and
 //     _beam_cols_update :510) — the same cotangents over the compacted live
 //     blocks, tile-major for d_rays and chunk-major for d_beams:
@@ -20,7 +21,12 @@
 // summed over beams; per beam d ps, d pe and (want_extras) d radius, summed
 // over rays.  Gates as the reference: dead start powers, the pe floor
 // (pe_live), the tr floor (trf_live); every sum over a block is taken before
-// its division by ps_s, pe_s or tr.
+// its division by ps_s, pe_s or tr.  In a grid medium (HETERO): per ray
+// d sigma_s, d sigma_t_c and the camera tables' coefficient cotangents
+// (d D_c coefficients gated by D_c > 0, d dens coefficients gated by
+// dens_c > 0), with the extras d g and d cam_radius; per beam d ps, d
+// sigma_t_b, the beam table's d D_b coefficients (gated by D_b > 0) and d
+// radius.  tau's cotangent -cA chains into the factored tables.
 //
 // What bounds it on an H100: arithmetic, as in the forward.  Each live pair
 // recomputes the forward geometry (~40 FP32 operations) and, inside the blur
@@ -37,6 +43,13 @@
 //     registers, walking its live ray tiles in ascending order, each tile
 //     staged in shared memory (18 KB) with its per-ray terms and ct*sigma_s;
 //     chunks past n_valid write zeros and exit.
+// The grid-medium instances keep that design.  A ray thread of the d_rays
+// sweep holds its ray, ct and its 14 table coefficients in registers with 22
+// accumulators and their per-chunk partial sums; chunks are staged with the
+// beam tables (24 KB).  A beam thread of the d_beams sweep holds its beam
+// and tables; the ray tile is staged with ct, sigma_s and the camera tables
+// (33 KB).  Both sum each tile's or chunk's partials before adding them,
+// as the plain versions do.
 // The pair work is paid twice (once per sweep): the price of deterministic
 // sums without atomics.  Dense and sparse kernels visit the same blocks in
 // the same order, so they agree bit for bit.  Small sweeps (64 ray tiles at
@@ -48,7 +61,13 @@
 namespace {
 
 constexpr int DR_TR = 0, DR_SIGS = 3, DR_G = 6, DR_CAMR = 7, NDR = 8;
+constexpr int CT_ROWS = 8;  // rows of the output cotangent ct (RGB in 0-2)
 constexpr int NBC = 7;  // per-beam cotangents: d ps (3), d pe (3), d radius
+// grid media: d_rays rows after the homogeneous 8 (ops/gather_bwd.py)
+constexpr int DR_DC = 8, DR_SIGTC = 13, DR_DENS = 16, NDR_HET = 22;
+// grid media, per-beam cotangents: d ps (3), d sigma_t_b (3), d D_b
+// coefficients (5), d radius
+constexpr int HB_PS = 0, HB_SIGT = 3, HB_DP = 6, HB_RAD = 11, NBC_HET = 12;
 constexpr float kInv4Pi = 0.07957747154594767f;
 
 // The per-ray terms of the backward besides the Ray: ct, ct * sigma_s and
@@ -69,6 +88,24 @@ __device__ RayCt load_ray_ct(const float* __restrict__ tile_rows,
     rc.trf_live[c] = tr > 1e-30f ? 1.0f : 0.0f;
   }
   return rc;
+}
+
+// Grid media: the camera segment's tables and ct.
+struct RayCtHet {
+  RayTables rt;
+  float ct[3];
+};
+
+// This thread's per-ray terms of either instance.
+template <bool HETERO>
+__device__ auto load_ray_terms(const float* __restrict__ tile_rows,
+                               const float* __restrict__ ct_rows, int lane) {
+  if constexpr (HETERO) {
+    return RayCtHet{load_ray_tables(tile_rows, lane),
+                    {ct_rows[lane], ct_rows[T + lane], ct_rows[2 * T + lane]}};
+  } else {
+    return load_ray_ct(tile_rows, ct_rows, lane);
+  }
 }
 
 // The weights of one in-range pair (_pair_quantities,
@@ -153,39 +190,116 @@ __device__ void rays_sweep_chunk(const float* __restrict__ chunk,
   __syncthreads();  // the next chunk overwrites s
 }
 
-__device__ void write_rays(float* __restrict__ d_rays, int tile,
-                           const float acc[NDR]) {
-  float* o = d_rays + static_cast<size_t>(tile) * NDR * T + threadIdx.x;
+// The grid-medium instance of rays_sweep_chunk (_bwd_fused_body_het, ray
+// side): acc holds the NDR_HET rows of d_rays; the DR_TR rows stay 0.
+template <bool EXTRAS>
+__device__ void rays_sweep_chunk(const float* __restrict__ chunk,
+                                 BeamChunkHet& s, const Ray& r,
+                                 const RayCtHet& rc, float cam_radius,
+                                 float inv_min_sin, float acc[NDR_HET]) {
+  const RayTables& rt = rc.rt;
+  const float* ct = rc.ct;
+  stage_chunk(chunk, s, threadIdx.x, cam_radius);
+  __syncthreads();
+  float part[NDR_HET] = {};
+#pragma unroll 1
+  for (int k = 0; k < C; ++k) {
+    const float b0[3] = {s.b0[0][k], s.b0[1][k], s.b0[2][k]};
+    const float d2[3] = {s.d2[0][k], s.d2[1][k], s.d2[2][k]};
+    const float inv_w = s.inv_w[k];
+    const PairGeom p = closest_points(r.a0, r.d1, r.a, r.inv_a, b0, d2,
+                                      s.e[k], s.inv_e[k], inv_w);
+    if (!(p.r2 < 1.0f)) continue;  // outside the blur width: no cotangent
+    const PairWeights w = pair_weights<EXTRAS>(
+        cos_theta(r.dir, d2, s.ibl[k]), r.g, p.r2, inv_w, inv_min_sin);
+    const float dp[D_COEFS] = {s.dp[0][k], s.dp[1][k], s.dp[2][k],
+                               s.dp[3][k], s.dp[4][k]};
+    const float dens_raw = horner_dens(rt.densc, p.sc);
+    const float dens = fmaxf(dens_raw, 0.0f);
+    const float Db = fmaxf(horner_D(dp, p.tc), 0.0f);
+    const float Dc_raw = horner_D(rt.dc, p.sc);
+    const float Dc = fmaxf(Dc_raw, 0.0f);
+    float m_D = 0.0f, cw = 0.0f;  // sum_ch cA sigma_t_c, ct w0 sigma_s pt
 #pragma unroll
-  for (int row = 0; row < NDR; ++row) o[row * T] = acc[row];
+    for (int ch = 0; ch < 3; ++ch) {
+      const float sig = r.sigs[ch], ps = s.ps[ch][k], stc = rt.sigtc[ch];
+      const float decay = het_decay(s.sigt[ch][k], Db, stc, Dc);
+      const float pt = mul(ps, decay);
+      const float cB = mul(mul(ct[ch], mul(mul(w.w0, sig), dens)), decay);
+      const float cA = mul(cB, ps);
+      part[DR_SIGTC + ch] = add(part[DR_SIGTC + ch], mul(-cA, Dc));
+      m_D = add(m_D, mul(cA, stc));
+      part[DR_SIGS + ch] = add(part[DR_SIGS + ch], mul(mul(w.w0, pt), dens));
+      cw = add(cw, mul(mul(ct[ch], mul(w.w0, sig)), pt));
+      if (EXTRAS) {
+        part[DR_G] = add(part[DR_G],
+                         mul(mul(mul(mul(ct[ch], w.wg), pt), sig), dens));
+        part[DR_CAMR] = add(part[DR_CAMR],
+                            mul(mul(mul(mul(ct[ch], w.wrad), pt), sig), dens));
+      }
+    }
+    // d c_i = dL/dD_c f^(i+1) where D_c > 0; d e_i = dL/d dens f^i where
+    // dens_c > 0
+    const float m_Dm = Dc_raw > 0.0f ? -m_D : 0.0f;
+    float f = p.sc;
+#pragma unroll
+    for (int i = 0; i < D_COEFS; ++i) {
+      part[DR_DC + i] = add(part[DR_DC + i], mul(m_Dm, f));
+      f = mul(f, p.sc);
+    }
+    const float cw_m = dens_raw > 0.0f ? cw : 0.0f;
+    f = 1.0f;
+#pragma unroll
+    for (int i = 0; i < DENS_COEFS; ++i) {
+      part[DR_DENS + i] = add(part[DR_DENS + i], mul(cw_m, f));
+      f = mul(f, p.sc);
+    }
+  }
+  // d sigma_s = ct * (the chunk's sum over beams), as the plain version
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) part[DR_SIGS + ch] = mul(ct[ch], part[DR_SIGS + ch]);
+#pragma unroll
+  for (int row = DR_SIGS; row < NDR_HET; ++row) acc[row] = add(acc[row], part[row]);
+  __syncthreads();  // the next chunk overwrites s
+}
+
+template <int ROWS>
+__device__ void write_rays(float* __restrict__ d_rays, int tile,
+                           const float acc[ROWS]) {
+  float* o = d_rays + static_cast<size_t>(tile) * ROWS * T + threadIdx.x;
+#pragma unroll
+  for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];
 }
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
 // mask: (n_chunks, n_tiles), 0 = skip the block.  ct: (n_tiles, 8, T).
-template <bool EXTRAS>
+// d_rays: (n_tiles, 8, T), (n_tiles, NDR_HET, T) for grid media.
+template <bool EXTRAS, bool HETERO>
 __global__ void __launch_bounds__(T)
 bwd_rays_dense(const float* __restrict__ rays, const float* __restrict__ beams,
                const float* __restrict__ scalars,
                const float* __restrict__ mask, const float* __restrict__ ct,
                float* __restrict__ d_rays, int n_tiles, int n_chunks) {
-  __shared__ BeamChunk s;
+  constexpr int nf = HETERO ? NF_HET : NF, nb = HETERO ? NB_HET : NB;
+  constexpr int ndr = HETERO ? NDR_HET : NDR;
+  __shared__ ChunkT<HETERO> s;
   const int tile = blockIdx.x;
-  const float* tile_rows = rays + static_cast<size_t>(tile) * NF * T;
+  const float* tile_rows = rays + static_cast<size_t>(tile) * nf * T;
+  const float* ct_rows = ct + static_cast<size_t>(tile) * CT_ROWS * T;
   const Ray r = load_ray(tile_rows, threadIdx.x);
-  const RayCt rc = load_ray_ct(
-      tile_rows, ct + static_cast<size_t>(tile) * NDR * T, threadIdx.x);
   const float cam_radius = scalars[0];
   const float inv_min_sin = 1.0f / scalars[2];
   const float n_valid = scalars[3];
-  float acc[NDR] = {};
+  const auto rc = load_ray_terms<HETERO>(tile_rows, ct_rows, threadIdx.x);
+  float acc[ndr] = {};
   for (int j = 0; j < n_chunks; ++j) {
     // beams are validity-compacted: every chunk past n_valid is dead
     if (!(static_cast<float>(j * C) < n_valid)) break;
     if (!(__ldg(mask + static_cast<size_t>(j) * n_tiles + tile) > 0.0f)) continue;
-    rays_sweep_chunk<EXTRAS>(beams + static_cast<size_t>(j) * NB * C, s, r,
+    rays_sweep_chunk<EXTRAS>(beams + static_cast<size_t>(j) * nb * C, s, r,
                              rc, cam_radius, inv_min_sin, acc);
   }
-  write_rays(d_rays, tile, acc);
+  write_rays<ndr>(d_rays, tile, acc);
 }
 
 // idx: tile-major ids of ops/gather.py sparse_block_ids; tile_start[t] ..
@@ -202,7 +316,7 @@ bwd_rays_sparse(const float* __restrict__ rays, const float* __restrict__ beams,
   const float* tile_rows = rays + static_cast<size_t>(tile) * NF * T;
   const Ray r = load_ray(tile_rows, threadIdx.x);
   const RayCt rc = load_ray_ct(
-      tile_rows, ct + static_cast<size_t>(tile) * NDR * T, threadIdx.x);
+      tile_rows, ct + static_cast<size_t>(tile) * CT_ROWS * T, threadIdx.x);
   const float cam_radius = scalars[0];
   const float inv_min_sin = 1.0f / scalars[2];
   const float n_valid = scalars[3];
@@ -215,7 +329,7 @@ bwd_rays_sparse(const float* __restrict__ rays, const float* __restrict__ beams,
     rays_sweep_chunk<EXTRAS>(beams + static_cast<size_t>(sub - 1) * NB * C, s,
                              r, rc, cam_radius, inv_min_sin, acc);
   }
-  write_rays(d_rays, tile, acc);
+  write_rays<NDR>(d_rays, tile, acc);
 }
 
 // ---- sweep 2: d_beams, one thread per beam -------------------------------
@@ -286,41 +400,159 @@ __device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
   __syncthreads();  // the next tile overwrites s
 }
 
-// d_beams rows: zeros for the geometry and padding fields, d ps at BF_PS,
-// d pe at BF_PE, d radius at BF_RAD.
-__device__ void write_beams(float* __restrict__ d_beams, int chunk,
-                            const float acc[NBC]) {
-  float* o = d_beams + static_cast<size_t>(chunk) * NB * C + threadIdx.x;
+// One staged grid-medium ray tile, field-major (33 KB).
+struct RayTileHet {
+  float a0[3][T];
+  float d1[3][T];
+  float dir[3][T];
+  float ct[3][T];
+  float sigs[3][T];
+  float sigtc[3][T];
+  float dc[D_COEFS][T];
+  float densc[DENS_COEFS][T];
+  float a[T];
+  float inv_a[T];
+  float g[T];
+};
+
+// The grid-medium instance of beams_sweep_tile (_bwd_fused_body_het, beam
+// side): acc holds d ps, d sigma_t_b, d D_b coefficients and d radius
+// (HB_* slots).
+template <bool EXTRAS>
+__device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
+                                 const float* __restrict__ ct_rows,
+                                 RayTileHet& s, const BeamHet& bm,
+                                 float inv_min_sin, float acc[NBC_HET]) {
+  const int lane = threadIdx.x;
+  const Ray r = load_ray(tile_rows, lane);
+  const RayTables rt = load_ray_tables(tile_rows, lane);
 #pragma unroll
-  for (int row = 0; row < NB; ++row) {
-    const int k = row - BF_PS;
-    o[row * C] = (k >= 0 && k < NBC) ? acc[k] : 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    s.a0[c][lane] = r.a0[c];
+    s.d1[c][lane] = r.d1[c];
+    s.dir[c][lane] = r.dir[c];
+    s.ct[c][lane] = ct_rows[c * T + lane];
+    s.sigs[c][lane] = r.sigs[c];
+    s.sigtc[c][lane] = rt.sigtc[c];
+  }
+#pragma unroll
+  for (int i = 0; i < D_COEFS; ++i) s.dc[i][lane] = rt.dc[i];
+#pragma unroll
+  for (int i = 0; i < DENS_COEFS; ++i) s.densc[i][lane] = rt.densc[i];
+  s.a[lane] = r.a;
+  s.inv_a[lane] = r.inv_a;
+  s.g[lane] = r.g;
+  __syncthreads();
+  float part[NBC_HET] = {};
+#pragma unroll 1
+  for (int i = 0; i < T; ++i) {
+    const float a0[3] = {s.a0[0][i], s.a0[1][i], s.a0[2][i]};
+    const float d1[3] = {s.d1[0][i], s.d1[1][i], s.d1[2][i]};
+    const PairGeom p = closest_points(a0, d1, s.a[i], s.inv_a[i], bm.b0,
+                                      bm.d2, bm.e, bm.inv_e, bm.inv_w);
+    if (!(p.r2 < 1.0f)) continue;
+    const float dir[3] = {s.dir[0][i], s.dir[1][i], s.dir[2][i]};
+    const PairWeights w = pair_weights<EXTRAS>(
+        cos_theta(dir, bm.d2, bm.ibl), s.g[i], p.r2, bm.inv_w, inv_min_sin);
+    float densc[DENS_COEFS], dc[D_COEFS];
+#pragma unroll
+    for (int j = 0; j < DENS_COEFS; ++j) densc[j] = s.densc[j][i];
+#pragma unroll
+    for (int j = 0; j < D_COEFS; ++j) dc[j] = s.dc[j][i];
+    const float dens = fmaxf(horner_dens(densc, p.sc), 0.0f);
+    const float Dc = fmaxf(horner_D(dc, p.sc), 0.0f);
+    const float Db_raw = horner_D(bm.dp, p.tc);
+    const float Db = fmaxf(Db_raw, 0.0f);
+    float m_D = 0.0f;  // sum_ch cA sigma_t_b
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float ct = s.ct[ch][i], sig = s.sigs[ch][i];
+      const float decay = het_decay(bm.sigt[ch], Db, s.sigtc[ch][i], Dc);
+      const float pt = mul(bm.ps[ch], decay);
+      const float cB = mul(mul(ct, mul(mul(w.w0, sig), dens)), decay);
+      const float cA = mul(cB, bm.ps[ch]);
+      part[HB_PS + ch] = add(part[HB_PS + ch], cB);
+      part[HB_SIGT + ch] = add(part[HB_SIGT + ch], mul(-cA, Db));
+      m_D = add(m_D, mul(cA, bm.sigt[ch]));
+      if (EXTRAS)
+        part[HB_RAD] = add(part[HB_RAD],
+                           mul(mul(mul(mul(ct, w.wrad), pt), sig), dens));
+    }
+    const float m_Dm = Db_raw > 0.0f ? -m_D : 0.0f;
+    float f = p.tc;
+#pragma unroll
+    for (int j = 0; j < D_COEFS; ++j) {
+      part[HB_DP + j] = add(part[HB_DP + j], mul(m_Dm, f));
+      f = mul(f, p.tc);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NBC_HET; ++k) acc[k] = add(acc[k], part[k]);
+  __syncthreads();  // the next tile overwrites s
+}
+
+// d_beams rows: zeros for the geometry and padding fields, d ps at BF_PS,
+// d pe at BF_PE, d radius at BF_RAD.  Grid media: d ps at BF_PS, d radius
+// at BF_RAD, the D_b coefficients' cotangents at BF_DP, d sigma_t_b at
+// BF_SIGT; zeros elsewhere (pe too).
+template <bool HETERO>
+__device__ void write_beams(float* __restrict__ d_beams, int chunk,
+                            const float* acc) {
+  constexpr int nb = HETERO ? NB_HET : NB;
+  float* o = d_beams + static_cast<size_t>(chunk) * nb * C + threadIdx.x;
+#pragma unroll
+  for (int row = 0; row < nb; ++row) {
+    float v = 0.0f;
+    if constexpr (HETERO) {
+      if (row >= BF_PS && row < BF_PS + 3) v = acc[HB_PS + row - BF_PS];
+      if (row == BF_RAD) v = acc[HB_RAD];
+      if (row >= BF_DP && row < BF_DP + D_COEFS) v = acc[HB_DP + row - BF_DP];
+      if (row >= BF_SIGT && row < BF_SIGT + 3) v = acc[HB_SIGT + row - BF_SIGT];
+    } else {
+      const int k = row - BF_PS;
+      if (k >= 0 && k < NBC) v = acc[k];
+    }
+    o[row * C] = v;
   }
 }
 
-template <bool EXTRAS>
+// Beam `lane` of a chunk with its derived terms, either instance.
+template <bool HETERO>
+__device__ auto load_beam_any(const float* __restrict__ chunk, int lane,
+                              float cam_radius) {
+  if constexpr (HETERO) {
+    return load_beam_het(chunk, lane, cam_radius);
+  } else {
+    return load_beam(chunk, lane, cam_radius);
+  }
+}
+
+template <bool EXTRAS, bool HETERO>
 __global__ void __launch_bounds__(T)
 bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
                 const float* __restrict__ scalars,
                 const float* __restrict__ mask, const float* __restrict__ ct,
                 float* __restrict__ d_beams, int n_tiles) {
-  __shared__ RayTile s;
+  constexpr int nf = HETERO ? NF_HET : NF, nb = HETERO ? NB_HET : NB;
+  using Tile = typename std::conditional<HETERO, RayTileHet, RayTile>::type;
+  __shared__ Tile s;
   const int chunk = blockIdx.x;
-  float acc[NBC] = {};
+  const float* chunk_fields = beams + static_cast<size_t>(chunk) * nb * C;
+  const float* mrow = mask + static_cast<size_t>(chunk) * n_tiles;
+  const float inv_min_sin = 1.0f / scalars[2];
   // chunks past n_valid hold no live beam: zeros, and the block exits
+  float acc[HETERO ? NBC_HET : NBC] = {};
   if (static_cast<float>(chunk * C) < scalars[3]) {
-    const Beam bm = load_beam(beams + static_cast<size_t>(chunk) * NB * C,
-                              threadIdx.x, scalars[0]);
-    const float inv_min_sin = 1.0f / scalars[2];
-    const float* mrow = mask + static_cast<size_t>(chunk) * n_tiles;
+    const auto bm = load_beam_any<HETERO>(chunk_fields, threadIdx.x,
+                                          scalars[0]);
     for (int i = 0; i < n_tiles; ++i) {
       if (!(__ldg(mrow + i) > 0.0f)) continue;
-      beams_sweep_tile<EXTRAS>(rays + static_cast<size_t>(i) * NF * T,
-                               ct + static_cast<size_t>(i) * NDR * T, s, bm,
-                               inv_min_sin, acc);
+      beams_sweep_tile<EXTRAS>(rays + static_cast<size_t>(i) * nf * T,
+                               ct + static_cast<size_t>(i) * CT_ROWS * T, s,
+                               bm, inv_min_sin, acc);
     }
   }
-  write_beams(d_beams, chunk, acc);
+  write_beams<HETERO>(d_beams, chunk, acc);
 }
 
 // idx: chunk-major ids of ops/gather_bwd.py sparse_block_ids_chunk_major;
@@ -347,23 +579,23 @@ bwd_beams_sparse(const float* __restrict__ rays,
       const int sub = __ldg(idx + k) % n1;  // 0 = seed entry
       if (sub == 0) continue;
       beams_sweep_tile<EXTRAS>(rays + static_cast<size_t>(sub - 1) * NF * T,
-                               ct + static_cast<size_t>(sub - 1) * NDR * T, s,
-                               bm, inv_min_sin, acc);
+                               ct + static_cast<size_t>(sub - 1) * CT_ROWS * T,
+                               s, bm, inv_min_sin, acc);
     }
   }
-  write_beams(d_beams, chunk, acc);
+  write_beams<false>(d_beams, chunk, acc);
 }
 
-template <bool EXTRAS>
+template <bool EXTRAS, bool HETERO>
 int launch_dense(const float* rays, const float* beams, const float* scalars,
                  const float* mask, const float* ct, float* d_rays,
                  float* d_beams, int n_tiles, int n_chunks,
                  cudaStream_t stream) {
-  bwd_rays_dense<EXTRAS><<<n_tiles, T, 0, stream>>>(
+  bwd_rays_dense<EXTRAS, HETERO><<<n_tiles, T, 0, stream>>>(
       rays, beams, scalars, mask, ct, d_rays, n_tiles, n_chunks);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_beams_dense<EXTRAS><<<n_chunks, T, 0, stream>>>(
+  bwd_beams_dense<EXTRAS, HETERO><<<n_chunks, T, 0, stream>>>(
       rays, beams, scalars, mask, ct, d_beams, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -387,16 +619,28 @@ int launch_sparse(const float* rays, const float* beams,
 
 extern "C" {
 
+// hetero: 0 = homogeneous layouts, 1 = grid media (NF_HET rays, NB_HET
+// beams, NDR_HET d_rays rows)
 int bre_gather_backward(const float* rays, const float* beams,
                         const float* scalars, const float* mask,
                         const float* ct, float* d_rays, float* d_beams,
-                        int n_tiles, int n_chunks, int want_extras,
+                        int n_tiles, int n_chunks, int want_extras, int hetero,
                         cudaStream_t stream) {
+  if (hetero)
+    return want_extras
+               ? launch_dense<true, true>(rays, beams, scalars, mask, ct,
+                                          d_rays, d_beams, n_tiles, n_chunks,
+                                          stream)
+               : launch_dense<false, true>(rays, beams, scalars, mask, ct,
+                                           d_rays, d_beams, n_tiles, n_chunks,
+                                           stream);
   return want_extras
-             ? launch_dense<true>(rays, beams, scalars, mask, ct, d_rays,
-                                  d_beams, n_tiles, n_chunks, stream)
-             : launch_dense<false>(rays, beams, scalars, mask, ct, d_rays,
-                                   d_beams, n_tiles, n_chunks, stream);
+             ? launch_dense<true, false>(rays, beams, scalars, mask, ct,
+                                         d_rays, d_beams, n_tiles, n_chunks,
+                                         stream)
+             : launch_dense<false, false>(rays, beams, scalars, mask, ct,
+                                          d_rays, d_beams, n_tiles, n_chunks,
+                                          stream);
 }
 
 int bre_gather_backward_sparse(const float* rays, const float* beams,

@@ -1,12 +1,15 @@
 // Device code shared by the gather kernels (beam_gather_fwd.cu,
 // beam_gather_bwd.cu): the packed layouts of ops/gather.py, explicitly
-// rounded arithmetic, one ray and one beam with their derived terms, and the
-// pair geometry.  The geometry decides whether a (ray, beam) pair counts at
-// all, so every kernel computes it with these functions, rounding for
-// rounding as the plain versions in ops/gather.py do.
+// rounded arithmetic, one ray and one beam with their derived terms, the
+// grid-media (heterogeneous) tables, and the pair geometry.  The geometry
+// decides whether a (ray, beam) pair counts at all, so every kernel computes
+// it with these functions, rounding for rounding as the plain versions in
+// ops/gather.py do.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -18,6 +21,14 @@ constexpr int NB = 16;   // packed beam fields (ops/gather.py BF_*)
 constexpr int RF_A0 = 0, RF_A1 = 3, RF_DIR = 6, RF_TR = 10, RF_SIGS = 13,
               RF_G = 16;
 constexpr int BF_B0 = 0, BF_B1 = 3, BF_PS = 6, BF_PE = 9, BF_RAD = 12;
+
+// Heterogeneous extension (ops/gather.py): per segment, D(f) (5
+// coefficients, no constant term) and dens(f) (6) polynomials and the
+// medium's sigma_t; tau_ch(f) = sigma_t[ch] * D(f).
+constexpr int D_COEFS = 5, DENS_COEFS = 6;
+constexpr int NF_HET = 32, NB_HET = 24;
+constexpr int RF_DC = 18, RF_SIGTC = 23, RF_DENSC = 26;
+constexpr int BF_DP = 16, BF_SIGT = 21;
 
 __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
@@ -74,9 +85,11 @@ struct Beam {
   float pe_live[3]; // 1 where pe is above the floor
 };
 
-__device__ Beam load_beam(const float* __restrict__ chunk, int lane,
-                          float cam_radius) {
-  Beam b;
+// The geometry terms of beam `lane` of a chunk, into any beam struct with
+// the fields b0, d2, e, inv_e, inv_w, ibl.
+template <class B>
+__device__ void load_beam_geom(const float* __restrict__ chunk, int lane,
+                               float cam_radius, B& b) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     b.b0[c] = chunk[(BF_B0 + c) * C + lane];
@@ -86,6 +99,12 @@ __device__ Beam load_beam(const float* __restrict__ chunk, int lane,
   b.inv_e = b.e > 1e-12f ? 1.0f / b.e : 0.0f;
   b.inv_w = 1.0f / fmaxf(add(cam_radius, chunk[BF_RAD * C + lane]), 1e-30f);
   b.ibl = rsqrtf(fmaxf(b.e, 1e-30f));
+}
+
+__device__ Beam load_beam(const float* __restrict__ chunk, int lane,
+                          float cam_radius) {
+  Beam b;
+  load_beam_geom(chunk, lane, cam_radius, b);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float ps = chunk[(BF_PS + c) * C + lane];
@@ -128,6 +147,111 @@ __device__ void stage_chunk(const float* __restrict__ chunk, BeamChunk& s,
   s.inv_e[lane] = b.inv_e;
   s.inv_w[lane] = b.inv_w;
   s.ibl[lane] = b.ibl;
+}
+
+// One photon beam of a grid medium: the geometry terms, the raw start
+// power (the decay rides the tables, so pe is not read) and the tables.
+struct BeamHet {
+  float b0[3], d2[3];
+  float e, inv_e, inv_w, ibl;
+  float ps[3];
+  float dp[D_COEFS];  // D(f) coefficients
+  float sigt[3];      // the beam medium's sigma_t
+};
+
+__device__ BeamHet load_beam_het(const float* __restrict__ chunk, int lane,
+                                 float cam_radius) {
+  BeamHet b;
+  load_beam_geom(chunk, lane, cam_radius, b);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    b.ps[c] = chunk[(BF_PS + c) * C + lane];
+    b.sigt[c] = chunk[(BF_SIGT + c) * C + lane];
+  }
+#pragma unroll
+  for (int i = 0; i < D_COEFS; ++i) b.dp[i] = chunk[(BF_DP + i) * C + lane];
+  return b;
+}
+
+// One staged grid-medium beam chunk, field-major (24 KB).
+struct BeamChunkHet {
+  float b0[3][C];
+  float d2[3][C];
+  float e[C];
+  float inv_e[C];
+  float inv_w[C];
+  float ibl[C];
+  float ps[3][C];
+  float dp[D_COEFS][C];
+  float sigt[3][C];
+};
+
+__device__ void stage_chunk(const float* __restrict__ chunk, BeamChunkHet& s,
+                            int lane, float cam_radius) {
+  const BeamHet b = load_beam_het(chunk, lane, cam_radius);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.b0[c][lane] = b.b0[c];
+    s.d2[c][lane] = b.d2[c];
+    s.ps[c][lane] = b.ps[c];
+    s.sigt[c][lane] = b.sigt[c];
+  }
+#pragma unroll
+  for (int i = 0; i < D_COEFS; ++i) s.dp[i][lane] = b.dp[i];
+  s.e[lane] = b.e;
+  s.inv_e[lane] = b.inv_e;
+  s.inv_w[lane] = b.inv_w;
+  s.ibl[lane] = b.ibl;
+}
+
+// The staged chunk of either instance.
+template <bool HETERO>
+using ChunkT = typename std::conditional<HETERO, BeamChunkHet, BeamChunk>::type;
+
+// The camera segment's grid-medium tables (rows RF_DC, RF_SIGTC, RF_DENSC).
+struct RayTables {
+  float dc[D_COEFS];
+  float sigtc[3];
+  float densc[DENS_COEFS];
+};
+
+__device__ RayTables load_ray_tables(const float* __restrict__ tile_rows,
+                                     int lane) {
+  RayTables t;
+#pragma unroll
+  for (int i = 0; i < D_COEFS; ++i) t.dc[i] = tile_rows[(RF_DC + i) * T + lane];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) t.sigtc[c] = tile_rows[(RF_SIGTC + c) * T + lane];
+#pragma unroll
+  for (int i = 0; i < DENS_COEFS; ++i)
+    t.densc[i] = tile_rows[(RF_DENSC + i) * T + lane];
+  return t;
+}
+
+// Horner evaluations of the tables at fraction f, before their clamps at 0,
+// in the plain version's order (ops/gather.py hetero_tables_ref):
+// dens(f) = e0 + f (e1 + f (...)), D(f) = f (c1 + f (c2 + ...)).  Rounded
+// step by step like the geometry; Horner is well conditioned, so this
+// costs only the unfused multiply-adds.
+__device__ __forceinline__ float horner_dens(const float e[DENS_COEFS],
+                                             float f) {
+  float acc = e[DENS_COEFS - 1];
+#pragma unroll
+  for (int k = DENS_COEFS - 2; k >= 0; --k) acc = add(e[k], mul(f, acc));
+  return acc;
+}
+
+__device__ __forceinline__ float horner_D(const float c[D_COEFS], float f) {
+  float acc = c[D_COEFS - 1];
+#pragma unroll
+  for (int k = D_COEFS - 2; k >= 0; --k) acc = add(c[k], mul(f, acc));
+  return mul(f, acc);
+}
+
+// exp(-tau) for one channel, tau = sigma_t_b D_b + sigma_t_c D_c.
+__device__ __forceinline__ float het_decay(float sigt_b, float Db,
+                                           float sigt_c, float Dc) {
+  return expf(-add(mul(sigt_b, Db), mul(sigt_c, Dc)));
 }
 
 struct PairGeom {

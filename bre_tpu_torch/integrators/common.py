@@ -17,9 +17,10 @@ from ..scene.scene import Scene
 from .photon_trace import _segment_tr
 
 
-def segment_transmittance_det(scene: Scene, med_idx, d, t_end):
-    """Deterministic per-segment transmittance, shared with photon tracing."""
-    return _segment_tr(scene, med_idx, d, t_end)
+def segment_transmittance_det(scene: Scene, med_idx, o, d, t_end):
+    """Deterministic per-segment transmittance (homogeneous analytic, grid
+    by 16-point quadrature), shared with photon tracing."""
+    return _segment_tr(scene, med_idx, o, d, t_end)
 
 
 def default_tr_crossings(scene: Scene) -> int:
@@ -44,14 +45,14 @@ def segment_transmittance_walk(scene: Scene, med_idx, o, d, t_end,
     null-material medium boundaries (the deterministic Scene::IntersectTr
     walk, scene.cpp:63-92).  Occlusion by real surfaces is the caller's."""
     if max_crossings <= 0:
-        return segment_transmittance_det(scene, med_idx, d, t_end)
+        return segment_transmittance_det(scene, med_idx, o, d, t_end)
     R = o.shape[0]
     tr = torch.ones((R, 3), dtype=torch.float32, device=o.device)
     o_cur, med, remaining = o, med_idx, t_end
     for _ in range(max_crossings + 1):
         h = intersect(scene, o_cur, d, t_max=remaining)
         t_hit = torch.where(h.valid, torch.minimum(h.t, remaining), remaining)
-        tr = tr * segment_transmittance_det(scene, med, d, t_hit)
+        tr = tr * segment_transmittance_det(scene, med, o_cur, d, t_hit)
         crossing = h.valid & (h.material < 0) & (h.t < remaining)
         entering = dot(d, h.n) < 0.0
         med_next = torch.where(entering, h.medium_inside, h.medium_outside)
@@ -91,7 +92,7 @@ def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
     ls = sample_li(scene, light_idx, p, u2)
     f_surf, _ = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi)
     f_surf = f_surf * absdot(ls.wi, n)[:, None]
-    _, _, g_here, _ = gather_medium(scene.media, med_idx)
+    _, _, g_here, _, _ = gather_medium(scene.media, med_idx)
     f_med = hg_p(wo, ls.wi, g_here)[:, None].expand(-1, 3)
     f = torch.where(is_surface[:, None], f_surf, f_med)
 

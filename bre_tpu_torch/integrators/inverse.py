@@ -1,10 +1,10 @@
 """Inverse rendering: recover medium parameters from target images
-(counterpart of ``bre_tpu/integrators/inverse.py``, homogeneous media).
+(counterpart of ``bre_tpu/integrators/inverse.py``).
 
 Each optimizer step renders one progressive iteration with a fresh photon
 seed (a stochastic gradient over photon populations) and takes one Adam
-step on mean((render - target)^2).  Density grids and their total-variation
-prior are grid media (ROADMAP Queue 1 item 3) and raise.
+step on mean((render - target)^2), plus, when the density grid of a grid
+medium is fitted, ``tv_weight`` times its total-variation prior.
 """
 
 from __future__ import annotations
@@ -27,8 +27,19 @@ class InverseConfig:
     learning_rate: float = 2e-2
     n_devices: Optional[int] = None  # None and 1: the scene's one device
     optimize: tuple = ("sigma_a", "sigma_s")  # subset of params to fit
-    tv_weight: float = 0.0  # density-grid prior: > 0 raises (grid media)
+    # total-variation prior on the density grid, loss += tv_weight *
+    # sum over axes of mean(diff(density)^2); applies when density is fitted
+    tv_weight: float = 0.0
     view_block: int = 25  # consecutive steps per view before cycling
+
+
+def tv_prior(density: torch.Tensor, weight: float):
+    """(weight * TV, its gradient) of a density grid, TV = the sum over the
+    three axes of mean(diff(density)^2) (inverse.py:97-110)."""
+    d = density.detach().requires_grad_()
+    tv = sum(torch.mean(torch.diff(d, dim=ax) ** 2) for ax in range(3))
+    (grad,) = torch.autograd.grad(weight * tv, d)
+    return (weight * tv).detach(), grad
 
 
 def optimize_medium(scene: Scene, camera, width: int, height: int, target,
@@ -42,14 +53,6 @@ def optimize_medium(scene: Scene, camera, width: int, height: int, target,
     ``camera``/``target`` may be lists of matching length: steps then cycle
     through the views, ``view_block`` steps per view."""
     check_devices(inv_cfg.n_devices)
-    if inv_cfg.tv_weight > 0.0:
-        raise NotImplementedError(
-            "tv_weight > 0 regularizes a density grid: grid media are not "
-            "ported (ROADMAP Queue 1 item 3: heterogeneous media)")
-    if "density" in inv_cfg.optimize:
-        raise NotImplementedError(
-            "optimizing density needs grid media (ROADMAP Queue 1 item 3: "
-            "heterogeneous media)")
     cameras = [camera] if isinstance(camera, Camera) else list(camera)
     targets = [target] if len(cameras) == 1 and not isinstance(
         target, (list, tuple)) else list(target)
@@ -59,7 +62,8 @@ def optimize_medium(scene: Scene, camera, width: int, height: int, target,
                                         inv_cfg.n_devices) for c in cameras]
     dev = scene.device
     params = init_params or dict(sigma_a=scene.media.sigma_a,
-                                 sigma_s=scene.media.sigma_s, g=scene.media.g)
+                                 sigma_s=scene.media.sigma_s, g=scene.media.g,
+                                 density=scene.media.density)
     params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
               .detach().clone() for k, v in params.items()}
     # torch's Adam with eps=1e-8 is optax.adam's update lr*m_hat /
@@ -74,6 +78,10 @@ def optimize_medium(scene: Scene, camera, width: int, height: int, target,
     for it in range(inv_cfg.steps):
         vi = (it // max(inv_cfg.view_block, 1)) % len(cameras)
         loss, grads = step_fns[vi](params, targets_flat[vi], it, radius)
+        if inv_cfg.tv_weight > 0.0 and "density" in inv_cfg.optimize:
+            tv, tv_grad = tv_prior(params["density"], inv_cfg.tv_weight)
+            loss = loss + tv
+            grads = dict(grads, density=grads["density"] + tv_grad)
         opt.zero_grad(set_to_none=True)
         for k, p in zip(inv_cfg.optimize, fitted):
             p.grad = grads[k]

@@ -12,8 +12,9 @@ The reference's ``lax.scan`` over iterations and over camera depth steps are
 Python loops here, and its ``lax.cond`` ray-budget tiers are Python branches
 on a count read from the device (one host sync per depth step).  The slice
 covers ``kernel="bre"``, ``gather="auto"``/``"pallas"`` with
-``grad_geometry=False`` and ``rendermedia=True`` on homogeneous media; other
-settings raise NotImplementedError naming their ROADMAP item.
+``grad_geometry=False`` and ``rendermedia=True`` on homogeneous and
+grid-density media; other settings raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..accel.beam_gather import CHUNK, TILE, gather_beams_packed, pack_beams_compact
+from ..accel.beam_gather import (CHUNK, TILE, gather_beams_packed,
+                                 medium_interval_poly, pack_beams_compact)
 from ..core.math import absdot, dot, offset_ray_origin
 from ..core.rng import pcg32_init, pcg32_next_f32
 from ..core.spectrum import luminance
@@ -112,7 +114,14 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
     # None means 0 here, as in the reference; render_photonbeam resolves it
     # from the scene before the first pass
     tr_crossings = cfg.tr_crossings or 0
-    beams_packed, n_valid_beams = pack_beams_compact(beams)
+    # grid media: the beams' polynomial tables, once per pass, packed beside
+    # them (photonbeam.py:196-202); the gathers then take the hetero layouts
+    d_poly = sigma_t = None
+    if scene.media.density.numel() > 1:
+        d_poly, _, sigma_t = medium_interval_poly(
+            scene.media, beams.medium, beams.start, beams.end)
+    beams_packed, n_valid_beams = pack_beams_compact(beams, d_poly=d_poly,
+                                                     sigma_t=sigma_t)
     power_scale = 1.0 / float(photons_per_iter)
 
     sparse_cap = cfg.gather_sparse_cap
@@ -153,7 +162,7 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
         # clamp the 1e30 miss sentinel to world scale before the gather
         t_seg = torch.minimum(h.t, span)
         p_seg_end = o + t_seg[:, None] * d
-        tr_seg = segment_transmittance_det(scene, medium, d, t_seg)
+        tr_seg = segment_transmittance_det(scene, medium, o, d, t_seg)
 
         # gather on in-medium segments (photonbeam.cpp:494)
         seg_valid = alive & h.valid & (medium >= 0)

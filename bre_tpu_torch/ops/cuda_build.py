@@ -31,11 +31,14 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("beam_gather_fwd.cu", "beam_gather_bwd.cu")
 HEADERS = ("pair_math.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libbre_tpu_torch_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the last nvcc run
+# ptxas's report of the last build (registers, shared memory and spills per
+# kernel instance, from -Xptxas -v)
+build_log: Optional[str] = None
 
 
 def find_nvcc() -> str:
@@ -66,7 +69,7 @@ def build_library() -> Path:
     """Compile the sources unless the hashed build already exists; returns
     the library path.  The library is written to a temporary name and moved
     into place, so concurrent builders never load a partial file."""
-    global build_seconds
+    global build_seconds, build_log
     out_dir = BUILD_DIR / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -85,6 +88,7 @@ def build_library() -> Path:
         outs = [proc.communicate() for proc in procs]
         for cmd, proc, (out, err) in zip(compiles, procs, outs):
             _check_nvcc(cmd, proc.returncode, out, err)
+        build_log = "".join(out + err for out, err in outs)
         tmp = os.path.join(tmp_dir, LIB_NAME)
         link = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(link, capture_output=True, text=True)
@@ -109,15 +113,16 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bre_cuda_error_string.argtypes = [i]
     lib.bre_cuda_error_string.restype = ctypes.c_char_p
-    # rays, beams, scalars, mask, out, n_tiles, n_chunks, stream
-    lib.bre_gather_forward.argtypes = [p, p, p, p, p, i, i, p]
+    # rays, beams, scalars, mask, out, n_tiles, n_chunks, hetero, stream
+    lib.bre_gather_forward.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.bre_gather_forward.restype = i
-    # rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks, stream
-    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, i, i, p]
+    # rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks, hetero,
+    # stream
+    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.bre_gather_sparse.restype = i
     # rays, beams, scalars, mask, ct, d_rays, d_beams, n_tiles, n_chunks,
-    # want_extras, stream
-    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    # want_extras, hetero, stream
+    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bre_gather_backward.restype = i
     # rays, beams, scalars, ct, idx_t, tile_start, idx_c, chunk_start,
     # d_rays, d_beams, n_tiles, n_chunks, want_extras, stream

@@ -5,7 +5,7 @@ For a tile of camera segments and a chunk of photon beams, every
 (segment, beam) pair contributes the physically normalized 1D-1D beam
 radiance estimate; contributions are summed per segment.
 
-Packed layouts (the reference's, homogeneous media):
+Packed layouts (the reference's):
 - rays ``(n_tiles, NF, T)``: per-ray rows ``RF_*``, T rays per tile;
 - beams ``(n_chunks, NB, C)``: per-beam fields ``BF_*``, C beams per chunk;
 - scalars ``(1, 4)``: cam_radius, power_scale, min_sin, n_valid;
@@ -13,11 +13,23 @@ Packed layouts (the reference's, homogeneous media):
 Inputs arrive folded: sigma_s rows carry power_scale * in_medium, beam
 powers carry validity.
 
+Grid-density (heterogeneous) media extend both layouts (``NF_HET`` ray
+rows, ``NB_HET`` beam fields): per segment, the optical thickness factors as
+tau_ch(f) = sigma_t[ch] * D(f), with D(f) (no constant term) and the
+density dens(f) carried as polynomial coefficients fitted to the segment's
+quadrature nodes (``accel/beam_gather.medium_interval_poly``).  A pair then
+evaluates dens_c and D_c on the camera side and D_b on the beam side by
+Horner, each clamped at 0, and contributes
+w * ps * exp(-(sigma_t_b D_b + sigma_t_c D_c)) * sigma_s * dens_c;
+the power_end and tr_full rows are not read.
+
 ``gather_forward`` (dense, block mask) and ``gather_sparse`` (compacted live
 blocks) take their plain versions ``gather_forward_ref``/``gather_sparse_ref``
 only for CPU tensors; for CUDA tensors they launch the kernels of
-``csrc/beam_gather_fwd.cu`` (T = C = 256) or raise.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+``csrc/beam_gather_fwd.cu`` (T = C = 256), the heterogeneous instance when
+the ray rows are ``NF_HET``, or raise.  Each wrapper counts its kernel
+launches per instance, in ``<wrapper>.launches`` (homogeneous) and
+``<wrapper>.launches_het``.
 """
 
 from __future__ import annotations
@@ -44,6 +56,17 @@ BF_RAD = 12
 BF_VALID = 13
 NB = 16  # padded
 
+# heterogeneous extension (pallas_gather.py:63-83): polynomial tables
+POLY_D_COEFS = 5  # D(f) = c1 f + ... + c5 f^5 (zero constant term)
+POLY_DENS_COEFS = 6  # dens(f) = e0 + e1 f + ... + e5 f^5
+RF_DC = NF  # 5 rows: camera D(f) coefficients
+RF_SIGTC = NF + 5  # 3 rows: camera-medium sigma_t rgb
+RF_DENSC = NF + 8  # 6 rows: camera dens(f) coefficients
+NF_HET = NF + 14  # 32
+BF_DP = NB  # 5 fields: beam D(f) coefficients
+BF_SIGT = NB + 5  # 3 fields: beam-medium sigma_t rgb
+NB_HET = NB + 8  # 24
+
 OUT_ROWS = 8
 KERNEL_TILE = 256  # rays per tile and beams per chunk of the CUDA kernels
 KERNEL_CHUNK = 256
@@ -56,7 +79,9 @@ _REF_BATCH_PAIRS_CARD = 1 << 24
 
 def pack_rays(seg: dict, tile: int) -> torch.Tensor:
     """seg dict (R-sized tensors, R a multiple of ``tile``) -> (n_tiles, NF,
-    T) packed feature rows."""
+    T) packed feature rows; (n_tiles, NF_HET, T) when ``seg`` carries the
+    heterogeneous tables d_cam_poly (R, 5), sigma_t_cam (R, 3) and
+    dens_cam_poly (R, 6)."""
     R = seg["a0"].shape[0]
     rows = [
         seg["a0"][:, 0], seg["a0"][:, 1], seg["a0"][:, 2],
@@ -68,8 +93,13 @@ def pack_rays(seg: dict, tile: int) -> torch.Tensor:
         seg["g"],
         seg["in_med_f"],
     ]
-    packed = torch.stack(rows, 0)  # (NF, R)
-    return packed.reshape(NF, R // tile, tile).permute(1, 0, 2).contiguous()
+    if "d_cam_poly" in seg:  # heterogeneous extension rows
+        rows += [seg["d_cam_poly"][:, k] for k in range(POLY_D_COEFS)]
+        rows += [seg["sigma_t_cam"][:, ch] for ch in range(3)]
+        rows += [seg["dens_cam_poly"][:, k] for k in range(POLY_DENS_COEFS)]
+    nf = len(rows)
+    packed = torch.stack(rows, 0)  # (nf, R)
+    return packed.reshape(nf, R // tile, tile).permute(1, 0, 2).contiguous()
 
 
 def sparse_block_ids(block_mask: torch.Tensor, cap: int):
@@ -176,20 +206,56 @@ def beam_power_ref(rays_b, beams_b, ch, t_cl, s):
     return torch.where(ok, pt, torch.zeros_like(pt)), ps_s, pe_s
 
 
+def hetero_tables_ref(rays_b, beams_b, t_cl, s):
+    """Horner evaluations of the heterogeneous tables at a pair's closest
+    point (pallas_gather.py:208-222), before their clamps at 0: (dens_c
+    at the camera fraction s, D_b = t_cl * poly_b(t_cl), D_c = s *
+    poly_c(s)), each (nb, C, T)."""
+    row = lambda k: block_row(rays_b, k)  # noqa: E731
+    col = lambda k: block_col(beams_b, k)  # noqa: E731
+    dens = row(RF_DENSC + POLY_DENS_COEFS - 1)
+    for k in range(POLY_DENS_COEFS - 2, -1, -1):
+        dens = row(RF_DENSC + k) + s * dens
+    Db = col(BF_DP + POLY_D_COEFS - 1)
+    Dc = row(RF_DC + POLY_D_COEFS - 1)
+    for k in range(POLY_D_COEFS - 2, -1, -1):
+        Db = col(BF_DP + k) + t_cl * Db
+        Dc = row(RF_DC + k) + s * Dc
+    return dens, t_cl * Db, s * Dc
+
+
+def hetero_decay_ref(rays_b, beams_b, ch, Db, Dc):
+    """exp(-tau) for channel ch, tau = sigma_t_b D_b + sigma_t_c D_c."""
+    tau = (block_col(beams_b, BF_SIGT + ch) * Db
+           + block_row(rays_b, RF_SIGTC + ch) * Dc)
+    return torch.exp(-tau)
+
+
 def _pair_blocks_ref(rays_b, beams_b, cam_radius, min_sin):
     """The pair math of ``_pair_block_update`` (pallas_gather.py:134-242)
-    on a batch of blocks: rays_b (nb, NF, T), beams_b (nb, NB, C) ->
-    (nb, 3, T) sums over each block's beams."""
+    on a batch of blocks: rays_b (nb, NF|NF_HET, T), beams_b (nb,
+    NB|NB_HET, C) -> (nb, 3, T) sums over each block's beams."""
     q = pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin)
     gg, rs = q["g"], q["rs"]
     rho = 0.07957747154594767 * (1.0 - gg * gg) * (rs * rs * rs)
     k1 = 0.75 * (1.0 - q["r2"]) * q["inv_width"]
     w = rho * k1 * q["inv_sin"] * q["in_range"]
 
+    hetero = rays_b.shape[1] == NF_HET
+    if hetero:
+        dens, Db, Dc = hetero_tables_ref(rays_b, beams_b, q["t_cl"], q["s"])
+        dens = torch.clamp_min(dens, 0.0)
+        Db, Dc = torch.clamp_min(Db, 0.0), torch.clamp_min(Dc, 0.0)
     out = []
     for ch in range(3):
-        pt, _, _ = beam_power_ref(rays_b, beams_b, ch, q["t_cl"], q["s"])
-        out.append((w * pt * block_row(rays_b, RF_SIGS + ch)).sum(1))
+        sig = block_row(rays_b, RF_SIGS + ch)
+        if hetero:
+            pt = (block_col(beams_b, BF_PS + ch)
+                  * hetero_decay_ref(rays_b, beams_b, ch, Db, Dc))
+            out.append((w * pt * (sig * dens)).sum(1))
+        else:
+            pt, _, _ = beam_power_ref(rays_b, beams_b, ch, q["t_cl"], q["s"])
+            out.append((w * pt * sig).sum(1))
     return torch.stack(out, 1)
 
 
@@ -268,25 +334,45 @@ def run_starts(idx, n_runs, run_len):
     return torch.searchsorted(idx, bounds).to(torch.int32)
 
 
+def is_hetero(rays_packed) -> bool:
+    """The packed rays carry the heterogeneous rows (the reference picks
+    its kernel instance by the same row count, pallas_gather.py:265-267)."""
+    return rays_packed.shape[1] == NF_HET
+
+
 def _check_packed(rays_packed, beams_packed, scalars):
+    """Check the packed inputs against one layout, homogeneous or
+    heterogeneous; returns (n_tiles, n_chunks, hetero)."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
+    hetero = is_hetero(rays_packed)
+    nf, nb = (NF_HET, NB_HET) if hetero else (NF, NB)
     _check_cuda("rays_packed", rays_packed, torch.float32,
-                (n_tiles, NF, KERNEL_TILE))
+                (n_tiles, nf, KERNEL_TILE))
     _check_cuda("beams_packed", beams_packed, torch.float32,
-                (n_chunks, NB, KERNEL_CHUNK))
+                (n_chunks, nb, KERNEL_CHUNK))
     _check_cuda("scalars", scalars, torch.float32, (1, 4))
     for t in (beams_packed, scalars):
         if t.device != rays_packed.device:
             raise ValueError("gather inputs must share one device")
-    if n_tiles * NF * KERNEL_TILE >= 2 ** 31 or n_chunks * NB * KERNEL_CHUNK >= 2 ** 31:
+    if n_tiles * nf * KERNEL_TILE >= 2 ** 31 or n_chunks * nb * KERNEL_CHUNK >= 2 ** 31:
         raise ValueError("packed gather inputs exceed the kernel's int32 offsets")
-    return n_tiles, n_chunks
+    return n_tiles, n_chunks, hetero
+
+
+def count_launch(wrapper, hetero: bool) -> None:
+    """One more launch of ``wrapper``'s homogeneous or heterogeneous
+    kernel instance."""
+    if hetero:
+        wrapper.launches_het += 1
+    else:
+        wrapper.launches += 1
 
 
 def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
     """Dense forward (replaces ``pallas_gather_forward``): returns
     (n_tiles, 8, T).  CPU tensors take ``gather_forward_ref``; CUDA tensors
-    launch ``gather_dense_kernel``."""
+    launch ``gather_dense_kernel`` (its heterogeneous instance for NF_HET
+    rays)."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     if block_mask is None:
         block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
@@ -296,7 +382,7 @@ def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
                                   block_mask)
     from .cuda_build import check_status, load_library
 
-    _check_packed(rays_packed, beams_packed, scalars)
+    _, _, hetero = _check_packed(rays_packed, beams_packed, scalars)
     _check_cuda("block_mask", block_mask, torch.float32, (n_chunks, n_tiles))
     lib = load_library()
     out = torch.empty((n_tiles, OUT_ROWS, KERNEL_TILE), dtype=torch.float32,
@@ -304,21 +390,24 @@ def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_forward(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        block_mask.data_ptr(), out.data_ptr(), n_tiles, n_chunks, stream)
+        block_mask.data_ptr(), out.data_ptr(), n_tiles, n_chunks,
+        int(hetero), stream)
     check_status(lib, err, "gather_dense_kernel")
-    gather_forward.launches += 1
+    count_launch(gather_forward, hetero)
     return out
 
 
 def gather_sparse(rays_packed, beams_packed, scalars, idx):
     """Sparse live-block forward (replaces ``pallas_gather_sparse``) over
     ``sparse_block_ids`` ids: returns (n_tiles, 8, T).  CPU tensors take
-    ``gather_sparse_ref``; CUDA tensors launch ``gather_sparse_kernel``."""
+    ``gather_sparse_ref``; CUDA tensors launch ``gather_sparse_kernel``
+    (its heterogeneous instance for NF_HET rays)."""
     if rays_packed.device.type == "cpu":
         return gather_sparse_ref(rays_packed, beams_packed, scalars, idx)
     from .cuda_build import check_status, load_library
 
-    n_tiles, n_chunks = _check_packed(rays_packed, beams_packed, scalars)
+    n_tiles, n_chunks, hetero = _check_packed(rays_packed, beams_packed,
+                                              scalars)
     _check_cuda("idx", idx, torch.int32, (idx.shape[0],))
     tile_start = run_starts(idx, n_tiles, n_chunks + 1)
     lib = load_library()
@@ -328,11 +417,11 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
     err = lib.bre_gather_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
         idx.data_ptr(), tile_start.data_ptr(), out.data_ptr(), n_tiles,
-        n_chunks, stream)
+        n_chunks, int(hetero), stream)
     check_status(lib, err, "gather_sparse_kernel")
-    gather_sparse.launches += 1
+    count_launch(gather_sparse, hetero)
     return out
 
 
-gather_forward.launches = 0
-gather_sparse.launches = 0
+gather_forward.launches = gather_forward.launches_het = 0
+gather_sparse.launches = gather_sparse.launches_het = 0

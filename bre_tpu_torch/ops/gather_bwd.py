@@ -1,6 +1,5 @@
 """Packed beam-radiance gather, backward: plain PyTorch versions and the
-CUDA kernel wrappers (counterpart of ``bre_tpu/ops/pallas_gather_bwd.py``,
-homogeneous media).
+CUDA kernel wrappers (counterpart of ``bre_tpu/ops/pallas_gather_bwd.py``).
 
 With the gather geometry held fixed (``grad_geometry=False``), the
 cotangents of the forward's per-segment sums are analytic in the pair
@@ -13,31 +12,47 @@ Layouts are the forward's (``ops/gather.py``) plus:
 - d_rays ``(n_tiles, 8, T)``: rows ``DR_*``;
 - d_beams ``(n_chunks, NB, C)``: d ps in rows BF_PS.., d pe in BF_PE..,
   d radius in BF_RAD, zeros in the geometry and padding rows.
+Heterogeneous layouts (``_bwd_fused_body_het``, pallas_gather_bwd.py:241):
+d_rays ``(n_tiles, NDR_HET, T)`` adds the camera tables' coefficient
+cotangents (``DR_DC``, ``DR_SIGTC``, ``DR_DENS``) and leaves the DR_TR rows
+0; d_beams ``(n_chunks, NB_HET, C)`` holds d ps, d radius and the beam
+tables' cotangents (``BF_DP``, ``BF_SIGT``), zeros in the pe, geometry
+and padding rows.  The coefficient cotangents are gated by the clamps at 0
+of D and dens.
 
 ``gather_backward_fused`` (dense, block mask) and ``gather_backward_sparse``
 (compacted live blocks, tile-major for d_rays and chunk-major for d_beams)
 take their plain versions only for CPU tensors; for CUDA tensors they launch
-the kernels of ``csrc/beam_gather_bwd.cu`` or raise.  Each wrapper counts
-its launches in ``<wrapper>.launches``.
+the kernels of ``csrc/beam_gather_bwd.cu`` or raise.  The dense wrapper
+picks the heterogeneous instance for NF_HET rays; the sparse backward is
+homogeneous only, as in the reference, which takes the dense one for grid
+media (beam_gather.py:1147).  Each wrapper counts its launches per
+instance in ``<wrapper>.launches`` and ``<wrapper>.launches_het``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .gather import (BF_PE, BF_PS, BF_RAD, KERNEL_CHUNK, KERNEL_TILE, NB,
-                     RF_SIGS, RF_TR, _check_cuda, _check_packed, _live_chunks,
-                     _REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU,
-                     beam_power_ref, block_col, block_row, pair_geometry_ref,
+from .gather import (BF_DP, BF_PE, BF_PS, BF_RAD, BF_SIGT, KERNEL_CHUNK,
+                     KERNEL_TILE, NB, NB_HET, POLY_D_COEFS, POLY_DENS_COEFS,
+                     RF_SIGS, RF_SIGTC, RF_TR, _check_cuda, _check_packed,
+                     _live_chunks, _REF_BATCH_PAIRS_CARD,
+                     _REF_BATCH_PAIRS_CPU, beam_power_ref, block_col,
+                     block_row, count_launch, hetero_decay_ref,
+                     hetero_tables_ref, is_hetero, pair_geometry_ref,
                      run_starts)
 
-# per-ray cotangent rows of d_rays (pallas_gather_bwd.py:59-62); the hetero
-# rows DR_DC/DR_SIGTC/DR_DENS follow with grid media (ROADMAP Queue 1)
+# per-ray cotangent rows of d_rays (pallas_gather_bwd.py:59-70)
 DR_TR = 0  # d tr_full rgb rows 0..2
 DR_SIGS = 3  # d sigma_s rgb rows 3..5
 DR_G = 6
 DR_CAMR = 7  # per-ray partial of d cam_radius
 NDR = 8
+DR_DC = 8  # 5 rows: d d_cam_poly (heterogeneous)
+DR_SIGTC = DR_DC + POLY_D_COEFS  # 3 rows: d sigma_t_cam
+DR_DENS = DR_SIGTC + 3  # 6 rows: d dens_cam_poly
+NDR_HET = DR_DENS + POLY_DENS_COEFS  # 22
 
 # each cotangent's rows in d_rays and in d_beams; the other rows of d_beams
 # (geometry, validity, padding) are zero
@@ -48,6 +63,18 @@ D_RAYS_ROWS = dict(tr=slice(DR_TR, DR_TR + 3),
 D_BEAMS_ROWS = dict(power_start=slice(BF_PS, BF_PS + 3),
                     power_end=slice(BF_PE, BF_PE + 3),
                     radius=slice(BF_RAD, BF_RAD + 1))
+# the heterogeneous instance's cotangents; its DR_TR rows and the other
+# rows of d_beams (power_end among them) are zero
+D_RAYS_ROWS_HET = dict(sigma_s=slice(DR_SIGS, DR_SIGS + 3),
+                       g=slice(DR_G, DR_G + 1),
+                       cam_radius=slice(DR_CAMR, DR_CAMR + 1),
+                       d_cam_poly=slice(DR_DC, DR_DC + POLY_D_COEFS),
+                       sigma_t_cam=slice(DR_SIGTC, DR_SIGTC + 3),
+                       dens_cam_poly=slice(DR_DENS, DR_DENS + POLY_DENS_COEFS))
+D_BEAMS_ROWS_HET = dict(power_start=slice(BF_PS, BF_PS + 3),
+                        radius=slice(BF_RAD, BF_RAD + 1),
+                        d_poly=slice(BF_DP, BF_DP + POLY_D_COEFS),
+                        sigma_t=slice(BF_SIGT, BF_SIGT + 3))
 
 _INV_4PI = 0.07957747154594767
 
@@ -72,6 +99,86 @@ def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def _pair_weights_ref(q, want_extras):
+    """The pair weights of ``_pair_quantities`` (pallas_gather_bwd.py:
+    115-149): w0 = base rho k1 and, with the extras, wrad = base rho
+    dk1/dwidth and wg = base k1 drho/dg (None without), base = in_range /
+    sin(theta)."""
+    gg, rs, cos_t = q["g"], q["rs"], q["cos_theta"]
+    r2, inv_width = q["r2"], q["inv_width"]
+    rs3 = rs * rs * rs
+    rho = _INV_4PI * (1.0 - gg * gg) * rs3
+    k1 = 0.75 * (1.0 - r2) * inv_width
+    base = q["in_range"] * q["inv_sin"]
+    w0 = base * rho * k1
+    if not want_extras:
+        return w0, None, None
+    drho_dg = _INV_4PI * ((-2.0 * gg) * rs3 + (1.0 - gg * gg) * (-1.5)
+                          * (rs3 * rs * rs) * (2.0 * gg + 2.0 * cos_t))
+    dk1_dw = 0.75 * (inv_width * inv_width) * (3.0 * r2 - 1.0)
+    return w0, base * rho * dk1_dw, base * k1 * drho_dg
+
+
+def _bwd_blocks_het_ref(rays_b, beams_b, ct_b, frac_b, frac_c, w0, wrad, wg,
+                        want_extras, side):
+    """The heterogeneous cotangents of ``_bwd_fused_body_het``
+    (pallas_gather_bwd.py:241-345) on a batch of blocks; ``side`` as in
+    ``_bwd_blocks_ref``.  tau's cotangent is -cA per channel; it chains into
+    the factored tables (d sigma_t = -cA D, d D = -cA sigma_t, summed over
+    channels before the clamp gate and the powers of f)."""
+    dens, Db, Dc = hetero_tables_ref(rays_b, beams_b, frac_b, frac_c)
+    dens_live = (dens > 0.0).to(torch.float32)
+    db_live = (Db > 0.0).to(torch.float32)
+    dc_live = (Dc > 0.0).to(torch.float32)
+    dens = torch.clamp_min(dens, 0.0)
+    Db, Dc = torch.clamp_min(Db, 0.0), torch.clamp_min(Dc, 0.0)
+    zero_ray = torch.zeros_like(block_row(rays_b, 0)[:, 0])  # (nb, T)
+    zero_beam = torch.zeros_like(block_col(beams_b, 0)[..., 0])  # (nb, C)
+    d_g, d_camr, d_rad = zero_ray, zero_ray, zero_beam
+    d_sig, d_sigtc, d_ps, d_sigtb = [], [], [], []
+    m_D = torch.zeros_like(frac_b)  # sum_ch cA * sigma_t (this side's)
+    cw_sum = torch.zeros_like(frac_b)  # sum_ch ct w0 sigma_s pt
+    for ch in range(3):
+        ct = ct_b[:, ch:ch + 1, :]  # (nb, 1, T)
+        sig = block_row(rays_b, RF_SIGS + ch)
+        ps = block_col(beams_b, BF_PS + ch)
+        decay = hetero_decay_ref(rays_b, beams_b, ch, Db, Dc)
+        pt = ps * decay
+        cB = ct * (w0 * sig * dens) * decay
+        cA = cB * ps
+        if side == "rays":
+            d_sigtc.append((-cA * Dc).sum(1))
+            m_D = m_D + cA * block_row(rays_b, RF_SIGTC + ch)
+            d_sig.append((ct * (w0 * pt * dens).sum(1, keepdim=True))[:, 0])
+            cw_sum = cw_sum + ct * (w0 * sig) * pt
+            if want_extras:
+                d_g = d_g + (ct * wg * pt * sig * dens).sum(1)
+                d_camr = d_camr + (ct * wrad * pt * sig * dens).sum(1)
+        else:
+            d_ps.append(cB.sum(2))
+            d_sigtb.append((-cA * Db).sum(2))
+            m_D = m_D + cA * block_col(beams_b, BF_SIGT + ch)
+            if want_extras:
+                d_rad = d_rad + (ct * wrad * pt * sig * dens).sum(2)
+    frac, axis = (frac_c, 1) if side == "rays" else (frac_b, 2)
+    m_D = -m_D * (dc_live if side == "rays" else db_live)
+    d_poly, f_pow = [], frac
+    for _ in range(POLY_D_COEFS):  # d c_i = dL/dD * f^(i+1)
+        d_poly.append((m_D * f_pow).sum(axis))
+        f_pow = f_pow * frac
+    if side == "beams":
+        cols = ([zero_beam] * BF_PS + d_ps + [zero_beam] * 3 + [d_rad]
+                + [zero_beam] * (BF_DP - BF_RAD - 1) + d_poly + d_sigtb)
+        return torch.stack(cols, 1)
+    cw_m = cw_sum * dens_live
+    d_dens, f_pow = [], torch.ones_like(frac_c)
+    for _ in range(POLY_DENS_COEFS):  # d e_i = dL/d dens * f^i
+        d_dens.append((cw_m * f_pow).sum(1))
+        f_pow = f_pow * frac_c
+    return torch.stack([zero_ray] * 3 + d_sig + [d_g, d_camr] + d_poly
+                       + d_sigtc + d_dens, 1)
+
+
 def _bwd_blocks_ref(rays_b, beams_b, ct_b, cam_radius, min_sin, want_extras,
                     side):
     """The analytic cotangents of ``_bwd_fused_body`` on a batch of blocks.
@@ -81,20 +188,11 @@ def _bwd_blocks_ref(rays_b, beams_b, ct_b, cam_radius, min_sin, want_extras,
     taken before the division by ps_s, pe_s or tr, as in the reference; the
     gates at the clamps are the reference's, not autograd's."""
     q = pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin)
-    gg, rs, cos_t = q["g"], q["rs"], q["cos_theta"]
-    r2, inv_width = q["r2"], q["inv_width"]
+    w0, wrad, wg = _pair_weights_ref(q, want_extras)
     frac_b, frac_c = q["t_cl"], q["s"]  # beam and camera fractions
-    rs3 = rs * rs * rs
-    rho = _INV_4PI * (1.0 - gg * gg) * rs3
-    k1 = 0.75 * (1.0 - r2) * inv_width
-    base = q["in_range"] * q["inv_sin"]
-    w0 = base * rho * k1
-    if want_extras:
-        drho_dg = _INV_4PI * ((-2.0 * gg) * rs3 + (1.0 - gg * gg) * (-1.5)
-                              * (rs3 * rs * rs) * (2.0 * gg + 2.0 * cos_t))
-        dk1_dw = 0.75 * (inv_width * inv_width) * (3.0 * r2 - 1.0)
-        wrad = base * rho * dk1_dw
-        wg = base * k1 * drho_dg
+    if is_hetero(rays_b):
+        return _bwd_blocks_het_ref(rays_b, beams_b, ct_b, frac_b, frac_c, w0,
+                                   wrad, wg, want_extras, side)
 
     zero_ray = torch.zeros_like(block_row(rays_b, 0)[:, 0])  # (nb, T)
     zero_beam = torch.zeros_like(block_col(beams_b, 0)[..., 0])  # (nb, C)
@@ -138,14 +236,16 @@ def _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
     """Accumulate the listed (tile, chunk) blocks, in list order, into d_rays
     (``side == "rays"``) or d_beams (``side == "beams"``)."""
     n_tiles, _, T = rays_packed.shape
-    n_chunks, _, C = beams_packed.shape
+    n_chunks, nb_fields, C = beams_packed.shape
     cam_radius, min_sin = scalars[0, 0], scalars[0, 2]
     dev = rays_packed.device
     if side == "rays":
-        out = torch.zeros((n_tiles, NDR, T), dtype=torch.float32, device=dev)
+        ndr = NDR_HET if is_hetero(rays_packed) else NDR
+        out = torch.zeros((n_tiles, ndr, T), dtype=torch.float32, device=dev)
         dst = tiles
     else:
-        out = torch.zeros((n_chunks, NB, C), dtype=torch.float32, device=dev)
+        out = torch.zeros((n_chunks, nb_fields, C), dtype=torch.float32,
+                          device=dev)
         dst = chunks
     pairs = _REF_BATCH_PAIRS_CPU if dev.type == "cpu" else _REF_BATCH_PAIRS_CARD
     nb = max(1, pairs // (T * C))
@@ -208,27 +308,35 @@ def gather_backward_sparse_ref(rays_packed, beams_packed, scalars, ct,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _reject_hetero_sparse(rays_packed):
+    if is_hetero(rays_packed):
+        raise ValueError(
+            "the sparse backward is homogeneous only, as the reference's "
+            "(beam_gather.py:1147); grid media take gather_backward_fused "
+            "with the forward's block mask")
+
+
 def _check_ct(ct, n_tiles, device):
     _check_cuda("ct", ct, torch.float32, (n_tiles, NDR, KERNEL_TILE))
     if ct.device != device:
         raise ValueError("gather inputs must share one device")
 
 
-def _outputs(rays_packed, n_tiles, n_chunks):
+def _outputs(rays_packed, n_tiles, n_chunks, hetero):
     dev = rays_packed.device
-    return (torch.empty((n_tiles, NDR, KERNEL_TILE), dtype=torch.float32,
-                        device=dev),
-            torch.empty((n_chunks, NB, KERNEL_CHUNK), dtype=torch.float32,
-                        device=dev))
+    return (torch.empty((n_tiles, NDR_HET if hetero else NDR, KERNEL_TILE),
+                        dtype=torch.float32, device=dev),
+            torch.empty((n_chunks, NB_HET if hetero else NB, KERNEL_CHUNK),
+                        dtype=torch.float32, device=dev))
 
 
 def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
                           block_mask=None, want_extras=True):
     """Dense backward (replaces ``pallas_gather_backward_fused``): returns
-    (d_rays (n_tiles, 8, T), d_beams (n_chunks, NB, C)).  CPU tensors take
-    ``gather_backward_fused_ref``; CUDA tensors launch the two sweeps of
-    ``csrc/beam_gather_bwd.cu`` (d_rays tile by tile, d_beams chunk by
-    chunk)."""
+    (d_rays (n_tiles, 8|NDR_HET, T), d_beams (n_chunks, NB|NB_HET, C)).
+    CPU tensors take ``gather_backward_fused_ref``; CUDA tensors launch the
+    two sweeps of ``csrc/beam_gather_bwd.cu`` (d_rays tile by tile, d_beams
+    chunk by chunk), their heterogeneous instances for NF_HET rays."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     if block_mask is None:
         block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
@@ -238,18 +346,19 @@ def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
                                          ct, block_mask, want_extras)
     from .cuda_build import check_status, load_library
 
-    _check_packed(rays_packed, beams_packed, scalars)
+    _, _, hetero = _check_packed(rays_packed, beams_packed, scalars)
     _check_cuda("block_mask", block_mask, torch.float32, (n_chunks, n_tiles))
     _check_ct(ct, n_tiles, rays_packed.device)
     lib = load_library()
-    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks)
+    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_backward(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
         block_mask.data_ptr(), ct.data_ptr(), d_rays.data_ptr(),
-        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)), stream)
+        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)),
+        int(hetero), stream)
     check_status(lib, err, "gather_backward kernels")
-    gather_backward_fused.launches += 1
+    count_launch(gather_backward_fused, hetero)
     return d_rays, d_beams
 
 
@@ -259,14 +368,15 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     over ``sparse_block_ids`` (d_rays) and ``sparse_block_ids_chunk_major``
     (d_beams) ids: returns (d_rays, d_beams).  CPU tensors take
     ``gather_backward_sparse_ref``; CUDA tensors launch the sparse sweeps of
-    ``csrc/beam_gather_bwd.cu``."""
+    ``csrc/beam_gather_bwd.cu``.  Homogeneous layouts only."""
+    _reject_hetero_sparse(rays_packed)
     if rays_packed.device.type == "cpu":
         return gather_backward_sparse_ref(rays_packed, beams_packed, scalars,
                                           ct, idx_tile_major, idx_chunk_major,
                                           want_extras)
     from .cuda_build import check_status, load_library
 
-    n_tiles, n_chunks = _check_packed(rays_packed, beams_packed, scalars)
+    n_tiles, n_chunks, _ = _check_packed(rays_packed, beams_packed, scalars)
     _check_ct(ct, n_tiles, rays_packed.device)
     _check_cuda("idx_tile_major", idx_tile_major, torch.int32,
                 (idx_tile_major.shape[0],))
@@ -275,7 +385,7 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     tile_start = run_starts(idx_tile_major, n_tiles, n_chunks + 1)
     chunk_start = run_starts(idx_chunk_major, n_chunks, n_tiles + 1)
     lib = load_library()
-    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks)
+    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, False)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_backward_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
@@ -287,5 +397,5 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     return d_rays, d_beams
 
 
-gather_backward_fused.launches = 0
+gather_backward_fused.launches = gather_backward_fused.launches_het = 0
 gather_backward_sparse.launches = 0

@@ -73,25 +73,26 @@ def make_inverse_train_step(scene: Scene, camera: Camera, width: int,
     target)^2) and its gradient with respect to the medium parameters.
 
     Returns ``step(params, target, iter_idx, radius) -> (loss, grads)`` with
-    ``params`` a dict of sigma_a, sigma_s and g tensors; ``grads`` has the
-    same keys.  ``radius`` is rounded to float32, as the reference's is."""
+    ``params`` a dict of sigma_a, sigma_s, g and (grid media) density
+    tensors; ``grads`` has the same keys.  ``radius`` is rounded to float32,
+    as the reference's is."""
     light_distr = light_power_distribution(scene)
     run = sharded_photonbeam_iteration(scene, camera, width, height, cfg,
                                        light_distr, n_devices)
 
     def step(params, target, iter_idx, radius):
-        if "density" in params:
-            raise NotImplementedError(
-                "density grids are grid media, not ported (ROADMAP Queue 1 "
-                "item 3: heterogeneous media); the port's Media has no "
-                "density")
         leaves = {k: v.detach().clone().requires_grad_()
                   for k, v in params.items()}
         media = scene.media._replace(**leaves)
         rad32 = float(torch.tensor(float(radius), dtype=torch.float32))
         img = run(iter_idx, rad32, scene._replace(media=media))
         loss = torch.mean((img - target.reshape(-1, 3)) ** 2)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        # a parameter the scene does not read (the (1,1,1) density of a
+        # scene without a grid medium) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return loss.detach(), {
+            k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
 
     return step

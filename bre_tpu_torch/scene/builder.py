@@ -1,20 +1,20 @@
 """Declarative scene builder (counterpart of ``bre_tpu/scene/builder.py``).
 
-The slice's subset: homogeneous media, matte materials, triangles (with
-pbrt's ``ss = normalize(dpdu)`` tangent), quads, boxes, point lights and
-quad area lights.  Parameter names and the numpy arithmetic match the
+The slice's subset: homogeneous and grid-density media (one grid per
+scene), matte materials, triangles (with pbrt's ``ss = normalize(dpdu)``
+tangent), quads, boxes, point lights and quad area lights.  Parameter names and the numpy arithmetic match the
 reference, so ``build()`` yields the same values as
 ``scene_from_jax(bre_tpu SceneBuilder.build())``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_POINT, MAT_MATTE,
+from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_POINT, MAT_MATTE, MEDIUM_GRID,
                     MEDIUM_HOMOGENEOUS, SHAPE_TRIANGLE, Lights, Materials,
                     Media, Scene, Spheres, Triangles, resolve_device)
 
@@ -32,6 +32,9 @@ class SceneBuilder:
         self._mat: List[dict] = []
         self._light: List[dict] = []
         self._med: List[dict] = []
+        self._grid_density: Optional[np.ndarray] = None
+        self._grid_world_to_medium: Optional[np.ndarray] = None
+        self._grid_medium_index = -1
         self.camera_medium = -1
 
     # --- materials (reference src/materials/matte.cpp) ---
@@ -39,12 +42,24 @@ class SceneBuilder:
         self._mat.append(dict(mtype=MAT_MATTE, kd=_rgb(kd), kd_tex=-1))
         return len(self._mat) - 1
 
-    # --- media (reference src/media/homogeneous.cpp) ---
+    # --- media (reference src/media/{homogeneous,grid}.cpp) ---
     def homogeneous_medium(self, sigma_a=(1, 1, 1), sigma_s=(1, 1, 1),
                            g=0.0) -> int:
         self._med.append(dict(mtype=MEDIUM_HOMOGENEOUS, sigma_a=_rgb(sigma_a),
                               sigma_s=_rgb(sigma_s), g=g))
         return len(self._med) - 1
+
+    def grid_medium(self, density: np.ndarray, world_to_medium,
+                    sigma_a=(1, 1, 1), sigma_s=(1, 1, 1), g=0.0) -> int:
+        """density: (nz, ny, nx); world_to_medium maps world -> [0,1]^3."""
+        if self._grid_density is not None:
+            raise ValueError("only one grid-density medium supported per scene")
+        self._med.append(dict(mtype=MEDIUM_GRID, sigma_a=_rgb(sigma_a),
+                              sigma_s=_rgb(sigma_s), g=g))
+        self._grid_density = np.asarray(density, np.float32)
+        self._grid_world_to_medium = np.asarray(world_to_medium, np.float32)
+        self._grid_medium_index = len(self._med) - 1
+        return self._grid_medium_index
 
     # --- shapes (reference src/shapes/triangle.cpp) ---
     def triangle(self, p0, p1, p2, material: int = -1, medium_inside: int = -1,
@@ -136,9 +151,16 @@ class SceneBuilder:
         lights = Lights(col(L, "ltype"), stack(L, "position"), stack(L, "emit"),
                         col(L, "shape_kind"), col(L, "shape_index"),
                         col(L, "two_sided"), col(L, "medium"))
+        density = (self._grid_density if self._grid_density is not None
+                   else np.zeros((1, 1, 1), np.float32))
+        w2m = (self._grid_world_to_medium
+               if self._grid_world_to_medium is not None
+               else np.eye(4, dtype=np.float32))
         media = Media(col(self._med, "mtype"), stack(self._med, "sigma_a"),
                       stack(self._med, "sigma_s"),
-                      col(self._med, "g", torch.float32))
+                      col(self._med, "g", torch.float32), f(density), f(w2m),
+                      torch.tensor(self._grid_medium_index, dtype=torch.int64,
+                                   device=device))
         pts = []
         for t in tri:
             pts.extend([t["p0"], t["p1"], t["p2"]])

@@ -5,7 +5,8 @@ NamedTuples of tensors with integer tags; -1 means "none" (no material,
 vacuum, no area light).  Ids are int64 so they index directly; positions,
 colors and parameters are float32.  Only the fields the ported slice reads
 are carried: matte materials, point and triangle-area lights, homogeneous
-media, spheres and triangles swept densely.
+and grid-density media (at most one grid, as the reference's builder
+allows), spheres and triangles swept densely.
 
 ``scene_from_jax`` turns a ``bre_tpu`` Scene into this one, so tests can feed
 both packages identical inputs; ``check_slice`` raises ``NotImplementedError``
@@ -28,6 +29,7 @@ LIGHT_DIFFUSE_AREA = 1
 
 # Medium type tags
 MEDIUM_HOMOGENEOUS = 0
+MEDIUM_GRID = 1
 
 # Shape kind tags
 SHAPE_SPHERE = 0
@@ -78,10 +80,17 @@ class Lights(NamedTuple):
 
 
 class Media(NamedTuple):
-    mtype: torch.Tensor  # (M,) int64
+    """Tagged medium table; grid media scale their constant sigma_t by the
+    shared ``density`` brick, reached through ``world_to_medium``
+    (media/grid.cpp:46-120)."""
+
+    mtype: torch.Tensor  # (M,) int64 MEDIUM_HOMOGENEOUS / MEDIUM_GRID
     sigma_a: torch.Tensor  # (M, 3)
     sigma_s: torch.Tensor  # (M, 3)
     g: torch.Tensor  # (M,)
+    density: torch.Tensor  # (nz, ny, nx) grid density, (1,1,1) zeros if none
+    world_to_medium: torch.Tensor  # (4, 4) world -> [0,1]^3 of the grid
+    grid_medium: torch.Tensor  # () int64 index of the grid medium or -1
 
 
 class Scene(NamedTuple):
@@ -149,10 +158,13 @@ def check_slice(scene: Scene) -> None:
         raise NotImplementedError(
             "only point and triangle-area lights are ported (ROADMAP Queue 1: "
             "breadth, lights)")
-    if bool((scene.media.mtype != MEDIUM_HOMOGENEOUS).any()):
+    mt = scene.media.mtype
+    if bool(((mt != MEDIUM_HOMOGENEOUS) & (mt != MEDIUM_GRID)).any()):
+        raise NotImplementedError("unknown medium type tag")
+    if int((mt == MEDIUM_GRID).sum()) > 1:
         raise NotImplementedError(
-            "grid (heterogeneous) media are not ported (ROADMAP Queue 1: "
-            "heterogeneous media)")
+            "more than one grid-density medium: the scene stores one density "
+            "brick, as the reference's builder does")
 
 
 def resolve_device(device) -> torch.device:
@@ -174,17 +186,14 @@ def _t(x, dtype, device) -> torch.Tensor:
 
 def scene_from_jax(scene_jax, device="cuda") -> Scene:
     """A ``bre_tpu`` Scene (its leaves read with ``np.asarray``) -> this
-    package's Scene on ``device``.  Grid media and the tri-BVH cannot be
-    carried and raise NotImplementedError."""
+    package's Scene on ``device``, the grid medium's density brick (the
+    parameter inverse rendering fits) included.  The tri-BVH cannot be
+    carried and raises NotImplementedError."""
     device = resolve_device(device)
     if scene_jax.tri_bvh is not None:
         raise NotImplementedError(
             "tri-BVH scenes are not ported (ROADMAP Queue 1: breadth, "
             "accel/lbvh)")
-    if np.asarray(scene_jax.media.density).size > 1:
-        raise NotImplementedError(
-            "grid (heterogeneous) media are not ported (ROADMAP Queue 1: "
-            "heterogeneous media)")
     f = lambda x: _t(x, torch.float32, device)  # noqa: E731
     i = lambda x: _t(x, torch.int64, device)  # noqa: E731
     s, t = scene_jax.spheres, scene_jax.triangles
@@ -206,7 +215,8 @@ def scene_from_jax(scene_jax, device="cuda") -> Scene:
         materials=Materials(i(m.mtype), f(m.kd), i(m.kd_tex)),
         lights=Lights(i(L.ltype), f(L.position), f(L.emit), i(L.shape_kind),
                       i(L.shape_index), i(L.two_sided), i(L.medium)),
-        media=Media(i(md.mtype), f(md.sigma_a), f(md.sigma_s), f(md.g)),
+        media=Media(i(md.mtype), f(md.sigma_a), f(md.sigma_s), f(md.g),
+                    f(md.density), f(md.world_to_medium), i(md.grid_medium)),
         camera_medium=i(scene_jax.camera_medium),
         world_min=f(scene_jax.world_min),
         world_max=f(scene_jax.world_max),

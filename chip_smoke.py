@@ -55,9 +55,40 @@ its own failure and nothing falls back to the CPU or a plain version):
  12. gradient consistency: CUDA against CPU gradients of a 32x32,
      4,000-photon config-2 step.
 
+  Grid-density media (BASELINE config 3 and the density gradient), through
+  the heterogeneous instances of the kernels:
+ 13. config-3 render: examples/smoke_hetero.py's scene through
+     SceneBuilder.grid_medium + render_photonbeam at 512x512, 100,000
+     photons per iteration, 8 iterations, maxdepth 5, radius 0.15, g 0.4,
+     a 32^3 grid, gather="pallas"; counters set to 0 before and read after:
+     the dense hetero forward kernel must launch (s/iter, valid beams per
+     iteration, grid-tracking overflow, image mean);
+ 14. its counted run: gather_sparse_cap at the block grid, so full-film
+     sweeps take the sparse hetero kernel; the image must equal phase 13's
+     bit for bit;
+ 15. hetero forward parity: one more config-3 iteration, timed phase by
+     phase; both hetero forward kernels against their plain versions on
+     its sweeps (every 4th ray tile of a sweep with more than 400,000 live
+     blocks), rtol 2e-4, timed beside their bounds;
+ 16. hetero steps: the fwd+bwd iteration in (density, sigma_s) on
+     examples/bench_hetero_bwd.py's scene (128x128, 50k photons, a warm and
+     3 timed steps) and one config-3 step at 512x512 x 100k after a warm
+     step, each timed run counted (s/step, peak memory, launches);
+ 17. hetero backward parity: the hetero backward kernels against their
+     plain versions on the bench step's sweeps (want_extras both ways) and
+     the config-3 step's R/4 sweep, each cotangent against its own
+     max|ref|, the d tr_full, d power_end and geometry rows exactly 0;
+     timed on the config-3 step's sweeps beside their bounds;
+ 18. hetero trainer: optimize_medium, 3 steps with examples/inverse_smoke.py's
+     settings (3 views at 64x64, 20k photons, density only, tv_weight 2e-3,
+     lr 3e-2), counted;
+ 19. CUDA against the CPU on a 32x32, 3,000-photon config-3 scene: the image
+     and the density and sigma_s gradients.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
-ones), max abs error (and, for the backward kernels, max |diff| / max|ref|
+ones, phases 13, 14 and 16's config-3 step for the hetero instances), max
+abs error (and, for the backward kernels, max |diff| / max|ref|
 per cotangent), time beside its plain version's and its bound; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Details go to chiprun_out/chip_smoke.json.  Exits nonzero
@@ -66,6 +97,7 @@ without a card.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +145,15 @@ KERNELS = (
      BWD_SOURCE),
 )
 FWD_KERNELS = KERNELS[:2]
+# the grid-density (heterogeneous) instances of the same wrappers, counted
+# in their launches_het
+HET_KERNELS = (
+    ("gather_forward_het", G, "bre_tpu/ops/pallas_gather.py:245", FWD_SOURCE),
+    ("gather_sparse_het", G, "bre_tpu/ops/pallas_gather.py:425", FWD_SOURCE),
+    ("gather_backward_fused_het", GB, "bre_tpu/ops/pallas_gather_bwd.py:241",
+     BWD_SOURCE),
+)
+HET_FWD_KERNELS = HET_KERNELS[:2]
 SIZE, PHOTONS, ITERS, MAXDEPTH = 256, 1_000_000, 2, 5  # BASELINE config 2
 BENCH_WH, BENCH_PHOTONS = 128, 50_000  # bench.py:70-71
 SPEC_WH, SPEC_PHOTONS = 256, 1_000_000  # bench.py:125
@@ -136,6 +177,17 @@ FWD_IN_OPS = 54
 # terms they share (68 FP32 + 2 rsqrt + 3 exp); the extras' derivatives and
 # sums add 39 FP32
 BWD_IN_OPS, BWD_EXTRAS_OPS = 73, 39
+# grid media (the HETERO instances): every in-range pair, forward: cos,
+# phase, kernel and 1/sin as above (28 FP32 + 2 rsqrt), the tables by Horner
+# with their clamps at 0 (dens 11, D_b 10, D_c 10), and per channel the
+# decay and the product (9 FP32 + 1 exp each)
+FWD_IN_OPS_HET = 30 + 31 + 30
+# backward: the weights (31) and tables (31) once, per channel the d_rays
+# terms (22 FP32 + 1 exp each) and the d_beams terms (6 each), the D_c, dens
+# and D_b coefficient chains (36 + 17); the extras' weight derivatives (22)
+# and per channel d g, d cam_radius and d radius (15 each)
+BWD_IN_OPS_HET = 31 + 31 + 3 * (23 + 6) + 36 + 17
+BWD_EXTRAS_OPS_HET = 22 + 3 * 15
 
 
 def log(*a):
@@ -153,6 +205,34 @@ def card_info(dev):
     return name_power
 
 
+def ptxas_summary(build_log):
+    """{kernel instance: registers, shared memory and spill bytes} from
+    nvcc's -Xptxas -v report of the build (empty when the library was
+    already built)."""
+    out, name, spill = {}, None, ""
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = _demangle(line.split("Function properties for ")[-1].strip())
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out[name] = f"{line.split(':', 1)[-1].strip()}; {spill}"
+            name, spill = None, ""
+    return out
+
+
+def _demangle(mangled):
+    """gather_dense_kernel<true> style names of the kernels' instances."""
+    m = re.search(r"(gather_dense_kernel|gather_sparse_kernel|bwd_rays_dense|"
+                  r"bwd_beams_dense|bwd_rays_sparse|bwd_beams_sparse)I(.*)E",
+                  mangled)
+    if not m:
+        return mangled
+    args = ["true" if b == "1" else "false"
+            for b in re.findall(r"Lb([01])E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds of fn() over reps calls, CUDA events; returns
     (ms, last result)."""
@@ -168,13 +248,21 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
+def _counter(name, mod):
+    """(wrapper, attribute) of a kernel's launch count: a heterogeneous
+    instance counts on its wrapper's ``launches_het``."""
+    if name.endswith("_het"):
+        return getattr(mod, name[:-len("_het")]), "launches_het"
+    return getattr(mod, name), "launches"
+
+
 def launches(kernels=KERNELS):
-    return {name: getattr(mod, name).launches for name, mod, _, _ in kernels}
+    return {name: getattr(*_counter(name, mod)) for name, mod, _, _ in kernels}
 
 
 def reset_launches():
-    for name, mod, _, _ in KERNELS:
-        getattr(mod, name).launches = 0
+    for name, mod, _, _ in KERNELS + HET_KERNELS:
+        setattr(*_counter(name, mod), 0)
 
 
 def cornell_fog(dev):
@@ -204,24 +292,26 @@ def cornell_camera(dev, size):
 
 
 def render(dev, size, photons, iters, **over):
-    scene = cornell_fog(dev)
-    cam = cornell_camera(dev, size)
     cfg = PB.PhotonBeamConfig(
         iterations=iters, maxdepth=MAXDEPTH, photonsperiteration=photons,
         initialbeamradius=0.12, alpha=0.7, gather="auto",
         grad_geometry=False, imagewritefrequency=1, **over)
+    return timed_render(cornell_fog(dev), cornell_camera(dev, size), size,
+                        cfg)
+
+
+def timed_render(scene, cam, size, cfg):
+    """render_photonbeam with the host clock read after each iteration
+    (each ends in a copy of the image to the host): (image on the host,
+    stats, s per iteration)."""
     marks = []
-
-    def on_write(it, img):  # runs after each iteration, image copied to host
-        marks.append(time.perf_counter())
-
     t0 = time.perf_counter()
-    img, stats = PB.render_photonbeam(scene, cam, size, size, cfg,
-                                      write_callback=on_write)
-    if dev.type == "cuda":
+    img, stats = PB.render_photonbeam(
+        scene, cam, size, size, cfg,
+        write_callback=lambda it, im: marks.append(time.perf_counter()))
+    if scene.device.type == "cuda":
         torch.cuda.synchronize()
-    per_iter = np.diff([t0] + marks).tolist()
-    return img.float().cpu(), stats, per_iter
+    return img.float().cpu(), stats, np.diff([t0] + marks).tolist()
 
 
 def check_image(img, size, what):
@@ -384,74 +474,95 @@ def phase_breakdown(dev):
     return out, keep
 
 
+def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
+                    note=""):
+    """Both forward kernels (``names``: the dense and the sparse entry of a
+    kernel table) against their plain versions on one sweep's inputs, rtol
+    2e-4 / atol 1e-8, each timed with CUDA events after a warm-up beside
+    its bound (``in_ops`` per in-range pair); dense and sparse must agree
+    bit for bit.  Returns {name: measurements}."""
+    n_live = int((mask > 0).sum())
+    idx, _ = G.sparse_block_ids(mask, n_live)
+    idx1, _ = G.sparse_block_ids(mask[:, :1].contiguous(), mask.shape[0])
+    in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
+    ops = n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * in_ops
+    out_bytes = rays.shape[0] * G.OUT_ROWS * BG.TILE * 4
+    out, outs = {}, []
+    for name, kern, plain, warm, inputs in zip(names, (
+            lambda: G.gather_forward(rays, beams, scal, mask),
+            lambda: G.gather_sparse(rays, beams, scal, idx)), (
+            lambda: G.gather_forward_ref(rays, beams, scal, mask),
+            lambda: G.gather_sparse_ref(rays, beams, scal, idx)), (
+            lambda: G.gather_forward_ref(rays[:1], beams, scal, mask[:, :1]),
+            lambda: G.gather_sparse_ref(rays[:1], beams, scal, idx1)), (
+            (rays, beams, scal, mask), (rays, beams, scal, idx))):
+        res = kern()
+        torch.cuda.synchronize()
+        warm()
+        plain_ms, ref = cuda_ms(plain, 1, warm=False)
+        if not bool(torch.isfinite(res).all()):
+            raise AssertionError(f"{name} ({label}): non-finite output")
+        abs_err = float((res - ref).abs().max())
+        rel_err = float(((res - ref).abs() / (ref.abs() + ATOL)).max())
+        ok = bool(torch.allclose(res, ref, rtol=RTOL, atol=ATOL))
+        ms, _ = cuda_ms(kern, 3)
+        bound_ms, bound_by = bound(ops, nbytes(*inputs) + out_bytes)
+        log(f"[{tag}] {label}, {n_live} live blocks, {in_range} pairs in "
+            f"range: {name} max rel err {rel_err:.3e} max abs err "
+            f"{abs_err:.3e} (|ref| max {float(ref.abs().max()):.3e}) "
+            f"allclose(rtol={RTOL}, atol={ATOL}) {ok}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            + note)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the {label} sweep")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err,
+                         max_rel_err=rel_err, live_blocks=n_live,
+                         pairs_in_range=in_range, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        outs.append(res)
+        del ref
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"dense and sparse kernels differ on the "
+                             f"{label} sweep's live blocks")
+    log(f"[{tag}] {label}: dense and sparse kernels agree bit for bit")
+    return out
+
+
+def _kernel_rows(kernels):
+    return {name: dict(name=name, route="cuda", source=src, replaces=rep,
+                       max_abs_err=0.0, max_rel_err=0.0, sweeps={},
+                       library_ms=None)
+            for name, _, rep, src in kernels}
+
+
+def _add_sweep(results, checked, label, headline):
+    """Fold one sweep's measurements into the kernels' rows; the headline
+    sweep's times are the rows' own."""
+    for name, m in checked.items():
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
+        r["max_rel_err"] = max(r["max_rel_err"], m["max_rel_err"])
+        r["sweeps"][label] = m
+        if headline:
+            r.update(ms=m["ms"], plain_ms=m["plain_ms"],
+                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                     sweep=headline)
+
+
 def phase_parity(sweeps):
-    results = {name: dict(name=name, route="cuda", source=src, replaces=rep,
-                          max_abs_err=0.0, max_rel_err=0.0, sweeps={},
-                          sweep="config-2 full film", library_ms=None)
-               for name, _, rep, src in FWD_KERNELS}
+    results = _kernel_rows(FWD_KERNELS)
     for label in ("full", "r4"):
         rays, beams, scal, mask = sweeps[label]
-        n_live = int((mask > 0).sum())
-        n_valid_chunks = -(-int(scal[0, 3]) // BG.CHUNK)
-        idx, _ = G.sparse_block_ids(mask, n_live)
-        idx1, _ = G.sparse_block_ids(mask[:, :1].contiguous(), mask.shape[0])
-        in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
-        ops = n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * FWD_IN_OPS
-        out_bytes = rays.shape[0] * G.OUT_ROWS * BG.TILE * 4
         log(f"[parity] {label} sweep: rays {tuple(rays.shape)} beams "
-            f"{tuple(beams.shape)} ({n_valid_chunks} chunks hold valid "
-            f"beams), live blocks {n_live} of {mask.numel()}, {n_blocks} "
-            f"before n_valid; pairs in range {in_range}")
-        outs = []
-        for name, kern, plain, warm, inputs in (
-                ("gather_forward",
-                 lambda: G.gather_forward(rays, beams, scal, mask),
-                 lambda: G.gather_forward_ref(rays, beams, scal, mask),
-                 lambda: G.gather_forward_ref(rays[:1], beams, scal,
-                                              mask[:, :1]),
-                 (rays, beams, scal, mask)),
-                ("gather_sparse",
-                 lambda: G.gather_sparse(rays, beams, scal, idx),
-                 lambda: G.gather_sparse_ref(rays, beams, scal, idx),
-                 lambda: G.gather_sparse_ref(rays[:1], beams, scal, idx1),
-                 (rays, beams, scal, idx))):
-            out = kern()
-            torch.cuda.synchronize()
-            warm()
-            plain_ms, ref = cuda_ms(plain, 1, warm=False)
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{name} ({label}): non-finite output")
-            abs_err = float((out - ref).abs().max())
-            rel_err = float(((out - ref).abs() / (ref.abs() + ATOL)).max())
-            ok = bool(torch.allclose(out, ref, rtol=RTOL, atol=ATOL))
-            ms, _ = cuda_ms(kern, 3)
-            bound_ms, bound_by = bound(ops, nbytes(*inputs) + out_bytes)
-            log(f"[parity] {label} {name}: max rel err {rel_err:.3e} max abs "
-                f"err {abs_err:.3e} (|ref| max {float(ref.abs().max()):.3e}) "
-                f"allclose(rtol={RTOL}, atol={ATOL}) {ok}; kernel {ms:.3f} "
-                f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-                f"({bound_by})")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version on the {label} sweep")
-            r = results[name]
-            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-            r["max_rel_err"] = max(r["max_rel_err"], rel_err)
-            r["sweeps"][label] = dict(
-                ms=ms, plain_ms=plain_ms, max_abs_err=abs_err,
-                max_rel_err=rel_err, live_blocks=n_live,
-                pairs_in_range=in_range, bound_ms=bound_ms, bound_by=bound_by)
-            if label == "full":
-                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-            outs.append(out)
-            del ref
-        if not torch.equal(outs[0], outs[1]):
-            raise AssertionError(f"dense and sparse kernels differ on the "
-                                 f"{label} sweep's live blocks")
-        log(f"[parity] {label} sweep: dense and sparse kernels agree bit "
-            "for bit")
-    return [results[name] for name, _, _, _ in FWD_KERNELS]
+            f"{tuple(beams.shape)} ({-(-int(scal[0, 3]) // BG.CHUNK)} chunks "
+            f"hold valid beams), {mask.numel()} blocks")
+        checked = fwd_sweep_check([n for n, _, _, _ in FWD_KERNELS], rays,
+                                  beams, scal, mask, FWD_IN_OPS, label,
+                                  "parity")
+        _add_sweep(results, checked, label,
+                   "config-2 full film" if label == "full" else None)
+    return list(results.values())
 
 
 def phase_consistency(dev):
@@ -712,15 +823,18 @@ def phase_trainer(dev):
                 moved=moved, launches=counts)
 
 
-def _bwd_close(out, ref, what):
+def _bwd_close(out, ref, what, het=False):
     """Each cotangent (its rows of d_rays or d_beams, gather_bwd.D_RAYS_ROWS
-    and D_BEAMS_ROWS) held to the criterion against its own max|ref|, so the
-    large d sigma_s and d power rows cannot hide the small d tr, d g and
-    d radius rows; the other rows of d_beams must be zero.  Returns
-    {cotangent: (max |diff|, max |diff| / (max|ref| + 1e-9))}."""
+    and D_BEAMS_ROWS, or their _HET forms) held to the criterion against its
+    own max|ref|, so the large d sigma_s and d power rows cannot hide the
+    small d tr, d g and d radius rows; the other rows of d_beams (and, in
+    grid media, the d tr_full rows of d_rays) must be exactly zero.
+    Returns {cotangent: (max |diff|, max |diff| / (max|ref| + 1e-9))}."""
+    rows_r, rows_b = ((GB.D_RAYS_ROWS_HET, GB.D_BEAMS_ROWS_HET) if het
+                      else (GB.D_RAYS_ROWS, GB.D_BEAMS_ROWS))
     errs = {}
     for o, r, part, rows in zip(out, ref, ("d_rays", "d_beams"),
-                                (GB.D_RAYS_ROWS, GB.D_BEAMS_ROWS)):
+                                (rows_r, rows_b)):
         if not bool(torch.isfinite(o).all()):
             raise AssertionError(f"{what}: non-finite {part}")
         for name, sl in rows.items():
@@ -730,11 +844,14 @@ def _bwd_close(out, ref, what):
                 raise AssertionError(f"{what}: d {name} max |diff| {err}, "
                                      f"max |ref| {r_max}")
             errs[name] = (err, err / (r_max + 1e-9))
-    other = torch.ones(G.NB, dtype=torch.bool, device=out[1].device)
-    for sl in GB.D_BEAMS_ROWS.values():
+    other = torch.ones(out[1].shape[1], dtype=torch.bool, device=out[1].device)
+    for sl in rows_b.values():
         other[sl] = False
-    if float(out[1][:, other].abs().max()) != 0.0:
-        raise AssertionError(f"{what}: d_beams geometry rows are not zero")
+    zero = [float(out[1][:, other].abs().max())]
+    if het:
+        zero.append(float(out[0][:, GB.DR_TR:GB.DR_TR + 3].abs().max()))
+    if any(z != 0.0 for z in zero):
+        raise AssertionError(f"{what}: rows that must be 0 are not: {zero}")
     return errs
 
 
@@ -836,6 +953,20 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 f"({bound_by})" + ("" if label == "r4" else
                                    "; plain version not run at full film "
                                    "(minutes)"))
+        # Queue 2 row 6, pallas_gather_backward (not ported): the same
+        # cotangents with the extras always on, over the whole dense grid
+        # (no block mask, no dead-chunk skip), so every pair pays geometry
+        beams, rays, scal = args[:3]
+        all_pairs = rays.shape[0] * beams.shape[0] * BG.TILE * BG.CHUNK
+        row6 = bound(all_pairs * GEOM_OPS
+                     + in_range * (BWD_IN_OPS + BWD_EXTRAS_OPS),
+                     nbytes(rays[:, :G.NF], beams, scal, rays[:, :GB.NDR],
+                            rays[:, :GB.NDR], beams))
+        results[names[0]]["sweeps"][f"spec {label} row 6 bound"] = dict(
+            bound_ms=row6[0], bound_by=row6[1], pairs=all_pairs)
+        log(f"[row 6 bound] pallas_gather_backward on the spec {label} "
+            f"sweep's shapes ({all_pairs} pairs, {in_range} in range): "
+            f"{row6[0]:.3f} ms ({row6[1]})")
     return [results[name] for name in names]
 
 
@@ -864,6 +995,376 @@ def phase_grad_consistency(dev):
     return dict(value_cuda=l_gpu, value_cpu=l_cpu, grad_rel_diff=rel)
 
 
+
+# ---------------------------------------------------------------------------
+# Grid-density media (phases 13-19): the config-3 render and the density
+# gradient, through the heterogeneous instances of the kernels
+# ---------------------------------------------------------------------------
+
+SMOKE_SIZE, SMOKE_PHOTONS, SMOKE_ITERS = 512, 100_000, 8  # BASELINE config 3
+HBENCH_WH, HBENCH_PHOTONS = 128, 50_000  # examples/bench_hetero_bwd.py
+INV_WH, INV_PHOTONS, INV_TARGET_ITERS = 64, 20_000, 4  # examples/inverse_smoke.py
+SMOKE_W2M = np.array([[0.5, 0, 0, 0.5], [0, 0.5, 0, 0.5], [0, 0, 0.5, 0.5],
+                      [0, 0, 0, 1]], np.float32)  # world [-1,1]^3 -> [0,1]^3
+SMOKE_LOOKS = (((0, 0, -3.2), (0, 0, 0), (0, 1, 0)),
+               ((3.0, 0.4, -1.2), (0, 0, 0), (0, 1, 0)),
+               ((-1.6, 2.6, -1.6), (0, 0, 0), (0, 1, 0)))
+# the plain forward is held on every 4th ray tile of a sweep with more live
+# blocks than this (a full-film plain sweep would take minutes)
+PLAIN_MAX_LIVE = 400_000
+
+
+def smoke_density(n=32):
+    """examples/smoke_hetero.py:38-43: an elongated puff with swirls."""
+    x, y, z = np.meshgrid(*(np.linspace(-1, 1, n),) * 3, indexing="ij")
+    d = np.exp(-2.0 * (x**2 + 2 * y**2 + z**2))
+    d *= 1.0 + 0.5 * np.sin(4 * x) * np.cos(3 * z)
+    return np.clip(d, 0.0, None).astype(np.float32)
+
+
+def smoke_scene(dev, density=None, g=0.4):
+    """examples/smoke_hetero.py:45-56 (BASELINE config 3): the grid smoke
+    in [-1,1]^3 lit from inside, a wall behind it."""
+    b = SceneBuilder()
+    smoke = b.grid_medium(smoke_density() if density is None else density,
+                          SMOKE_W2M, sigma_a=(0.02,) * 3, sigma_s=(0.6,) * 3,
+                          g=g)
+    wall = b.matte((0.5, 0.5, 0.6))
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=smoke,
+          medium_outside=-1)
+    b.quad((-4, -4, 2.5), (-4, 4, 2.5), (4, 4, 2.5), (4, -4, 2.5),
+           material=wall)
+    b.point_light((0.0, 0.8, -0.5), (2.0, 1.9, 1.7), medium=smoke)
+    return b.build(device=dev)
+
+
+def smoke_camera(dev, size, look=SMOKE_LOOKS[0]):
+    return make_perspective_camera(tfm.look_at(*look), 50.0, size, size,
+                                   device=dev)
+
+
+def smoke_cfg(photons, radius=0.15, **over):
+    """examples/smoke_hetero.py:59-62's settings."""
+    return PB.PhotonBeamConfig(
+        maxdepth=MAXDEPTH, photonsperiteration=photons,
+        initialbeamradius=radius, gather="pallas", grad_geometry=False,
+        grad_extras=False, **over)
+
+
+def render_smoke(dev, size, photons, iters, **over):
+    return timed_render(smoke_scene(dev), smoke_camera(dev, size), size,
+                        smoke_cfg(photons, iterations=iters,
+                                  imagewritefrequency=1, **over))
+
+
+def smoke_grid_cap(size, photons):
+    """gather_sparse_cap at the block grid: every full-film sweep fits."""
+    return (-(-photons * (MAXDEPTH + 2) // BG.CHUNK)) * (size * size // BG.TILE)
+
+
+def phase_smoke_render(dev):
+    """(a) BASELINE config 3 through SceneBuilder.grid_medium and
+    render_photonbeam, the counters set to 0 just before and read after."""
+    reset_launches()
+    img, stats, per_iter = render_smoke(dev, SMOKE_SIZE, SMOKE_PHOTONS,
+                                        SMOKE_ITERS)
+    counts = launches(FWD_KERNELS + HET_FWD_KERNELS)
+    mean = check_image(img, SMOKE_SIZE, "config-3 render")
+    warm = float(np.mean(per_iter[1:]))
+    log(f"[smoke] config 3: {SMOKE_SIZE}x{SMOKE_SIZE}, {SMOKE_PHOTONS} "
+        f"photons/iter, {SMOKE_ITERS} iters, maxdepth {MAXDEPTH}, radius "
+        f"0.15, g 0.4, 32^3 grid, gather=pallas: s/iter {per_iter} (warm, "
+        f"iterations 2-{SMOKE_ITERS}: {warm:.4f}); valid beams/iter "
+        f"{stats['n_beams'] / SMOKE_ITERS:.0f}; grid-tracking overflow "
+        f"{stats['n_grid_overflow']}; image mean {mean:.6f}, finite; "
+        f"launches {counts}")
+    if counts["gather_forward_het"] <= 0 or counts["gather_forward"] != 0:
+        raise AssertionError(f"config 3 must run the dense hetero kernel and "
+                             f"no homogeneous one: {counts}")
+    return img, dict(per_iter_s=per_iter, warm_s_per_iter=warm,
+                     image_mean=mean, n_beams_per_iter=stats["n_beams"]
+                     / SMOKE_ITERS, n_grid_overflow=stats["n_grid_overflow"],
+                     launches=counts)
+
+
+def phase_smoke_counted(dev, img_main):
+    """(b) the same render with the sparse cap at the block grid: the
+    full-film sweeps take the sparse hetero kernel; same image bit for
+    bit."""
+    grid = smoke_grid_cap(SMOKE_SIZE, SMOKE_PHOTONS)
+    reset_launches()
+    img, stats, per_iter = render_smoke(dev, SMOKE_SIZE, SMOKE_PHOTONS,
+                                        SMOKE_ITERS, gather_sparse_cap=grid)
+    counts = launches(FWD_KERNELS + HET_FWD_KERNELS)
+    identical = torch.equal(img, img_main)
+    log(f"[smoke counted] gather_sparse_cap={grid} (the block grid): s/iter "
+        f"{per_iter}; launches {counts}; image bit-identical to the dense "
+        f"run {identical} (max |diff| "
+        f"{float((img - img_main).abs().max()):.3e})")
+    if counts["gather_sparse_het"] <= 0:
+        raise AssertionError(f"the counted run never launched the sparse "
+                             f"hetero kernel: {counts}")
+    if not identical:
+        raise AssertionError("config-3 sparse-cap render differs from the "
+                             "dense one")
+    return dict(per_iter_s=per_iter, sparse_cap=grid, launches=counts,
+                bit_identical=identical)
+
+
+def phase_smoke_parity(dev):
+    """(c) one more config-3 iteration, timed phase by phase with each
+    forward launch recorded; both hetero forward kernels against their
+    plain versions on each distinct sweep, timed beside their bounds."""
+    sweeps, phases = [], []
+    saved = [(BG, n, _event_timed(BG, n, sweeps))
+             for n in ("gather_forward", "gather_sparse")]
+    saved += [(PB, n, _host_timed(PB, n, phases)) for n in
+              ("trace_photon_beams", "medium_interval_poly",
+               "pack_beams_compact", "camera_pass")]
+    try:
+        _, _, per_iter = render_smoke(dev, SMOKE_SIZE, SMOKE_PHOTONS, 1,
+                                      startiteration=1, enditeration=2)
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+    torch.cuda.synchronize()
+    log(f"[smoke breakdown] config 3, iteration 2: {per_iter[0]:.4f} s; "
+        + ", ".join(f"{n} {t:.4f} s" for n, t in phases) + "; gathers "
+        + ", ".join(f"{n} {a[0].shape[0]} tiles {e0.elapsed_time(e1):.3f} ms"
+                    for n, e0, e1, a in sweeps))
+    keep = {}
+    for name, e0, e1, args in sweeps:
+        if name == "gather_forward" and args[0].shape[0] not in keep:
+            keep[args[0].shape[0]] = (args, e0.elapsed_time(e1))
+    results = _kernel_rows(HET_FWD_KERNELS)
+    for n_tiles in sorted(keep, reverse=True):
+        (rays, beams, scal, mask), render_ms = keep[n_tiles]
+        which = "all tiles"
+        if int((mask > 0).sum()) > PLAIN_MAX_LIVE:
+            rays, mask = rays[::4].contiguous(), mask[:, ::4].contiguous()
+            which = "every 4th ray tile"
+        label = f"{n_tiles} tiles ({which})"
+        checked = fwd_sweep_check(
+            [n for n, _, _, _ in HET_FWD_KERNELS], rays, beams, scal, mask,
+            FWD_IN_OPS_HET, label, "smoke parity",
+            f"; in the render {render_ms:.3f} ms over all {n_tiles} tiles")
+        for m in checked.values():
+            m["render_dense_ms_all_tiles"] = render_ms
+        _add_sweep(results, checked, label, f"config-3 {label}"
+                   if n_tiles == max(keep) else None)
+    return list(results.values())
+
+
+def fwd_bwd_smoke(scene, cam, wh, cfg, iter_idx):
+    return fwd_bwd(scene, cam, wh, cfg, iter_idx,
+                   params=("density", "sigma_s"))
+
+
+def timed_smoke_step(*args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fwd_bwd_smoke(*args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, loss, grads
+
+
+def phase_smoke_steps(dev):
+    """(d) fwd+bwd steps in (density, sigma_s): bench_hetero_bwd.py's scene
+    at 128x128 / 50k photons (a warm step, 3 timed), then one config-3 step
+    at 512x512 / 100k after a warm step; each timed run counted."""
+    out, sweeps = {}, {}
+    for label, wh, photons, n_timed in (
+            ("bench", HBENCH_WH, HBENCH_PHOTONS, 3),
+            ("config3", SMOKE_SIZE, SMOKE_PHOTONS, 1)):
+        scene, cam, cfg = smoke_scene(dev), smoke_camera(dev, wh), \
+            smoke_cfg(photons)
+        (t_warm, _, _), rec = capture_backward(
+            lambda: timed_smoke_step(scene, cam, wh, cfg, 0))
+        sweeps[label] = rec
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        steps = [timed_smoke_step(scene, cam, wh, cfg, it)
+                 for it in range(1, n_timed + 1)]
+        counts = launches(KERNELS + HET_KERNELS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for _, loss, grads in steps:
+            if not np.isfinite(loss):
+                raise AssertionError(f"{label} step: loss {loss}")
+            check_grads(grads, f"{label} hetero step")
+        per_step = [t for t, _, _ in steps]
+        g = steps[-1][2]
+        log(f"[smoke step] {label}: {wh}x{wh}, {photons} photons, maxdepth "
+            f"{MAXDEPTH}, radius 0.15, 32^3 grid, grad_extras=False, d/d "
+            f"(density, sigma_s): warm step {t_warm:.4f} s, s/step "
+            f"{per_step} (mean {np.mean(per_step):.4f}), peak memory "
+            f"{peak / 2**30:.3f} GiB; value {steps[-1][1]:.6e}; d sigma_s "
+            f"{fmt_values({'s': g['sigma_s']})['s']}, d density max "
+            f"{float(g['density'].abs().max()):.4e} on "
+            f"{int((g['density'] != 0).sum())} voxels; launches {counts}; "
+            f"backward sweeps {[a[1].shape[0] for a in rec]} ray tiles")
+        need = ("gather_forward_het", "gather_backward_fused_het")
+        if any(counts[k] <= 0 for k in need) or counts["gather_forward"]:
+            raise AssertionError(f"{label} step: hetero kernels {need} must "
+                                 f"launch, homogeneous ones not: {counts}")
+        out[label] = dict(warm_s=t_warm, per_step_s=per_step,
+                          peak_memory_bytes=peak,
+                          values=[s[1] for s in steps], launches=counts,
+                          grads_sigma_s=fmt_values({"s": g["sigma_s"]})["s"])
+    return out, sweeps
+
+
+def phase_smoke_bwd_parity(sweeps):
+    """(e) the hetero backward kernels against their plain versions on the
+    bench step's sweeps (want_extras both ways) and the config-3 step's
+    R/4 sweep; timed on the config-3 step's sweeps beside their bounds."""
+    name, _, rep, src = HET_KERNELS[2]
+    r = dict(name=name, route="cuda", source=src, replaces=rep,
+             max_abs_err=0.0, sweeps={}, library_ms=None, err_over_max_ref={})
+    by_tiles = {}
+    for a in sweeps["config3"]:
+        by_tiles.setdefault(a[1].shape[0], a)
+    r4_tiles = SMOKE_SIZE * SMOKE_SIZE // 4 // BG.TILE
+    cases = [(f"bench {a[1].shape[0]} tiles #{i}", a, extras)
+             for i, a in enumerate(sweeps["bench"]) for extras in (False, True)]
+    if r4_tiles in by_tiles:
+        cases.append((f"config3 {r4_tiles} tiles", by_tiles[r4_tiles],
+                      by_tiles[r4_tiles][6]))
+    for label, args, extras in cases:
+        beams, rays, scal, mask, ct = args[:5]
+        ct_p = BG.pack_ct(ct, rays.shape[0])
+        out = GB.gather_backward_fused(rays, beams, scal, ct_p, mask, extras)
+        torch.cuda.synchronize()
+        plain_ms, ref = cuda_ms(lambda: GB.gather_backward_fused_ref(
+            rays, beams, scal, ct_p, mask, extras), 1, warm=False)
+        errs = _bwd_close(out, ref, f"{name} ({label})", het=True)
+        r["max_abs_err"] = max([r["max_abs_err"]]
+                               + [e for e, _ in errs.values()])
+        for k, (_, rel) in errs.items():
+            r["err_over_max_ref"][k] = max(r["err_over_max_ref"].get(k, 0.0),
+                                           rel)
+        n_live = int((mask > 0).sum())
+        r["sweeps"][f"{label} extras={extras}"] = dict(
+            plain_ms=plain_ms, live_blocks=n_live,
+            err_over_max_ref={k: rel for k, (_, rel) in errs.items()})
+        if label.startswith("config3"):
+            r["plain_ms"] = plain_ms
+        log(f"[smoke bwd parity] {label} ({n_live} live blocks, "
+            f"want_extras={extras}) {name}: plain {plain_ms:.3f} ms; per "
+            f"cotangent max |diff| / max|ref| "
+            + json.dumps({k: float(f"{v:.3e}") for k, (_, v) in errs.items()})
+            + "; d tr_full, d power_end and geometry rows exactly 0")
+        del ref
+    for n_tiles, args in sorted(by_tiles.items(), reverse=True):
+        beams, rays, scal, mask, ct = args[:5]
+        extras = args[6]
+        ct_p = BG.pack_ct(ct, rays.shape[0])
+        ms, _ = cuda_ms(lambda: GB.gather_backward_fused(
+            rays, beams, scal, ct_p, mask, extras), 3)
+        in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
+        ops = (n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range
+               * (BWD_IN_OPS_HET + (BWD_EXTRAS_OPS_HET if extras else 0)))
+        n_bytes = nbytes(rays, beams, scal, ct_p, mask, rays[:, :GB.NDR_HET],
+                         beams)
+        bound_ms, bound_by = bound(ops, n_bytes)
+        n_live = int((mask > 0).sum())
+        r["sweeps"][f"config3 {n_tiles} tiles timing"] = dict(
+            ms=ms, live_blocks=n_live, pairs_in_range=in_range,
+            bound_ms=bound_ms, bound_by=bound_by,
+            gpairs_s=n_live * BG.TILE * BG.CHUNK / ms / 1e6)
+        if n_tiles == r4_tiles or "ms" not in r:
+            r.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                     sweep=f"config-3 step, {n_tiles} ray tiles")
+        log(f"[smoke bwd timing] config-3 step, {n_tiles} ray tiles x "
+            f"{beams.shape[0]} chunks, {n_live} live blocks, {in_range} "
+            f"pairs in range: {name} {ms:.3f} ms, "
+            f"{n_live * BG.TILE * BG.CHUNK / ms / 1e6:.1f} Gpairs/s, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+    if "plain_ms" not in r:
+        r["plain_ms"] = r["sweeps"][f"{cases[0][0]} extras=False"]["plain_ms"]
+    return r
+
+
+def phase_smoke_trainer(dev):
+    """(f) optimize_medium with examples/inverse_smoke.py's settings: three
+    views at 64x64, 20k photons, fitting the 32^3 density from a constant
+    start with the TV prior; targets averaged over INV_TARGET_ITERS
+    iterations per view (the example takes 16)."""
+    true = smoke_density()
+    cams = [smoke_camera(dev, INV_WH, look) for look in SMOKE_LOOKS]
+    cfg = smoke_cfg(INV_PHOTONS, radius=0.18)
+    scene_true = smoke_scene(dev, true, g=0.3)
+    targets = []
+    with torch.no_grad():
+        for vi, cam in enumerate(cams):
+            run = MESH.sharded_photonbeam_iteration(
+                scene_true, cam, INV_WH, INV_WH, cfg,
+                light_power_distribution(scene_true))
+            acc = sum(run(1000 + vi * 100 + i, 0.18)
+                      for i in range(INV_TARGET_ITERS))
+            targets.append((acc / INV_TARGET_ITERS).reshape(INV_WH, INV_WH, 3))
+    start = np.full_like(true, float(true.mean()))
+    scene0 = smoke_scene(dev, start, g=0.3)
+    marks = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, losses = INV.optimize_medium(
+        scene0, cams, INV_WH, INV_WH, targets, cfg,
+        INV.InverseConfig(steps=3, learning_rate=3e-2, n_devices=1,
+                          optimize=("density",), tv_weight=2e-3,
+                          view_block=25),
+        callback=lambda it, loss, p: marks.append(time.perf_counter()))
+    counts = launches(KERNELS + HET_KERNELS)
+    per_step = np.diff([t0] + marks).tolist()
+    d = params["density"].cpu().numpy()
+    moved = float(np.abs(d - start).max())
+    err = [float(np.abs(x - true).mean() / true.mean()) for x in (start, d)]
+    log(f"[smoke trainer] optimize_medium, 3 views {INV_WH}x{INV_WH}, "
+        f"{INV_PHOTONS} photons, radius 0.18, g 0.3, density only, tv_weight "
+        f"2e-3, Adam lr 3e-2, targets of {INV_TARGET_ITERS} iterations: "
+        f"s/step {per_step} (steps 2-3 mean {np.mean(per_step[1:]):.4f}); "
+        f"losses {losses}; density moved up to {moved:.4f}, mean |density "
+        f"err| {err[0]:.4f} -> {err[1]:.4f} of the mean; launches {counts}")
+    if not all(np.isfinite(losses)) or not moved > 0 or (d < 0).any():
+        raise AssertionError(f"smoke trainer: losses {losses}, moved {moved}")
+    need = ("gather_forward_het", "gather_backward_fused_het")
+    if any(counts[k] <= 0 for k in need):
+        raise AssertionError(f"smoke trainer: kernels never launched: "
+                             f"{need} ({counts})")
+    return dict(per_step_s=per_step, losses=losses, density_moved=moved,
+                density_rel_err=err, launches=counts,
+                target_iters=INV_TARGET_ITERS)
+
+
+def phase_smoke_consistency(dev):
+    """(g) CUDA against the CPU on a small config-3 scene: the image and
+    the density and sigma_s gradients."""
+    size, photons = 32, 3000
+    img_gpu, _, _ = render_smoke(dev, size, photons, 1)
+    img_cpu, _, _ = render_smoke(torch.device("cpu"), size, photons, 1)
+    check_image(img_gpu, size, "CUDA config-3 render")
+    check_image(img_cpu, size, "CPU config-3 render")
+    ch_gpu, ch_cpu = img_gpu.mean((0, 1)), img_cpu.mean((0, 1))
+    rel_img = float(((ch_gpu - ch_cpu).abs() / ch_cpu).max())
+    out = [fwd_bwd_smoke(smoke_scene(d), smoke_camera(d, size), size,
+                         smoke_cfg(photons), 1)
+           for d in (dev, torch.device("cpu"))]
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    check_grads(g_cpu, "CPU hetero step")
+    rel = {k: float((g_gpu[k].cpu() - g_cpu[k]).abs().max()
+                    / g_cpu[k].abs().max()) for k in g_cpu}
+    log(f"[smoke consistency] config 3 at {size}x{size}, {photons} photons: "
+        f"channel-mean max rel diff {rel_img:.3e} (limit "
+        f"{CONSISTENCY_RTOL}); value CUDA {l_gpu:.7e} CPU {l_cpu:.7e}; "
+        f"grads max |diff| / max |cpu| {rel} (limit {GRAD_CONSISTENCY_RTOL})")
+    if not (rel_img <= CONSISTENCY_RTOL
+            and abs(l_gpu / l_cpu - 1) <= CONSISTENCY_RTOL
+            and max(rel.values()) <= GRAD_CONSISTENCY_RTOL):
+        raise AssertionError("CUDA and CPU disagree on the config-3 scene")
+    return dict(channel_rel_diff=rel_img, value_cuda=l_gpu, value_cpu=l_cpu,
+                grad_rel_diff=rel)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -877,6 +1378,9 @@ def main():
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] kernels ready in {report['build_s']:.2f} s "
         f"(nvcc {cuda_build.build_seconds} s)")
+    report["ptxas"] = ptxas_summary(cuda_build.build_log or "")
+    for kernel, use in report["ptxas"].items():
+        log(f"[ptxas] {kernel}: {use}")
     img_main, report["main"] = phase_main_path(dev)
     report["default_pick"] = phase_default_pick(dev, img_main)
     report["breakdown"], sweeps = phase_breakdown(dev)
@@ -889,9 +1393,25 @@ def main():
     kernels += phase_bwd_parity(bench_sweeps, spec_sweeps)
     del bench_sweeps, spec_sweeps
     report["grad_consistency"] = phase_grad_consistency(dev)
-    counted = {**report["main"]["launches"],
-               **{k: v for k, v in report["spec_step"]["launches"].items()
-                  if k not in report["main"]["launches"]}}
+    img_smoke, report["smoke"] = phase_smoke_render(dev)
+    report["smoke_counted"] = phase_smoke_counted(dev, img_smoke)
+    kernels += phase_smoke_parity(dev)
+    report["smoke_steps"], smoke_sweeps = phase_smoke_steps(dev)
+    kernels.append(phase_smoke_bwd_parity(smoke_sweeps))
+    del smoke_sweeps
+    report["smoke_trainer"] = phase_smoke_trainer(dev)
+    report["smoke_consistency"] = phase_smoke_consistency(dev)
+    # each kernel's count from the main-path run that drives it: the
+    # config-2 render (forward), the spec step's counted run (backward),
+    # the config-3 render (dense hetero forward) and its counted run
+    # (sparse hetero forward), the config-3 step (hetero backward)
+    counted = {**report["spec_step"]["launches"], **report["main"]["launches"],
+               "gather_forward_het":
+                   report["smoke"]["launches"]["gather_forward_het"],
+               "gather_sparse_het":
+                   report["smoke_counted"]["launches"]["gather_sparse_het"],
+               "gather_backward_fused_het": report["smoke_steps"]["config3"]
+                   ["launches"]["gather_backward_fused_het"]}
     for k in kernels:
         k["launches"] = counted[k["name"]]
     report["kernels"] = kernels

@@ -13,7 +13,8 @@ the sum order and the math library's exp/log/rsqrt differ); backward kernels
 max|d| <= 2e-4 * (max|ref| + 1e-9) per cotangent (the reference's backward
 criterion, tests/test_pallas_gather.py:448, held per gradient there).  CUDA vs CPU image
 means 1e-3: same PCG32 streams, float-ulp flips of a few photon decisions
-at most."""
+at most.  The grid-density (heterogeneous) instances are held to the same
+criteria; their zero rows (d tr_full, d power_end, geometry) exactly 0."""
 
 import numpy as np
 import pytest
@@ -211,3 +212,133 @@ def test_gather_gradient_on_card(dev):
         grads.append(torch.autograd.grad(out.sum(), leaves + [sig]))
     for g_card, g_cpu in zip(*grads):
         _close(g_card.cpu(), g_cpu)
+
+
+def _het_inputs(dev, n_tiles=8, n_chunks=40, seed=0):
+    """Hetero packed inputs: _inputs' rows plus polynomial tables from the
+    fit maps applied to positive node tables (a few all-zero density
+    rows), the kernels' NF_HET / NB_HET layouts."""
+    rays, beams, scal, mask = (x.cpu().numpy() for x in
+                               _inputs("cpu", n_tiles, n_chunks, seed))
+    rs = np.random.RandomState(seed + 11)
+    MD, MN = BG._fit_matrices(BG.HETERO_NODES)
+    K, T, C = BG.HETERO_NODES, 256, 256
+    dk_r = rs.uniform(0, 0.4, (n_tiles, T, K)).astype(np.float32)
+    dens_r = rs.uniform(0, 1.5, (n_tiles, T, K)).astype(np.float32)
+    dens_r[:, :20] = 0.0
+    dk_b = rs.uniform(0, 0.4, (n_chunks, C, K)).astype(np.float32)
+    rays_h = np.concatenate([
+        rays, (dk_r @ MD.T).transpose(0, 2, 1),
+        rs.uniform(0.3, 1.5, (n_tiles, 3, T)).astype(np.float32),
+        (dens_r @ MN.T).transpose(0, 2, 1)], 1)
+    rays_h[:, G.RF_SIGS:G.RF_SIGS + 3] *= 40.0
+    beams_h = np.concatenate([
+        beams, (dk_b @ MD.T).transpose(0, 2, 1),
+        rs.uniform(0.3, 1.5, (n_chunks, 3, C)).astype(np.float32)], 1)
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in (rays_h, beams_h, scal, mask)]
+
+
+def test_hetero_kernels_match_plain_versions(dev):
+    rays, beams, scal, mask = _het_inputs(dev)
+    n0 = (G.gather_forward.launches_het, G.gather_sparse.launches_het,
+          G.gather_forward.launches)
+    dense = G.gather_forward(rays, beams, scal, mask)
+    idx, _ = G.sparse_block_ids(mask, int(mask.sum()))
+    sparse = G.gather_sparse(rays, beams, scal, idx)
+    torch.cuda.synchronize()
+    assert (G.gather_forward.launches_het, G.gather_sparse.launches_het,
+            G.gather_forward.launches) == (n0[0] + 1, n0[1] + 1, n0[2])
+    ref = G.gather_forward_ref(rays, beams, scal, mask)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(dense, ref, rtol=2e-4, atol=1e-8)
+    torch.testing.assert_close(sparse, G.gather_sparse_ref(rays, beams, scal, idx),
+                               rtol=2e-4, atol=1e-8)
+    assert torch.equal(dense, sparse)
+    assert torch.equal(dense, G.gather_forward(rays, beams, scal, mask))
+
+
+@pytest.mark.parametrize("want_extras", [True, False])
+def test_hetero_backward_kernels_match_plain_versions(dev, want_extras):
+    rays, beams, scal, mask = _het_inputs(dev)
+    ct = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (rays.shape[0], GB.NDR, 256)).astype(np.float32)).to(dev)
+    ct[:, 3:] = 0.0
+    n0 = GB.gather_backward_fused.launches_het
+    out = GB.gather_backward_fused(rays, beams, scal, ct, mask, want_extras)
+    torch.cuda.synchronize()
+    assert GB.gather_backward_fused.launches_het == n0 + 1
+    assert out[0].shape == (rays.shape[0], GB.NDR_HET, 256)
+    assert out[1].shape == beams.shape
+    ref = GB.gather_backward_fused_ref(rays, beams, scal, ct, mask, want_extras)
+    for o, r, rows in zip(out, ref, (GB.D_RAYS_ROWS_HET, GB.D_BEAMS_ROWS_HET)):
+        for name, sl in rows.items():
+            err = float((o[:, sl] - r[:, sl]).abs().max())
+            r_max = float(r[:, sl].abs().max())
+            assert err <= 2e-4 * (r_max + 1e-9), (name, err, r_max)
+            if name not in ("g", "cam_radius", "radius"):
+                assert r_max > 0, name
+    other = torch.ones(G.NB_HET, dtype=torch.bool, device=dev)
+    for sl in GB.D_BEAMS_ROWS_HET.values():
+        other[sl] = False
+    assert float(out[1][:, other].abs().max()) == 0.0
+    assert float(out[0][:, GB.DR_TR:GB.DR_TR + 3].abs().max()) == 0.0
+    assert (float(out[0][:, GB.DR_G].abs().max()) > 0) == want_extras
+    for a, b in zip(out, GB.gather_backward_fused(rays, beams, scal, ct, mask,
+                                                  want_extras)):
+        assert torch.equal(a, b)  # deterministic
+
+
+def _smoke(dev, n=16):
+    x, y, z = np.meshgrid(*(np.linspace(-1, 1, n),) * 3, indexing="ij")
+    dens = np.exp(-2.0 * (x**2 + 2 * y**2 + z**2))
+    dens *= 1.0 + 0.5 * np.sin(4 * x) * np.cos(3 * z)
+    b = SceneBuilder()
+    w2m = np.array([[0.5, 0, 0, 0.5], [0, 0.5, 0, 0.5], [0, 0, 0.5, 0.5],
+                    [0, 0, 0, 1]], np.float32)
+    smoke = b.grid_medium(np.clip(dens, 0, None).astype(np.float32), w2m,
+                          sigma_a=(0.02,) * 3, sigma_s=(0.6,) * 3, g=0.4)
+    wall = b.matte((0.5, 0.5, 0.6))
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=smoke,
+          medium_outside=-1)
+    b.quad((-4, -4, 2.5), (-4, 4, 2.5), (4, 4, 2.5), (4, -4, 2.5),
+           material=wall)
+    b.point_light((0.0, 0.8, -0.5), (2.0, 1.9, 1.7), medium=smoke)
+    return b.build(device=dev)
+
+
+def test_hetero_render_on_card_matches_cpu(dev):
+    W = 32
+    cfg = PhotonBeamConfig(iterations=1, maxdepth=5, photonsperiteration=3000,
+                           initialbeamradius=0.15, gather="pallas",
+                           grad_geometry=False, grad_extras=False)
+    imgs = []
+    n0 = G.gather_forward.launches_het + G.gather_sparse.launches_het
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -3.2), (0, 0, 0), (0, 1, 0)), 50.0, W, W,
+            device=d)
+        img, _ = render_photonbeam(_smoke(d), cam, W, W, cfg)
+        imgs.append(img.cpu())
+    assert G.gather_forward.launches_het + G.gather_sparse.launches_het > n0
+    assert bool(torch.isfinite(imgs[0]).all()) and float(imgs[1].mean()) > 0
+    rel = float((imgs[0].mean() / imgs[1].mean() - 1).abs())
+    assert rel < 1e-3, rel
+
+
+def test_grid_density_gradient_on_card(dev):
+    """The density lookup's backward (a sorted segment sum per table row)
+    repeats bit for bit on the card and agrees with the CPU's."""
+    from bre_tpu_torch.media import grid_density
+    rs = np.random.RandomState(5)
+    dens = rs.uniform(0, 1, (32, 32, 32)).astype(np.float32)
+    p = rs.uniform(-0.1, 1.1, (200_000, 3)).astype(np.float32)
+    w = rs.uniform(-1, 1, p.shape[0]).astype(np.float32)
+    grads = []
+    for d in (dev, dev, torch.device("cpu")):
+        dd = torch.from_numpy(dens).to(d).requires_grad_()
+        out = (grid_density(dd, torch.from_numpy(p).to(d))
+               * torch.from_numpy(w).to(d)).sum()
+        grads.append(torch.autograd.grad(out, dd)[0].cpu())
+    assert torch.equal(grads[0], grads[1])
+    _close(grads[0], grads[2])

@@ -101,14 +101,18 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tinv.optimize_medium(ts, tc, WH, WH, tgt, cfg,
                              tinv.InverseConfig(steps=1, n_devices=4))
-    step = tmesh.make_inverse_train_step(ts, tc, WH, WH, cfg)
+    # the non-packed gather route (ROADMAP Queue 1 item 1) is not ported
+    step = tmesh.make_inverse_train_step(
+        ts, tc, WH, WH, tpb.PhotonBeamConfig(**{**CFG, "grad_geometry": True}))
     params = {k: getattr(ts.media, k) for k in PARAMS}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        step({**params, "density": torch.ones(4, 4, 4)}, tgt, 0, 0.4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tinv.optimize_medium(ts, tc, WH, WH, tgt, cfg,
-                             tinv.InverseConfig(steps=1, tv_weight=0.1))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tinv.optimize_medium(ts, tc, WH, WH, tgt, cfg,
-                             tinv.InverseConfig(steps=1,
-                                                optimize=("density",)))
+    with pytest.raises(NotImplementedError, match="bruteforce"):
+        step(params, tgt, 0, 0.4)
+    with pytest.raises(NotImplementedError, match="bruteforce"):
+        tinv.optimize_medium(ts, tc, WH, WH, tgt,
+                             tpb.PhotonBeamConfig(**{**CFG, "gather": "brute"}),
+                             tinv.InverseConfig(steps=1))
+    # density grids are ported: a scene without one carries a (1,1,1)
+    # brick that nothing reads, and its gradient is zero, as jax.grad's
+    loss, grads = tmesh.make_inverse_train_step(ts, tc, WH, WH, cfg)(
+        {**params, "density": ts.media.density}, tgt, 0, 0.4)
+    assert float(loss) > 0 and not grads["density"].any()

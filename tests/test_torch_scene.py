@@ -105,10 +105,18 @@ def test_unported_content_raises():
     b.area_light_sphere((0, 0, 0), 0.5, (1, 1, 1))
     with pytest.raises(NotImplementedError, match="lights"):
         check_slice(scene_from_jax(b.build(), device="cpu"))
+    # one grid medium is ported; the scene holds one density brick, so a
+    # second grid medium is refused
     b = JBuilder()
     b.grid_medium(np.ones((2, 2, 2), np.float32), np.eye(4))
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        scene_from_jax(b.build(), device="cpu")
+    b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), medium_inside=0)
+    one = scene_from_jax(b.build(), device="cpu")
+    check_slice(one)
+    two = one._replace(media=one.media._replace(
+        mtype=one.media.mtype.repeat(2), sigma_a=one.media.sigma_a.repeat(2, 1),
+        sigma_s=one.media.sigma_s.repeat(2, 1), g=one.media.g.repeat(2)))
+    with pytest.raises(NotImplementedError, match="more than one grid"):
+        check_slice(two)
 
 
 def test_intersect_matches(scenes):

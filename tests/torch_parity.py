@@ -14,6 +14,36 @@ def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+SMOKE_W2M = np.array([[0.5, 0, 0, 0.5], [0, 0.5, 0, 0.5],
+                      [0, 0, 0.5, 0.5], [0, 0, 0, 1]], np.float32)
+SMOKE_LOOK = ((0, 0, -3.2), (0, 0, 0), (0, 1, 0))
+
+
+def smoke_density(n=32):
+    """examples/smoke_hetero.py's procedural density: an elongated puff
+    with swirls on an n^3 grid."""
+    x, y, z = np.meshgrid(*(np.linspace(-1, 1, n),) * 3, indexing="ij")
+    d = np.exp(-2.0 * (x**2 + 2 * y**2 + z**2))
+    d *= 1.0 + 0.5 * np.sin(4 * x) * np.cos(3 * z)
+    return np.clip(d, 0.0, None).astype(np.float32)
+
+
+def smoke_hetero(b, density=None, g=0.4, **build_kw):
+    """examples/smoke_hetero.py's scene (BASELINE config 3) on either
+    package's SceneBuilder: the grid smoke in [-1,1]^3 lit from inside, a
+    wall behind it."""
+    dens = smoke_density() if density is None else density
+    smoke = b.grid_medium(dens, SMOKE_W2M, sigma_a=(0.02,) * 3,
+                          sigma_s=(0.6,) * 3, g=g)
+    wall = b.matte((0.5, 0.5, 0.6))
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=smoke,
+          medium_outside=-1)
+    b.quad((-4, -4, 2.5), (-4, 4, 2.5), (4, 4, 2.5), (4, -4, 2.5),
+           material=wall)
+    b.point_light((0.0, 0.8, -0.5), (2.0, 1.9, 1.7), medium=smoke)
+    return b.build(**build_kw)
+
+
 def cornell_fog(b, point_light=False, **build_kw):
     """examples/cornell_fog.py's scene (BASELINE config 2) on either
     package's SceneBuilder; optionally one extra point light in the fog.
