@@ -1,7 +1,26 @@
-"""Beam radiance gather, packed path (counterpart of
-``bre_tpu/accel/beam_gather.py:193-323, 893-1318``).
+"""Beam radiance gather (counterpart of ``bre_tpu/accel/beam_gather.py``):
+the non-packed route of ``gather_beams_bruteforce`` and the packed route of
+``gather_beams_packed``.
 
-The beam buffer is validity-compacted and Morton-sorted once per camera pass
+Non-packed route (beam_gather.py:150-823, 839-890, 1468-1485), what the
+default config takes (``grad_geometry=True``) and every setting the packed
+route does not serve: per call, the beams are validity-sorted (or arrive
+sorted by ``compact_beams``), padded to ``gather_chunk`` and gathered by
+``_GatherCore``.  ``backend="xla"`` (``gather="brute"``) runs the
+reference's XLA chunk scan as plain torch, forward and backward;
+``backend="pallas"`` launches the forward kernel of ``ops/gather.py`` on
+the non-packed layout with no block mask.  The backward recomputes each
+chunk's ``_chunk_contrib`` under autograd (the reference's O(rays x chunk)
+custom VJP), split into pieces of at most ``_REF_BATCH_PAIRS_*`` pairs; with
+the geometry detached (``grad_geometry=False``) and ``PALLAS_BWD_ENABLED``,
+the pallas backend takes the analytic backward kernels instead:
+``PALLAS_BWD_MODE`` "fused" (Queue 2 row 3) or "twopass" (row 6).  The
+differentiable plain torch keeps the reference's tie semantics: every clip,
+max and min goes through ``torch.maximum`` / ``torch.minimum``, which split
+the cotangent at an exact tie as ``jnp.maximum`` / ``jnp.clip`` do (a
+``torch.clamp`` would give it all to the input).
+
+Packed route: the beam buffer is validity-compacted and Morton-sorted once per camera pass
 (``pack_beams_compact``); each depth step packs its camera segments, builds
 the exact chunk x tile AABB cull mask (``_block_overlap_mask``) and runs the
 kernels of ``ops/gather.py``, picking at run time between the sparse
@@ -28,20 +47,24 @@ alike.
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import transform as tfm
 from ..core.math import length
-from ..media import gather_medium, grid_density
-from ..ops.gather import (BF_B0, BF_B1, BF_RAD, BF_VALID, NB, POLY_D_COEFS,
-                          POLY_DENS_COEFS, RF_DC, RF_DENSC, RF_G, RF_SIGS,
-                          RF_SIGTC, RF_TR, gather_forward, gather_sparse,
-                          is_hetero, pack_rays, sparse_block_ids)
-from ..ops.gather_bwd import (DR_DC, DR_DENS, DR_G, DR_SIGS, DR_SIGTC, DR_TR,
-                              NDR, gather_backward_fused,
-                              gather_backward_sparse,
+from ..media import gather_medium, grid_density, phase_hg
+from ..ops.gather import (_REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU, BF_B0,
+                          BF_B1, BF_PE, BF_PS, BF_RAD, BF_VALID, NB,
+                          POLY_D_COEFS, POLY_DENS_COEFS, RF_DC, RF_DENSC,
+                          RF_G, RF_SIGS, RF_SIGTC, RF_TR, gather_forward,
+                          gather_sparse, is_hetero, pack_beams, pack_rays,
+                          sparse_block_ids)
+from ..ops.gather_bwd import (DR_CAMR, DR_DC, DR_DENS, DR_G, DR_SIGS,
+                              DR_SIGTC, DR_TR, NDR, gather_backward_fused,
+                              gather_backward_sparse, gather_backward_twopass,
                               sparse_block_ids_chunk_major)
 from ..scene.scene import Media
 from .lbvh import morton3
@@ -49,9 +72,19 @@ from .lbvh import morton3
 TILE = 256  # camera segments per ray tile
 CHUNK = 256  # beams per packed chunk
 
+KERNEL_BRE = 0  # the normalized 1D-1D beam radiance estimate
+KERNEL_COMPAT = 1  # the reference renderer's conical kernel (not ported)
+
 HETERO_NODES = 8  # quadrature nodes per segment in grid media
 POLY_D_DEG = 5  # D(f) = c1 f + ... + c5 f^5
 POLY_DENS_DEG = 5  # dens(f) = e0 + e1 f + ... + e5 f^5
+
+# The analytic backward of the non-packed route (grad_geometry=False,
+# KERNEL_BRE, homogeneous media), beam_gather.py:612-620: "fused", the
+# one-sweep kernels (the default), or "twopass", the historical two-pass
+# kernels; PALLAS_BWD_ENABLED False takes the recompute backward.
+PALLAS_BWD_ENABLED = True
+PALLAS_BWD_MODE = "fused"  # "fused" | "twopass"
 
 
 def medium_interval_nodes(media: Media, med_idx, p0, p1, K: int = HETERO_NODES):
@@ -116,6 +149,435 @@ def medium_interval_poly(media: Media, med_idx, p0, p1, K: int = HETERO_NODES):
     return d_poly, dens_poly, sigma_t
 
 
+# ---------------------------------------------------------------------------
+# The non-packed route's pair math, differentiable plain torch
+# ---------------------------------------------------------------------------
+
+def _const(x, v):
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def _max(x, v):
+    """``jnp.maximum(x, v)``: the cotangent splits at an exact tie."""
+    return torch.maximum(x, _const(x, v))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` = min(max(x, lo), hi), ties split likewise."""
+    return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
+
+
+def _dot3(x, y):
+    """x . y over the trailing 3-axis, summed in index order as the kernels'
+    ``dot3`` and the CPU's ``sum(-1)`` do.  A CUDA ``sum(-1)`` of a 3-axis
+    does not always add in that order, and near-parallel pairs (``a e - b^2``
+    cancelling) turn that last bit into a different closest point: on the
+    card the recompute backward then missed the kernels' beam-power
+    cotangents by 1.4e-3 of their max."""
+    return x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1] + x[..., 2] * y[..., 2]
+
+
+def _length3(v):
+    """``core.math.length`` with the index-order sum of ``_dot3``."""
+    return torch.sqrt(torch.clamp_min(_dot3(v, v), 1e-30))
+
+
+def _safe_div(cond, num, den):
+    """where(cond, num / where(cond, den, 1), 0): both wheres, so neither
+    the value nor the cotangent of an unselected lane is inf or NaN."""
+    return torch.where(cond, num / torch.where(cond, den, _const(den, 1.0)),
+                       _const(num, 0.0))
+
+
+def closest_points_segments_exact(a0, a1, b0, b1):
+    """True segment-segment closest points (Ericson, RTCD 5.1.9),
+    branchless and differentiable (beam_gather.py:150-174).  Returns (pa,
+    pb, valid), valid True everywhere (parallel pairs are handled)."""
+    d1 = a1 - a0
+    d2 = b1 - b0
+    r = a0 - b0
+    a = _dot3(d1, d1)
+    e = _dot3(d2, d2)
+    b = _dot3(d1, d2)
+    c = _dot3(d1, r)
+    f = _dot3(d2, r)
+    denom = a * e - b * b
+    s = _clip(_safe_div(denom > 1e-12, b * f - c * e, denom), 0.0, 1.0)
+    t = _safe_div(e > 1e-12, b * s + f, e)
+    t_cl = _clip(t, 0.0, 1.0)
+    # re-derive s where t was clamped
+    apos = a > 1e-12
+    s_new = _clip((t_cl * b - c) / torch.where(apos, a, _const(a, 1.0)),
+                  0.0, 1.0)
+    s = torch.where((t != t_cl) & apos, s_new, s)
+    pa = a0 + d1 * s[..., None]
+    pb = b0 + d2 * t_cl[..., None]
+    return pa, pb, torch.ones(s.shape, dtype=torch.bool, device=s.device)
+
+
+def _interp_power(power_start, power_end, frac):
+    """Power at fraction ``frac`` along a beam by exponential interpolation
+    (beam_gather.py:177-190), fully where-isolated: dead lanes (start power
+    <= 1e-20) never reach the log or the divide, and the decay ratio is
+    floored at 1e-12."""
+    ok = power_start > 1e-20
+    one = _const(power_start, 1.0)
+    ps = torch.where(ok, power_start, one)
+    pe = torch.where(ok, torch.maximum(power_end, 1e-12 * ps), one)
+    p = ps * torch.exp(frac[..., None] * torch.log(pe / ps))
+    return torch.where(ok, p, _const(p, 0.0))
+
+
+def _poly_D_at(coef, frac):
+    """Horner evaluation of D(f) (no constant term), clamped at 0
+    (beam_gather.py:300-306); coef (..., 5) broadcast against frac."""
+    acc = coef[..., POLY_D_DEG - 1]
+    for i in range(POLY_D_DEG - 2, -1, -1):
+        acc = coef[..., i] + frac * acc
+    return _max(frac * acc, 0.0)
+
+
+def _poly_dens_at(coef, frac):
+    """Horner evaluation of dens(f), clamped at 0; coef (..., 6)."""
+    acc = coef[..., POLY_DENS_DEG]
+    for i in range(POLY_DENS_DEG - 1, -1, -1):
+        acc = coef[..., i] + frac * acc
+    return _max(acc, 0.0)
+
+
+def _chunk_contrib(cb: dict, seg: dict, kernel: int, power_scale: float,
+                   min_sin_theta: float, grad_geometry: bool = True,
+                   grad_extras: bool = True) -> torch.Tensor:
+    """(R, 3) contribution of one beam chunk ``cb`` (C-sized tensors and the
+    float validity) to the R camera segments of ``seg``
+    (beam_gather.py:340-467, the KERNEL_BRE branch).  ``grad_geometry``
+    False detaches the closest-point geometry, ``grad_extras`` False the
+    blur radii and the HG g, where the reference stop-gradients them."""
+    if kernel != KERNEL_BRE:
+        raise NotImplementedError(
+            'kernel="compat" is not ported (ROADMAP Queue 1 item 6: compat '
+            "path and golden gates)")
+    keep = lambda x: x  # noqa: E731
+    sg = keep if grad_geometry else torch.Tensor.detach
+    sx = keep if grad_extras else torch.Tensor.detach
+    c_start = sg(cb["start"])[None]  # (1, C, 3)
+    c_end = sg(cb["end"])[None]
+    c_ps = cb["power_start"][None]
+    c_pe = cb["power_end"][None]
+    c_rad = sx(cb["radius"])[None]  # (1, C)
+    c_valid = cb["valid_f"][None]
+    a0 = sg(seg["a0"])[:, None]  # (R, 1, 3)
+    a1 = sg(seg["a1"])[:, None]
+    pa, pb, cp_valid = closest_points_segments_exact(a0, a1, c_start, c_end)
+    dist = _length3(pa - pb)  # (R, C)
+    width = sx(seg["cam_radius"]) + c_rad
+    r = dist / _max(width, 1e-30)
+    in_range = ((r < 1.0) & cp_valid).to(torch.float32) * c_valid
+
+    # the physically normalized 1D-1D estimate
+    beam_len = _max(_length3(c_end - c_start), 1e-30)
+    b_dirn = (c_end - c_start) / beam_len[..., None]
+    t_b = _dot3(pb - c_start, b_dirn)
+    frac_b = _clip(t_b / beam_len, 0.0, 1.0)
+    t_c = _dot3(pa - seg["a0"][:, None], seg["dir"][:, None])
+    frac_c = _clip(t_c / seg["len"][:, None], 0.0, 1.0)
+    if "d_cam_poly" in seg:
+        # grid media: transmittance and sigma_s from the segments'
+        # polynomial tables, tau_ch = sigma_t[ch] * D(f)
+        Db = _poly_D_at(cb["d_poly_b"][None], frac_b)  # (R, C)
+        p_at = c_ps * torch.exp(-Db[..., None] * cb["sigma_t_b"][None])
+        Dc = _poly_D_at(seg["d_cam_poly"][:, None], frac_c)
+        tr_cam = torch.exp(-Dc[..., None] * seg["sigma_t_cam"][:, None])
+        dens_c = _poly_dens_at(seg["dens_cam_poly"][:, None], frac_c)
+        sigs = seg["sigma_s"][:, None] * dens_c[..., None]
+    else:
+        p_at = _interp_power(c_ps, c_pe, frac_b)  # (R, C, 3)
+        tr_cam = _interp_power(torch.ones_like(seg["tr_full"])[:, None],
+                               _max(seg["tr_full"], 1e-30)[:, None], frac_c)
+        sigs = seg["sigma_s"][:, None]
+
+    cos_theta = _dot3(seg["dir"][:, None], b_dirn)
+    rho = phase_hg(cos_theta, sx(seg["g"])[:, None])
+    sin_theta = _max(torch.sqrt(_max(1.0 - cos_theta * cos_theta, 1e-12)),
+                     min_sin_theta)
+    # Epanechnikov line kernel, integral over [-W, W] == 1
+    k1 = 0.75 * (1.0 - r * r) / _max(width, 1e-30)
+    w = (rho * k1 / sin_theta)[..., None] * sigs
+    contrib = power_scale * w * p_at * tr_cam
+    contrib = contrib * seg["in_med_f"][:, None, None]
+    return (contrib * in_range[..., None]).sum(1)
+
+
+# seg entries that are scalars, not per-ray rows
+_SEG_SCALARS = ("cam_radius", "n_valid_beams")
+
+
+class _Cfg(NamedTuple):
+    kernel: int
+    chunk: int  # beams per chunk of the chunk loop (gather_chunk)
+    n_chunks: int
+    power_scale: float
+    min_sin: float
+    grad_geometry: bool
+    grad_extras: bool
+    backend: str  # "xla": plain torch forward; "pallas": the forward kernel
+
+
+def _piece_rays(chunk: int, device) -> int:
+    """Rays per piece of the chunk loop: at most 2^22 pairs on the CPU and
+    2^24 on a card (the plain versions' batches), so one recompute's
+    autograd graph stays within a few GB."""
+    pairs = _REF_BATCH_PAIRS_CPU if device.type == "cpu" else _REF_BATCH_PAIRS_CARD
+    return max(1, pairs // chunk)
+
+
+def _seg_rows(seg: dict, lo: int, hi: int) -> dict:
+    return {k: v if k in _SEG_SCALARS else v[lo:hi] for k, v in seg.items()}
+
+
+def _n_live_chunks(cfg: _Cfg, n_valid: float) -> int:
+    """Chunks ci with ci * chunk < n_valid: the beams arrive validity-sorted,
+    so every later chunk is dead (the reference's scalar cond skips them)."""
+    return min(cfg.n_chunks, math.ceil(n_valid / cfg.chunk))
+
+
+def _gather_forward(cfg: _Cfg, pb: dict, seg: dict, n_valid: float):
+    """The chunk scan (beam_gather.py:479-499) over the live chunks, each
+    chunk's rays in pieces (rows are independent: the same sums)."""
+    R = seg["a0"].shape[0]
+    acc = torch.zeros((R, 3), dtype=torch.float32, device=seg["a0"].device)
+    rp = _piece_rays(cfg.chunk, acc.device)
+    for ci in range(_n_live_chunks(cfg, n_valid)):
+        cb = {k: v[ci * cfg.chunk:(ci + 1) * cfg.chunk] for k, v in pb.items()}
+        for lo in range(0, R, rp):
+            acc[lo:lo + rp] += _chunk_contrib(
+                cb, _seg_rows(seg, lo, lo + rp), cfg.kernel, cfg.power_scale,
+                cfg.min_sin, cfg.grad_geometry, cfg.grad_extras)
+    return acc
+
+
+def _gather_bwd(cfg: _Cfg, pb: dict, seg: dict, ct, n_valid: float,
+                need_pb: dict, need_seg: dict):
+    """The recompute backward (beam_gather.py:506-550): each live chunk's
+    ``_chunk_contrib`` is re-run under autograd, one piece of rays at a
+    time, and its vector-Jacobian product taken with the output cotangent.
+    Beam cotangents add into their chunk's rows, ray cotangents into their
+    piece's rows, in chunk order then piece order: contiguous slices, no
+    atomics, so repeated runs agree bit for bit.  The sum order over rays
+    differs from the reference's single (R, C) VJP by the pieces.  Returns
+    ({key: cotangent or None}, {key: cotangent or None})."""
+    R = seg["a0"].shape[0]
+    d_pb = {k: torch.zeros_like(v) if need_pb[k] else None
+            for k, v in pb.items()}
+    d_seg = {k: torch.zeros_like(v) if need_seg[k] else None
+             for k, v in seg.items()}
+    if not (any(need_pb.values()) or any(need_seg.values())):
+        return d_pb, d_seg
+    rp = _piece_rays(cfg.chunk, ct.device)
+    for ci in range(_n_live_chunks(cfg, n_valid)):
+        c0, c1 = ci * cfg.chunk, (ci + 1) * cfg.chunk
+        for lo in range(0, R, rp):
+            hi = min(lo + rp, R)
+            with torch.enable_grad():
+                cb = {k: v[c0:c1].detach().requires_grad_(need_pb[k])
+                      for k, v in pb.items()}
+                sp = {k: v.detach().requires_grad_(need_seg[k])
+                      for k, v in _seg_rows(seg, lo, hi).items()}
+                out = _chunk_contrib(cb, sp, cfg.kernel, cfg.power_scale,
+                                     cfg.min_sin, cfg.grad_geometry,
+                                     cfg.grad_extras)
+                leaves = ([("pb", k, v) for k, v in cb.items() if need_pb[k]]
+                          + [("seg", k, v) for k, v in sp.items()
+                             if need_seg[k]])
+                if not out.requires_grad:
+                    continue
+                grads = torch.autograd.grad(out, [v for _, _, v in leaves],
+                                            ct[lo:hi], allow_unused=True)
+            for (side, k, _), g in zip(leaves, grads):
+                if g is None:
+                    continue
+                if side == "pb":
+                    d_pb[k][c0:c1] += g
+                elif k in _SEG_SCALARS:
+                    d_seg[k] += g
+                else:
+                    d_seg[k][lo:hi] += g
+    return d_pb, d_seg
+
+
+def _fold_kernel_inputs(pb: dict, seg: dict, power_scale: float):
+    """Fold power_scale * in_medium into the sigma_s rows and the validity
+    into the beam powers, as the kernels assume (beam_gather.py:559-570)."""
+    seg_f = dict(seg)
+    seg_f["sigma_s"] = seg["sigma_s"] * (power_scale * seg["in_med_f"])[:, None]
+    pb_f = dict(pb)
+    pb_f["power_start"] = pb["power_start"] * pb["valid_f"][:, None]
+    pb_f["power_end"] = pb["power_end"] * pb["valid_f"][:, None]
+    return pb_f, seg_f
+
+
+def _pack_kernel_inputs(cfg: _Cfg, pb: dict, seg: dict):
+    """The non-packed route's kernel inputs (beam_gather.py:573-596): the
+    folds, the rays zero-padded to whole 256-ray tiles and packed, the beams
+    packed in 256-beam chunks (the buffer padded with zero beams to a
+    multiple of 256 where ``gather_chunk`` is not one), and the (1, 4)
+    scalars.  Returns (rays_packed, beams_packed, scalars)."""
+    pb_f, seg_f = _fold_kernel_inputs(pb, seg, cfg.power_scale)
+    R = seg["a0"].shape[0]
+    R_pad = -(-R // TILE) * TILE
+    if R_pad != R:
+        seg_f = {k: v if k in _SEG_SCALARS else torch.cat(
+            [v, v.new_zeros((R_pad - R,) + v.shape[1:])], 0)
+            for k, v in seg_f.items()}
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                    device=seg["a0"].device).reshape(())
+    scalars = torch.stack([f32(seg["cam_radius"]), f32(cfg.power_scale),
+                           f32(cfg.min_sin), f32(seg["n_valid_beams"])])
+    return (pack_rays(seg_f, TILE), pack_beams(pb_f, CHUNK),
+            scalars.reshape(1, 4))
+
+
+def _pallas_forward(cfg: _Cfg, pb: dict, seg: dict):
+    """The forward kernel (row 1 of Queue 2) on the non-packed layout with
+    no block mask: every block before ``n_valid`` is swept, as the
+    reference's ``_pallas_forward`` (beam_gather.py:573-600).  (R, 3)."""
+    rays_packed, beams_packed, scalars = _pack_kernel_inputs(cfg, pb, seg)
+    out = gather_forward(rays_packed, beams_packed, scalars)
+    R = seg["a0"].shape[0]
+    return out[:, :3, :].transpose(1, 2).reshape(-1, 3)[:R]
+
+
+def _gather_bwd_analytic(cfg: _Cfg, pb: dict, seg: dict, ct):
+    """The analytic backward kernels on the non-packed layout
+    (beam_gather.py:643-714): "fused" with an all-ones mask, or "twopass",
+    then the cotangents unpacked and chained through the folds (d sigma_s
+    times power_scale * in_medium, d powers times validity).  The geometry,
+    in_med_f and n_valid get none; cam_radius gets the sum of its per-ray
+    partials."""
+    rays_packed, beams_packed, scalars = _pack_kernel_inputs(cfg, pb, seg)
+    R, n_tiles = seg["a0"].shape[0], rays_packed.shape[0]
+    ct_pad = torch.cat([ct, ct.new_zeros((n_tiles * TILE - R, 3))], 0)
+    ct_packed = pack_ct(ct_pad, n_tiles)
+    if PALLAS_BWD_MODE == "fused":
+        d_rays, d_beams = gather_backward_fused(
+            rays_packed, beams_packed, scalars, ct_packed,
+            want_extras=cfg.grad_extras)
+    else:
+        d_rays, d_beams = gather_backward_twopass(
+            rays_packed, beams_packed, scalars, ct_packed)
+    dr = d_rays.transpose(1, 2).reshape(-1, NDR)[:R]
+    fold_sig = cfg.power_scale * seg["in_med_f"]
+    d_seg = dict(tr_full=dr[:, DR_TR:DR_TR + 3],
+                 sigma_s=dr[:, DR_SIGS:DR_SIGS + 3] * fold_sig[:, None],
+                 g=dr[:, DR_G], cam_radius=dr[:, DR_CAMR].sum())
+    Bp = pb["radius"].shape[0]
+    db = d_beams.transpose(0, 1).reshape(d_beams.shape[1], -1)[:, :Bp]
+    valid_col = pb["valid_f"][:, None]
+    d_pb = dict(power_start=db[BF_PS:BF_PS + 3].T * valid_col,
+                power_end=db[BF_PE:BF_PE + 3].T * valid_col,
+                radius=db[BF_RAD])
+    return d_pb, d_seg
+
+
+class _GatherCore(torch.autograd.Function):
+    """The non-packed gather with the reference's custom VJPs
+    (``_gather_core`` and ``_gather_core_pallas``, beam_gather.py:470-717):
+    forward by the chunk scan (``backend="xla"``) or the forward kernel
+    (``"pallas"``); backward by the recompute, or, for the pallas backend
+    with the geometry detached in homogeneous media, by the analytic
+    kernels that ``PALLAS_BWD_ENABLED`` and ``PALLAS_BWD_MODE`` select.
+    The beam and segment dicts travel flattened: their keys, then the
+    tensors in key order.  The live-beam count is read on the host once per
+    call (one sync), where the chunk loop needs it."""
+
+    @staticmethod
+    def forward(ctx, cfg, pb_keys, seg_keys, *tensors):
+        pb = dict(zip(pb_keys, tensors[:len(pb_keys)]))
+        seg = dict(zip(seg_keys, tensors[len(pb_keys):]))
+        ctx.cfg, ctx.keys, ctx.n_valid = cfg, (pb_keys, seg_keys), None
+        ctx.save_for_backward(*tensors)
+        if cfg.backend == "pallas":
+            return _pallas_forward(cfg, pb, seg)
+        ctx.n_valid = float(seg["n_valid_beams"])
+        return _gather_forward(cfg, pb, seg, ctx.n_valid)
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg, (pb_keys, seg_keys) = ctx.cfg, ctx.keys
+        tensors = ctx.saved_tensors
+        n_pb = len(pb_keys)
+        pb = dict(zip(pb_keys, tensors[:n_pb]))
+        seg = dict(zip(seg_keys, tensors[n_pb:]))
+        need = ctx.needs_input_grad[3:]
+        ct = ct.contiguous()
+        if (cfg.backend == "pallas" and not cfg.grad_geometry
+                and cfg.kernel == KERNEL_BRE and PALLAS_BWD_ENABLED
+                and "d_poly_b" not in pb):
+            d_pb, d_seg = _gather_bwd_analytic(cfg, pb, seg, ct)
+        else:
+            if ctx.n_valid is None:
+                ctx.n_valid = float(seg["n_valid_beams"])
+            d_pb, d_seg = _gather_bwd(cfg, pb, seg, ct, ctx.n_valid,
+                                      dict(zip(pb_keys, need[:n_pb])),
+                                      dict(zip(seg_keys, need[n_pb:])))
+        grads = [d_pb.get(k) for k in pb_keys] + [d_seg.get(k) for k in seg_keys]
+        return (None, None, None, *(g if n else None
+                                    for g, n in zip(grads, need)))
+
+
+class _Permute(torch.autograd.Function):
+    """``x.index_select(dim, order)`` for a permutation ``order``, whose
+    backward is the gather by the inverse permutation (beam_gather.py:
+    839-886), not indexing's generic backward, which accumulates (a sort
+    and a serial add per run of equal ids on a card)."""
+
+    @staticmethod
+    def forward(ctx, x, order, inv_order, dim):
+        ctx.save_for_backward(inv_order)
+        ctx.dim = dim
+        return x.index_select(dim, order)
+
+    @staticmethod
+    def backward(ctx, ct):
+        inv_order, = ctx.saved_tensors
+        return ct.index_select(ctx.dim, inv_order), None, None, None
+
+
+def permute_rows(x, order, inv_order):
+    """``x[order]`` with the inverse-permutation gather as its backward."""
+    return _Permute.apply(x, order, inv_order, 0)
+
+
+def permute_cols(x, order, inv_order):
+    """``x[:, order]`` with the inverse-permutation gather as its backward."""
+    return _Permute.apply(x, order, inv_order, 1)
+
+
+def _inverse_permutation(order):
+    return torch.argsort(order).detach()
+
+
+def validity_order(valid):
+    """Stable sort order bringing the valid entries first (``jnp.argsort(
+    ~valid)``), and its inverse, for ``permute_rows``."""
+    order = torch.argsort((~valid).to(torch.uint8), stable=True).detach()
+    return order, _inverse_permutation(order)
+
+
+def compact_beams(beams):
+    """The beams sorted so the valid ones come first, stably
+    (beam_gather.py:1468-1485): once per camera pass, then every depth
+    step's gather takes ``assume_compacted=True``.  The float fields go
+    through ``permute_rows``."""
+    order, inv_order = validity_order(beams.valid)
+    p = lambda x: permute_rows(x, order, inv_order)  # noqa: E731
+    return beams._replace(
+        start=p(beams.start), end=p(beams.end),
+        power_start=p(beams.power_start), power_end=p(beams.power_end),
+        radius=p(beams.radius), medium=beams.medium[order],
+        valid=beams.valid[order])
+
+
 def pack_beams_compact(beams, d_poly=None, sigma_t=None):
     """Validity-compact and pack a Beams SoA into the (n_chunks, NB, CHUNK)
     field-major chunk layout.  Returns (beams_packed, n_valid f32 ()).
@@ -158,7 +620,8 @@ def pack_beams_compact(beams, d_poly=None, sigma_t=None):
         cols += [d_poly[:, k] for k in range(POLY_D_COEFS)]
         cols += [sigma_t[:, ch] for ch in range(3)]
     nb = len(cols)
-    mat = torch.stack(cols, 0)[:, order]  # (nb, B), field-major
+    # (nb, B), field-major; one column permute for every field
+    mat = permute_cols(torch.stack(cols, 0), order, _inverse_permutation(order))
     if Bp != B:
         mat = torch.cat([mat, torch.zeros((nb, Bp - B), dtype=torch.float32,
                                           device=dev)], 1)
@@ -293,7 +756,9 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
     tables, geometry detached, medium parameters attached), rays are padded
     to a tile multiple and packed, and ``sparse_cap > 0`` enables the
     sparse-block kernels.  ``grad_extras`` False skips the radius and HG g
-    cotangents.  Returns (R, 3)."""
+    cotangents.  Returns (R, 3).  Counts its calls in
+    ``gather_beams_packed.calls``."""
+    gather_beams_packed.calls += 1
     R = seg_a0.shape[0]
     dev = seg_a0.device
     _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
@@ -323,3 +788,75 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
                                cam_radius)
     return _GatherCorePacked.apply(beams_packed, rays_packed, scalars, mask,
                                    sparse_cap, grad_extras)[:R]
+
+
+def gather_beams_bruteforce(beams, media: Media, seg_a0, seg_a1, seg_dir,
+                            seg_medium, seg_tr_full, cam_radius,
+                            kernel: int = KERNEL_BRE, chunk: int = 2048,
+                            power_scale: float = 1.0,
+                            min_sin_theta: float = 0.05, backend: str = "xla",
+                            grad_geometry: bool = True,
+                            grad_extras: bool = True,
+                            assume_compacted: bool = False,
+                            hetero: bool = False, beams_medium=None,
+                            het_k: int = HETERO_NODES) -> torch.Tensor:
+    """Accumulate beam radiance onto R camera segments, the non-packed route
+    (beam_gather.py:720-823).  Returns (R, 3).
+
+    The beams are sorted valid-first (stable) unless ``assume_compacted``
+    (``compact_beams`` did it once per camera pass), padded with dead beams
+    to whole ``chunk``s, and gathered by ``_GatherCore``: ``backend="xla"``
+    the chunk scan in plain torch, ``"pallas"`` the forward kernel (grid
+    media with ``het_k`` other than the kernels' 8 nodes take the chunk
+    scan).  ``hetero`` adds the polynomial tables of the beams (of
+    ``beams_medium``, default their own media) and of the camera segments,
+    built on every call.  Differentiable in the beams' geometry, powers and
+    radii, the segments' geometry and transmittance, the medium parameters
+    and ``cam_radius`` (a tensor); ``grad_geometry`` and ``grad_extras``
+    detach as in ``_chunk_contrib``.  Counts its calls in
+    ``gather_beams_bruteforce.calls``."""
+    gather_beams_bruteforce.calls += 1
+    dev = seg_a0.device
+    B = beams.capacity
+    n_chunks = max(1, -(-B // chunk))
+    Bp = n_chunks * chunk
+    n_valid_beams = beams.valid.sum().to(torch.float32)
+    order = None if assume_compacted else validity_order(beams.valid)
+
+    def pad(x):
+        if order is not None:
+            x = (permute_rows(x, *order) if x.is_floating_point()
+                 else x[order[0]])
+        return torch.cat([x, x.new_zeros((Bp - B,) + x.shape[1:])], 0)
+
+    pb = dict(start=pad(beams.start), end=pad(beams.end),
+              power_start=pad(beams.power_start),
+              power_end=pad(beams.power_end), radius=pad(beams.radius),
+              valid_f=pad(beams.valid.to(torch.float32)))
+    _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
+    len_ = _length3(seg_a1 - seg_a0)
+    seg = dict(a0=seg_a0, a1=seg_a1, dir=seg_dir, len=_max(len_, 1e-30),
+               tr_full=seg_tr_full, sigma_s=sigma_s_seg, g=g_seg,
+               in_med_f=seg_in_med.to(torch.float32),
+               cam_radius=torch.as_tensor(cam_radius, dtype=torch.float32,
+                                          device=dev).reshape(()),
+               n_valid_beams=n_valid_beams)
+    if hetero and kernel == KERNEL_BRE:
+        bm = beams_medium if beams_medium is not None else beams.medium
+        dp_b, _, sigt_b = medium_interval_poly(media, bm, beams.start,
+                                               beams.end, K=het_k)
+        pb.update(d_poly_b=pad(dp_b), sigma_t_b=pad(sigt_b))
+        dp_c, dens_c, sigt_c = medium_interval_poly(media, seg_medium, seg_a0,
+                                                    seg_a1, K=het_k)
+        seg.update(d_cam_poly=dp_c, sigma_t_cam=sigt_c, dens_cam_poly=dens_c)
+    use_kernel = (backend == "pallas" and kernel == KERNEL_BRE
+                  and het_k == HETERO_NODES)
+    cfg = _Cfg(int(kernel), int(chunk), int(n_chunks), float(power_scale),
+               float(min_sin_theta), bool(grad_geometry), bool(grad_extras),
+               "pallas" if use_kernel else "xla")
+    return _GatherCore.apply(cfg, tuple(pb), tuple(seg), *pb.values(),
+                             *seg.values())
+
+
+gather_beams_bruteforce.calls = 0
+gather_beams_packed.calls = 0

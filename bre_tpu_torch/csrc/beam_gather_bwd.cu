@@ -13,7 +13,12 @@
 //     _beam_cols_update :510) — the same cotangents over the compacted live
 //     blocks, tile-major for d_rays and chunk-major for d_beams:
 //     bre_gather_backward_sparse launches bwd_rays_sparse and
-//     bwd_beams_sparse.
+//     bwd_beams_sparse;
+//   - pallas_gather_backward (:775, bodies _bwd_rays_kernel :708 and
+//     _bwd_beams_kernel :741) — the historical two-pass backward of the
+//     non-packed route (PALLAS_BWD_MODE "twopass"), every block of the grid
+//     with the extras on: bre_gather_backward_twopass launches
+//     bwd_rays_twopass and bwd_beams_twopass (design at their definition).
 //
 // What it computes: with the geometry held fixed (grad_geometry=False), the
 // analytic cotangents of the forward's per-ray sums, given the output
@@ -108,9 +113,40 @@ __device__ auto load_ray_terms(const float* __restrict__ tile_rows,
   }
 }
 
-// The weights of one in-range pair (_pair_quantities,
-// pallas_gather_bwd.py:115-149, with base = 1/sin(theta)): w0 = base rho k1
-// and, with the extras, wrad = base rho dk1/dwidth and wg = base k1 drho/dg.
+// The terms of one in-range pair (_pair_quantities,
+// pallas_gather_bwd.py:115-149): base = 1/sin(theta), the HG phase rho, the
+// kernel k1 and, with the extras, drho/dg and dk1/dwidth.
+struct PairTerms {
+  float base, rho, k1, drho_dg, dk1_dw;
+};
+
+template <bool EXTRAS>
+__device__ __forceinline__ PairTerms pair_terms(float cos_t, float g, float r2,
+                                                float inv_w,
+                                                float inv_min_sin) {
+  const float g2 = mul(g, g);
+  const float rs = rsqrtf(fmaxf(add(add(1.0f, g2), mul(mul(2.0f, g), cos_t)),
+                                1e-12f));
+  const float rs3 = mul(mul(rs, rs), rs);
+  PairTerms t;
+  t.rho = mul(mul(kInv4Pi, sub(1.0f, g2)), rs3);
+  t.base =
+      fminf(rsqrtf(fmaxf(sub(1.0f, mul(cos_t, cos_t)), 1e-12f)), inv_min_sin);
+  t.k1 = mul(mul(0.75f, sub(1.0f, r2)), inv_w);
+  t.drho_dg = t.dk1_dw = 0.0f;
+  if (EXTRAS) {
+    t.drho_dg = mul(
+        kInv4Pi,
+        add(mul(mul(-2.0f, g), rs3),
+            mul(mul(mul(sub(1.0f, g2), -1.5f), mul(mul(rs3, rs), rs)),
+                add(mul(2.0f, g), mul(2.0f, cos_t)))));
+    t.dk1_dw = mul(mul(0.75f, mul(inv_w, inv_w)), sub(mul(3.0f, r2), 1.0f));
+  }
+  return t;
+}
+
+// The weights of one in-range pair: w0 = base rho k1 and, with the extras,
+// wrad = base rho dk1/dwidth and wg = base k1 drho/dg.
 struct PairWeights {
   float w0, wrad, wg;
 };
@@ -119,25 +155,11 @@ template <bool EXTRAS>
 __device__ __forceinline__ PairWeights pair_weights(float cos_t, float g,
                                                     float r2, float inv_w,
                                                     float inv_min_sin) {
-  const float g2 = mul(g, g);
-  const float rs = rsqrtf(fmaxf(add(add(1.0f, g2), mul(mul(2.0f, g), cos_t)),
-                                1e-12f));
-  const float rs3 = mul(mul(rs, rs), rs);
-  const float rho = mul(mul(kInv4Pi, sub(1.0f, g2)), rs3);
-  const float base =
-      fminf(rsqrtf(fmaxf(sub(1.0f, mul(cos_t, cos_t)), 1e-12f)), inv_min_sin);
-  const float k1 = mul(mul(0.75f, sub(1.0f, r2)), inv_w);
-  PairWeights w{mul(mul(base, rho), k1), 0.0f, 0.0f};
+  const PairTerms t = pair_terms<EXTRAS>(cos_t, g, r2, inv_w, inv_min_sin);
+  PairWeights w{mul(mul(t.base, t.rho), t.k1), 0.0f, 0.0f};
   if (EXTRAS) {
-    const float drho_dg = mul(
-        kInv4Pi,
-        add(mul(mul(-2.0f, g), rs3),
-            mul(mul(mul(sub(1.0f, g2), -1.5f), mul(mul(rs3, rs), rs)),
-                add(mul(2.0f, g), mul(2.0f, cos_t)))));
-    const float dk1_dw =
-        mul(mul(0.75f, mul(inv_w, inv_w)), sub(mul(3.0f, r2), 1.0f));
-    w.wrad = mul(mul(base, rho), dk1_dw);
-    w.wg = mul(mul(base, k1), drho_dg);
+    w.wrad = mul(mul(t.base, t.rho), t.dk1_dw);
+    w.wg = mul(mul(t.base, t.k1), t.drho_dg);
   }
   return w;
 }
@@ -346,15 +368,10 @@ struct RayTile {
   float g[T];
 };
 
-// Stage one ray tile and sweep its rays against this thread's beam; the
-// tile's sums over rays are turned into cotangents and added to acc
-// (d ps 0..2, d pe 3..5, d radius 6).
-template <bool EXTRAS>
-__device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
-                                 const float* __restrict__ ct_rows,
-                                 RayTile& s, const Beam& bm,
-                                 float inv_min_sin, float acc[NBC]) {
-  const int lane = threadIdx.x;
+// Thread `lane` stages ray `lane` of one tile (coalesced rows).
+__device__ void stage_tile(const float* __restrict__ tile_rows,
+                           const float* __restrict__ ct_rows, RayTile& s,
+                           int lane) {
   const Ray r = load_ray(tile_rows, lane);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -367,6 +384,17 @@ __device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
   s.a[lane] = r.a;
   s.inv_a[lane] = r.inv_a;
   s.g[lane] = r.g;
+}
+
+// Stage one ray tile and sweep its rays against this thread's beam; the
+// tile's sums over rays are turned into cotangents and added to acc
+// (d ps 0..2, d pe 3..5, d radius 6).
+template <bool EXTRAS>
+__device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
+                                 const float* __restrict__ ct_rows,
+                                 RayTile& s, const Beam& bm,
+                                 float inv_min_sin, float acc[NBC]) {
+  stage_tile(tile_rows, ct_rows, s, threadIdx.x);
   __syncthreads();
   float sum_ps[3] = {0.0f, 0.0f, 0.0f}, sum_pe[3] = {0.0f, 0.0f, 0.0f};
   float sum_rad = 0.0f;
@@ -586,6 +614,150 @@ bwd_beams_sparse(const float* __restrict__ rays,
   write_beams<false>(d_beams, chunk, acc);
 }
 
+// ---- the two-pass dense backward (Queue 2 row 6) -------------------------
+//
+// pallas_gather_backward (pallas_gather_bwd.py:775; bodies _bwd_rays_kernel
+// :708 and _bwd_beams_kernel :741): the same cotangents with the extras
+// always on, over EVERY block of the (chunk x tile) grid: no block mask and
+// no dead-chunk skip (dead beams carry zero powers and add exact zeros).
+// Per pair it follows the reference's form, not the fused kernels': p_at
+// and tr_cam = exp(frac_c log(max(tr, 1e-30))) are two exps, and the
+// per-beam partials dp/dps, dp/dpe divide per pair.  The channel terms are
+// rounded in the plain version's order (ops/gather_bwd.py
+// _twopass_blocks_ref).
+
+// d_rays: one block per ray tile, one thread per ray, walking every chunk
+// in ascending order, each staged in shared memory; per chunk the sums over
+// its beams are turned into cotangents and added, as the reference adds each
+// grid step's block sums.  d g and d cam_radius sum each pair's three
+// channel terms first (the reference's (C, T) accumulators).
+__global__ void __launch_bounds__(T)
+bwd_rays_twopass(const float* __restrict__ rays,
+                 const float* __restrict__ beams,
+                 const float* __restrict__ scalars,
+                 const float* __restrict__ ct, float* __restrict__ d_rays,
+                 int n_chunks) {
+  __shared__ BeamChunk s;
+  const int tile = blockIdx.x;
+  const float* tile_rows = rays + static_cast<size_t>(tile) * NF * T;
+  const Ray r = load_ray(tile_rows, threadIdx.x);
+  const RayCt rc = load_ray_ct(
+      tile_rows, ct + static_cast<size_t>(tile) * CT_ROWS * T, threadIdx.x);
+  const float cam_radius = scalars[0];
+  const float inv_min_sin = 1.0f / scalars[2];
+  float acc[NDR] = {};
+  for (int j = 0; j < n_chunks; ++j) {
+    stage_chunk(beams + static_cast<size_t>(j) * NB * C, s, threadIdx.x,
+                cam_radius);
+    __syncthreads();
+    float sum_a[3] = {0.0f, 0.0f, 0.0f}, sum_af[3] = {0.0f, 0.0f, 0.0f};
+    float sum_g = 0.0f, sum_camr = 0.0f;
+#pragma unroll 2
+    for (int k = 0; k < C; ++k) {
+      const float b0[3] = {s.b0[0][k], s.b0[1][k], s.b0[2][k]};
+      const float d2[3] = {s.d2[0][k], s.d2[1][k], s.d2[2][k]};
+      const float inv_w = s.inv_w[k];
+      const PairGeom p = closest_points(r.a0, r.d1, r.a, r.inv_a, b0, d2,
+                                        s.e[k], s.inv_e[k], inv_w);
+      if (!(p.r2 < 1.0f)) continue;  // base = 0 outside the blur width
+      const PairTerms q = pair_terms<true>(cos_theta(r.dir, d2, s.ibl[k]),
+                                           r.g, p.r2, inv_w, inv_min_sin);
+      const float w0 = mul(mul(q.base, q.rho), q.k1);
+      const float wg = mul(mul(q.base, q.k1), q.drho_dg);
+      const float wrad = mul(mul(q.base, q.rho), q.dk1_dw);
+      float g_pair = 0.0f, camr_pair = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float p_at = mul(s.ps[ch][k], expf(mul(p.tc, s.lp[ch][k])));
+        const float tr_cam = expf(mul(p.sc, r.lt[ch]));
+        const float A = mul(mul(w0, p_at), tr_cam);
+        sum_a[ch] = add(sum_a[ch], A);
+        sum_af[ch] = add(sum_af[ch], mul(A, p.sc));
+        g_pair = add(g_pair, mul(mul(mul(rc.coef[ch], wg), p_at), tr_cam));
+        camr_pair =
+            add(camr_pair, mul(mul(mul(rc.coef[ch], wrad), p_at), tr_cam));
+      }
+      sum_g = add(sum_g, g_pair);
+      sum_camr = add(sum_camr, camr_pair);
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      acc[DR_SIGS + ch] = add(acc[DR_SIGS + ch], mul(rc.ct[ch], sum_a[ch]));
+      acc[DR_TR + ch] =
+          add(acc[DR_TR + ch],
+              mul(mul(rc.coef[ch], sum_af[ch] / rc.trf[ch]), rc.trf_live[ch]));
+    }
+    acc[DR_G] = add(acc[DR_G], sum_g);
+    acc[DR_CAMR] = add(acc[DR_CAMR], sum_camr);
+    __syncthreads();  // the next chunk overwrites s
+  }
+  write_rays<NDR>(d_rays, tile, acc);
+}
+
+// d_beams: one block per beam chunk, one thread per beam, walking every ray
+// tile in ascending order, each staged in shared memory; per tile the sums
+// over its rays are added (d radius: the three channels' sums, in channel
+// order, as the reference adds them).
+__global__ void __launch_bounds__(T)
+bwd_beams_twopass(const float* __restrict__ rays,
+                  const float* __restrict__ beams,
+                  const float* __restrict__ scalars,
+                  const float* __restrict__ ct, float* __restrict__ d_beams,
+                  int n_tiles) {
+  __shared__ RayTile s;
+  const int chunk = blockIdx.x;
+  const Beam bm = load_beam(beams + static_cast<size_t>(chunk) * NB * C,
+                            threadIdx.x, scalars[0]);
+  const float inv_min_sin = 1.0f / scalars[2];
+  float acc[NBC] = {};
+  for (int i = 0; i < n_tiles; ++i) {
+    stage_tile(rays + static_cast<size_t>(i) * NF * T,
+               ct + static_cast<size_t>(i) * CT_ROWS * T, s, threadIdx.x);
+    __syncthreads();
+    float sum_ps[3] = {0.0f, 0.0f, 0.0f}, sum_pe[3] = {0.0f, 0.0f, 0.0f};
+    float sum_rad[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 2
+    for (int k = 0; k < T; ++k) {
+      const float a0[3] = {s.a0[0][k], s.a0[1][k], s.a0[2][k]};
+      const float d1[3] = {s.d1[0][k], s.d1[1][k], s.d1[2][k]};
+      const PairGeom p = closest_points(a0, d1, s.a[k], s.inv_a[k], bm.b0,
+                                        bm.d2, bm.e, bm.inv_e, bm.inv_w);
+      if (!(p.r2 < 1.0f)) continue;
+      const float dir[3] = {s.dir[0][k], s.dir[1][k], s.dir[2][k]};
+      const PairTerms q = pair_terms<true>(cos_theta(dir, bm.d2, bm.ibl),
+                                           s.g[k], p.r2, bm.inv_w,
+                                           inv_min_sin);
+      const float w0 = mul(mul(q.base, q.rho), q.k1);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const bool ok = bm.ps[ch] > 0.0f;  // 0 exactly where ps is dead
+        const float tr_cam = expf(mul(p.sc, s.lt[ch][k]));
+        const float p_at = mul(bm.ps[ch], expf(mul(p.tc, bm.lp[ch])));
+        const float dp_dps =
+            ok ? mul(p_at, sub(1.0f, p.tc)) / bm.ps_s[ch] : 0.0f;
+        const float dp_dpe =
+            mul(ok ? mul(p_at, p.tc) / bm.pe_s[ch] : 0.0f, bm.pe_live[ch]);
+        const float coef = mul(mul(s.coef[ch][k], w0), tr_cam);
+        sum_ps[ch] = add(sum_ps[ch], mul(coef, dp_dps));
+        sum_pe[ch] = add(sum_pe[ch], mul(coef, dp_dpe));
+        sum_rad[ch] = add(
+            sum_rad[ch],
+            mul(mul(mul(mul(mul(s.coef[ch][k], q.base), q.rho), q.dk1_dw),
+                    p_at),
+                tr_cam));
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      acc[ch] = add(acc[ch], sum_ps[ch]);
+      acc[3 + ch] = add(acc[3 + ch], sum_pe[ch]);
+    }
+    acc[6] = add(acc[6], add(add(sum_rad[0], sum_rad[1]), sum_rad[2]));
+    __syncthreads();  // the next tile overwrites s
+  }
+  write_beams<false>(d_beams, chunk, acc);
+}
+
 template <bool EXTRAS, bool HETERO>
 int launch_dense(const float* rays, const float* beams, const float* scalars,
                  const float* mask, const float* ct, float* d_rays,
@@ -657,6 +829,22 @@ int bre_gather_backward_sparse(const float* rays, const float* beams,
              : launch_sparse<false>(rays, beams, scalars, ct, idx_t,
                                     tile_start, idx_c, chunk_start, d_rays,
                                     d_beams, n_tiles, n_chunks, stream);
+}
+
+// scalars: cam_radius, power_scale (folded into sigma_s), min_sin; a fourth
+// entry (n_valid) is not read.  ct: (n_tiles, 8, T); d_rays: (n_tiles, 8,
+// T); d_beams: (n_chunks, NB, C).
+int bre_gather_backward_twopass(const float* rays, const float* beams,
+                                const float* scalars, const float* ct,
+                                float* d_rays, float* d_beams, int n_tiles,
+                                int n_chunks, cudaStream_t stream) {
+  bwd_rays_twopass<<<n_tiles, T, 0, stream>>>(rays, beams, scalars, ct,
+                                              d_rays, n_chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_beams_twopass<<<n_chunks, T, 0, stream>>>(rays, beams, scalars, ct,
+                                                d_beams, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -102,6 +102,33 @@ def pack_rays(seg: dict, tile: int) -> torch.Tensor:
     return packed.reshape(nf, R // tile, tile).permute(1, 0, 2).contiguous()
 
 
+def pack_beams(pb: dict, chunk: int) -> torch.Tensor:
+    """Padded beam dict (Bp-sized tensors) -> the non-packed route's
+    (n_chunks, NB, C) field-major chunks (pallas_gather.py:338-364), no
+    sort; (n_chunks, NB_HET, C) when ``pb`` carries the beam tables d_poly_b
+    (Bp, 5) and sigma_t_b (Bp, 3).  The buffer is padded with zero beams up
+    to a multiple of ``chunk``: dead beams with zero powers, so exact."""
+    Bp = pb["radius"].shape[0]
+    zeros = torch.zeros_like(pb["radius"])
+    cols = [
+        pb["start"][:, 0], pb["start"][:, 1], pb["start"][:, 2],
+        pb["end"][:, 0], pb["end"][:, 1], pb["end"][:, 2],
+        pb["power_start"][:, 0], pb["power_start"][:, 1],
+        pb["power_start"][:, 2],
+        pb["power_end"][:, 0], pb["power_end"][:, 1], pb["power_end"][:, 2],
+        pb["radius"], pb["valid_f"], zeros, zeros,
+    ]
+    if "d_poly_b" in pb:  # heterogeneous extension fields
+        cols += [pb["d_poly_b"][:, k] for k in range(POLY_D_COEFS)]
+        cols += [pb["sigma_t_b"][:, ch] for ch in range(3)]
+    nb = len(cols)
+    mat = torch.stack(cols, 0)  # (nb, Bp)
+    n_chunks = max(1, -(-Bp // chunk))
+    if n_chunks * chunk != Bp:
+        mat = torch.cat([mat, mat.new_zeros((nb, n_chunks * chunk - Bp))], 1)
+    return mat.reshape(nb, n_chunks, chunk).permute(1, 0, 2).contiguous()
+
+
 def sparse_block_ids(block_mask: torch.Tensor, cap: int):
     """Compact live (chunk, tile) blocks to extended flat ids, tile-major
     (the reference's ``jnp.nonzero(size=, fill_value=)``).

@@ -20,14 +20,17 @@ tables' cotangents (``BF_DP``, ``BF_SIGT``), zeros in the pe, geometry
 and padding rows.  The coefficient cotangents are gated by the clamps at 0
 of D and dens.
 
-``gather_backward_fused`` (dense, block mask) and ``gather_backward_sparse``
+``gather_backward_fused`` (dense, block mask), ``gather_backward_sparse``
 (compacted live blocks, tile-major for d_rays and chunk-major for d_beams)
-take their plain versions only for CPU tensors; for CUDA tensors they launch
-the kernels of ``csrc/beam_gather_bwd.cu`` or raise.  The dense wrapper
-picks the heterogeneous instance for NF_HET rays; the sparse backward is
-homogeneous only, as in the reference, which takes the dense one for grid
-media (beam_gather.py:1147).  Each wrapper counts its launches per
-instance in ``<wrapper>.launches`` and ``<wrapper>.launches_het``.
+and ``gather_backward_twopass`` (the reference's historical two-pass
+``pallas_gather_backward``: every block, no mask, no dead-chunk skip, the
+extras always on) take their plain versions only for CPU tensors; for CUDA
+tensors they launch the kernels of ``csrc/beam_gather_bwd.cu`` or raise.
+The dense wrapper picks the heterogeneous instance for NF_HET rays; the
+sparse and two-pass backward are homogeneous only, as in the reference,
+which takes the dense one for grid media (beam_gather.py:1147).  Each
+wrapper counts its launches per instance in ``<wrapper>.launches`` and
+``<wrapper>.launches_het``.
 """
 
 from __future__ import annotations
@@ -99,23 +102,31 @@ def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _pair_weights_ref(q, want_extras):
-    """The pair weights of ``_pair_quantities`` (pallas_gather_bwd.py:
-    115-149): w0 = base rho k1 and, with the extras, wrad = base rho
-    dk1/dwidth and wg = base k1 drho/dg (None without), base = in_range /
-    sin(theta)."""
+def _pair_terms_ref(q, want_extras):
+    """The pair terms of ``_pair_quantities`` (pallas_gather_bwd.py:
+    115-149): base = in_range / sin(theta), the HG phase rho, the kernel k1
+    and, with the extras, drho/dg and dk1/dwidth (None without)."""
     gg, rs, cos_t = q["g"], q["rs"], q["cos_theta"]
     r2, inv_width = q["r2"], q["inv_width"]
     rs3 = rs * rs * rs
     rho = _INV_4PI * (1.0 - gg * gg) * rs3
     k1 = 0.75 * (1.0 - r2) * inv_width
     base = q["in_range"] * q["inv_sin"]
-    w0 = base * rho * k1
     if not want_extras:
-        return w0, None, None
+        return base, rho, k1, None, None
     drho_dg = _INV_4PI * ((-2.0 * gg) * rs3 + (1.0 - gg * gg) * (-1.5)
                           * (rs3 * rs * rs) * (2.0 * gg + 2.0 * cos_t))
     dk1_dw = 0.75 * (inv_width * inv_width) * (3.0 * r2 - 1.0)
+    return base, rho, k1, drho_dg, dk1_dw
+
+
+def _pair_weights_ref(q, want_extras):
+    """The pair weights: w0 = base rho k1 and, with the extras, wrad = base
+    rho dk1/dwidth and wg = base k1 drho/dg (None without)."""
+    base, rho, k1, drho_dg, dk1_dw = _pair_terms_ref(q, want_extras)
+    w0 = base * rho * k1
+    if not want_extras:
+        return w0, None, None
     return w0, base * rho * dk1_dw, base * k1 * drho_dg
 
 
@@ -231,10 +242,72 @@ def _bwd_blocks_ref(rays_b, beams_b, ct_b, cam_radius, min_sin, want_extras,
     return torch.stack(cols, 1)
 
 
+def _interp_terms_ref(ps, pe, frac):
+    """p_at and its partials in ps and pe (``_interp_terms``,
+    pallas_gather_bwd.py:152-162), zero where the start power is dead."""
+    ok = ps > 1e-20
+    one, zero = torch.ones_like(ps), torch.zeros_like(ps)
+    ps_s = torch.where(ok, ps, one)
+    pe_s = torch.where(ok, torch.maximum(pe, 1e-12 * ps_s), one)
+    p_at = torch.where(ok, ps_s * torch.exp(frac * torch.log(pe_s / ps_s)),
+                       zero)
+    dp_dps = torch.where(ok, p_at * (1.0 - frac) / ps_s, zero)
+    pe_live = (pe > 1e-12 * ps_s).to(torch.float32)
+    dp_dpe = torch.where(ok, p_at * frac / pe_s, zero) * pe_live
+    return p_at, dp_dps, dp_dpe
+
+
+def _twopass_blocks_ref(rays_b, beams_b, ct_b, cam_radius, min_sin,
+                        want_extras, side):
+    """The cotangents of the two-pass backward on a batch of blocks:
+    ``_bwd_rays_kernel`` (pallas_gather_bwd.py:708-738) for ``side ==
+    "rays"``, ``_bwd_beams_kernel`` (:741-772) for ``side == "beams"``, in
+    their operation order.  Unlike the fused body, p_at and tr_cam are two
+    exps, the per-beam partials divide per pair, and the extras are always
+    on (``want_extras`` is not read)."""
+    q = pair_geometry_ref(rays_b, beams_b, cam_radius, min_sin)
+    base, rho, k1, drho_dg, dk1_dw = _pair_terms_ref(q, True)
+    w0 = base * rho * k1
+    frac_b, frac_c = q["t_cl"], q["s"]
+    zero_beam = torch.zeros_like(block_col(beams_b, 0)[..., 0])  # (nb, C)
+    d_tr, d_sig, d_ps, d_pe = [], [], [], []
+    d_g = d_camr = torch.zeros_like(frac_b)
+    d_rad = zero_beam
+    for ch in range(3):
+        ct = ct_b[:, ch:ch + 1, :]  # (nb, 1, T)
+        sig = block_row(rays_b, RF_SIGS + ch)
+        trf_raw = block_row(rays_b, RF_TR + ch)
+        trf = torch.clamp_min(trf_raw, 1e-30)
+        tr_cam = torch.exp(frac_c * torch.log(trf))
+        p_at, dp_dps, dp_dpe = _interp_terms_ref(
+            block_col(beams_b, BF_PS + ch), block_col(beams_b, BF_PE + ch),
+            frac_b)
+        if side == "rays":
+            trf_live = (trf_raw > 1e-30).to(torch.float32)
+            A = w0 * p_at * tr_cam
+            d_sig.append((ct * A.sum(1, keepdim=True))[:, 0])
+            dtr = (w0 * p_at * tr_cam * frac_c).sum(1, keepdim=True) / trf
+            d_tr.append((ct * sig * dtr * trf_live)[:, 0])
+            d_g = d_g + ct * sig * (base * k1 * drho_dg) * p_at * tr_cam
+            d_camr = d_camr + ct * sig * (base * rho * dk1_dw) * p_at * tr_cam
+        else:
+            coef = ct * sig * w0 * tr_cam
+            d_ps.append((coef * dp_dps).sum(2))
+            d_pe.append((coef * dp_dpe).sum(2))
+            d_rad = d_rad + (ct * sig * base * rho * dk1_dw * p_at
+                             * tr_cam).sum(2)
+    if side == "rays":
+        return torch.stack(d_tr + d_sig + [d_g.sum(1), d_camr.sum(1)], 1)
+    cols = [zero_beam] * BF_PS + d_ps + d_pe + [d_rad]
+    cols += [zero_beam] * (NB - len(cols))
+    return torch.stack(cols, 1)
+
+
 def _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
-             want_extras, side):
+             want_extras, side, blocks_ref=_bwd_blocks_ref):
     """Accumulate the listed (tile, chunk) blocks, in list order, into d_rays
-    (``side == "rays"``) or d_beams (``side == "beams"``)."""
+    (``side == "rays"``) or d_beams (``side == "beams"``), each batch of
+    blocks through ``blocks_ref``."""
     n_tiles, _, T = rays_packed.shape
     n_chunks, nb_fields, C = beams_packed.shape
     cam_radius, min_sin = scalars[0, 0], scalars[0, 2]
@@ -251,8 +324,8 @@ def _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
     nb = max(1, pairs // (T * C))
     for lo in range(0, tiles.shape[0], nb):
         ti, ch = tiles[lo:lo + nb], chunks[lo:lo + nb]
-        upd = _bwd_blocks_ref(rays_packed[ti], beams_packed[ch], ct[ti],
-                              cam_radius, min_sin, want_extras, side)
+        upd = blocks_ref(rays_packed[ti], beams_packed[ch], ct[ti],
+                         cam_radius, min_sin, want_extras, side)
         out.index_add_(0, dst[lo:lo + nb], upd)
     return out
 
@@ -304,16 +377,34 @@ def gather_backward_sparse_ref(rays_packed, beams_packed, scalars, ct,
     return d_rays, d_beams
 
 
+def gather_backward_twopass_ref(rays_packed, beams_packed, scalars, ct):
+    """Plain version of the two-pass dense backward: every block of the
+    grid (no mask, no dead-chunk skip; ``n_valid`` is not read), the
+    extras always on; d_rays sums tile-major, d_beams chunk-major.  Returns
+    (d_rays (n_tiles, 8, T), d_beams (n_chunks, NB, C))."""
+    _reject_hetero(rays_packed, "the two-pass backward",
+                   "gather_backward_fused")
+    n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
+    grid = torch.ones((n_tiles, n_chunks), dtype=torch.bool,
+                      device=rays_packed.device)
+    tiles, chunks = torch.nonzero(grid, as_tuple=True)  # tile-major
+    d_rays = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
+                      True, "rays", _twopass_blocks_ref)
+    chunks, tiles = torch.nonzero(grid.T, as_tuple=True)  # chunk-major
+    d_beams = _bwd_ref(rays_packed, beams_packed, scalars, ct, tiles, chunks,
+                       True, "beams", _twopass_blocks_ref)
+    return d_rays, d_beams
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _reject_hetero_sparse(rays_packed):
+def _reject_hetero(rays_packed, what, instead):
     if is_hetero(rays_packed):
         raise ValueError(
-            "the sparse backward is homogeneous only, as the reference's "
-            "(beam_gather.py:1147); grid media take gather_backward_fused "
-            "with the forward's block mask")
+            f"{what} is homogeneous only, as the reference's "
+            f"(beam_gather.py:629-631, 1147); grid media take {instead}")
 
 
 def _check_ct(ct, n_tiles, device):
@@ -369,7 +460,8 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     (d_beams) ids: returns (d_rays, d_beams).  CPU tensors take
     ``gather_backward_sparse_ref``; CUDA tensors launch the sparse sweeps of
     ``csrc/beam_gather_bwd.cu``.  Homogeneous layouts only."""
-    _reject_hetero_sparse(rays_packed)
+    _reject_hetero(rays_packed, "the sparse backward",
+                   "gather_backward_fused with the forward's block mask")
     if rays_packed.device.type == "cpu":
         return gather_backward_sparse_ref(rays_packed, beams_packed, scalars,
                                           ct, idx_tile_major, idx_chunk_major,
@@ -397,5 +489,35 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     return d_rays, d_beams
 
 
+def gather_backward_twopass(rays_packed, beams_packed, scalars, ct):
+    """Two-pass dense backward (replaces ``pallas_gather_backward``, the
+    reference's ``PALLAS_BWD_MODE = "twopass"``): returns (d_rays (n_tiles,
+    8, T), d_beams (n_chunks, NB, C)) over every block, the extras always
+    on.  ``scalars`` is the port's (1, 4) row; its ``n_valid`` is not read.
+    CPU tensors take ``gather_backward_twopass_ref``; CUDA tensors launch
+    ``bwd_rays_twopass`` and ``bwd_beams_twopass``.  Homogeneous layouts
+    only, as in the reference."""
+    _reject_hetero(rays_packed, "the two-pass backward",
+                   "gather_backward_fused")
+    if rays_packed.device.type == "cpu":
+        return gather_backward_twopass_ref(rays_packed, beams_packed, scalars,
+                                           ct)
+    from .cuda_build import check_status, load_library
+
+    n_tiles, n_chunks, _ = _check_packed(rays_packed, beams_packed, scalars)
+    _check_ct(ct, n_tiles, rays_packed.device)
+    lib = load_library()
+    d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, False)
+    stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
+    err = lib.bre_gather_backward_twopass(
+        rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
+        ct.data_ptr(), d_rays.data_ptr(), d_beams.data_ptr(), n_tiles,
+        n_chunks, stream)
+    check_status(lib, err, "gather_backward_twopass kernels")
+    gather_backward_twopass.launches += 1
+    return d_rays, d_beams
+
+
 gather_backward_fused.launches = gather_backward_fused.launches_het = 0
 gather_backward_sparse.launches = 0
+gather_backward_twopass.launches = 0

@@ -85,10 +85,56 @@ its own failure and nothing falls back to the CPU or a plain version):
  19. CUDA against the CPU on a 32x32, 3,000-photon config-3 scene: the image
      and the density and sigma_s gradients.
 
+  The default gather route (gather_beams_bruteforce: what PhotonBeamConfig()
+  and the CLI take), through the forward kernels on the non-packed layout,
+  the recompute backward with the geometry attached, and the analytic
+  backward kernels with it detached, kernel 6 (the two-pass backward) among
+  them:
+ 20. the CLI's config 2: examples/cornell_fog.pbrt's scene built as
+     bre_tpu's parser builds it, the config bre_tpu/cli.py builds from the
+     file (256x256, 16 iterations, 65,536 photons, radius 0.15, maxdepth 5,
+     alpha 0.5, every other field at its default: gather="auto",
+     grad_geometry=True, gather_chunk=2048), no cut; counters set to 0
+     before and read after: the forward kernel must launch and the packed
+     route must never be called (s/iter, valid beams, image mean); one more
+     iteration timed phase by phase (trace, compaction, packing per call,
+     the kernel per sweep); the same render on the packed route
+     (gather="pallas", grad_geometry=False) must agree (channel means 1e-4
+     relative, 99% of pixels within 1e-3); the forward kernel against its
+     plain version on this route's largest sweep (the R/4 budget: the
+     scene's back and side walls face away from the fog, so only rays
+     leaving the floor and the ceiling continue in it, at most a quarter
+     of the camera rays);
+ 21. the CLI's config 3: phase 13's scene at smoke_hetero.pbrt's integrator
+     settings (512x512, 100k photons, 8 iterations, radius 0.15, the rest
+     at the defaults): the hetero forward kernel must launch, the packed
+     route never, and the image must agree with phase 13's as in phase 20;
+ 22. the geometry-attached step: bench.py's fog box at 128x128 x 50k,
+     radius 0.2, the default config (grad_geometry=True, grad_extras=True),
+     mean(Ld) and its gradient in sigma_a and sigma_s through the attached
+     photon walk and the recompute backward: a warm step (its first
+     in-medium gather's inputs kept for phase 23) and 2 timed steps,
+     counted (s/step, peak memory); the same step at 32x32 x 4,000 on the
+     card and on the CPU;
+ 23. the analytic backward on the non-packed layout: phase 22's first
+     in-medium gather with the geometry detached, fwd+bwd under
+     PALLAS_BWD_MODE "fused" and "twopass", counted, each cotangent (ps,
+     pe, radius, tr, sigma_s, g, cam_radius) against the recompute
+     backward's; kernel 6 against its plain version on the same packed
+     inputs, per cotangent, and twice bit for bit;
+ 24. kernel 6 timed on phase 9's spec-step shapes (R/4: 64 ray tiles, full
+     film: 256, x 27,344 chunks) beside its bound and the fused kernels on
+     the same inputs (all-ones mask, extras on); against its plain version
+     on a slice of the R/4 sweep's chunks;
+ 25. breadth: gather="brute" (the plain chunk scan, forward and a gradient)
+     and rendermedia=False at 64x64 x 20k photons, on the card against the
+     CPU.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
-ones, phases 13, 14 and 16's config-3 step for the hetero instances), max
-abs error (and, for the backward kernels, max |diff| / max|ref|
+ones, phases 13, 14 and 16's config-3 step for the hetero instances,
+phase 23 for kernel 6; rows 1 and 3 also count their launches on the
+non-packed route, phases 20 and 23), max abs error (and, for the backward kernels, max |diff| / max|ref|
 per cotangent), time beside its plain version's and its bound; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Details go to chiprun_out/chip_smoke.json.  Exits nonzero
@@ -120,6 +166,7 @@ from bre_tpu_torch.ops import gather_bwd as GB  # noqa: E402
 from bre_tpu_torch.parallel import mesh as MESH  # noqa: E402
 from bre_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 from bre_tpu_torch.scene.camera import make_perspective_camera  # noqa: E402
+from bre_tpu_torch.scene.scene import LIGHT_DIFFUSE_AREA, SHAPE_TRIANGLE  # noqa: E402
 
 RTOL, ATOL = 2e-4, 1e-8  # tests/test_pallas_gather.py:47
 BWD_RTOL = 2e-4  # max|d| <= 2e-4 (max|ref| + 1e-9), tests/test_pallas_gather.py:448
@@ -154,6 +201,14 @@ HET_KERNELS = (
      BWD_SOURCE),
 )
 HET_FWD_KERNELS = HET_KERNELS[:2]
+# kernel 6, the two-pass backward of the non-packed route (PALLAS_BWD_MODE
+# "twopass")
+TWOPASS_KERNELS = (
+    ("gather_backward_twopass", GB, "bre_tpu/ops/pallas_gather_bwd.py:775",
+     BWD_SOURCE),
+)
+# the gather routes, each counting its calls
+ROUTES = ("gather_beams_bruteforce", "gather_beams_packed")
 SIZE, PHOTONS, ITERS, MAXDEPTH = 256, 1_000_000, 2, 5  # BASELINE config 2
 BENCH_WH, BENCH_PHOTONS = 128, 50_000  # bench.py:70-71
 SPEC_WH, SPEC_PHOTONS = 256, 1_000_000  # bench.py:125
@@ -227,7 +282,8 @@ def _demangle(mangled):
                   r"bwd_beams_dense|bwd_rays_sparse|bwd_beams_sparse)I(.*)E",
                   mangled)
     if not m:
-        return mangled
+        plain = re.search(r"(bwd_rays_twopass|bwd_beams_twopass)", mangled)
+        return plain.group(1) if plain else mangled
     args = ["true" if b == "1" else "false"
             for b in re.findall(r"Lb([01])E", m.group(2))]
     return f"{m.group(1)}<{', '.join(args)}>"
@@ -261,8 +317,14 @@ def launches(kernels=KERNELS):
 
 
 def reset_launches():
-    for name, mod, _, _ in KERNELS + HET_KERNELS:
+    for name, mod, _, _ in KERNELS + HET_KERNELS + TWOPASS_KERNELS:
         setattr(*_counter(name, mod), 0)
+    for name in ROUTES:
+        getattr(BG, name).calls = 0
+
+
+def route_calls():
+    return {name: getattr(BG, name).calls for name in ROUTES}
 
 
 def cornell_fog(dev):
@@ -606,15 +668,16 @@ def fog_box(dev, wh):
 
 
 def fwd_bwd(scene, cam, wh, cfg, iter_idx, params=("sigma_a", "sigma_s")):
-    """bench.py's iteration: mean(Ld) of one iteration (detached photon
-    sampling, detached gather geometry) and its gradient in ``params``."""
+    """bench.py's iteration: mean(Ld) of one iteration and its gradient in
+    ``params``; the photon sampling is detached where the gather geometry
+    is (``grad_geometry=False``), as render_photonbeam does."""
     leaves = {k: getattr(scene.media, k).detach().clone().requires_grad_()
               for k in params}
     sc = scene._replace(media=scene.media._replace(**leaves))
     photons, radius = cfg.photonsperiteration, cfg.initialbeamradius
     beams, _ = trace_photon_beams(sc, light_power_distribution(sc), iter_idx,
                                   photons, cfg.maxdepth, radius,
-                                  detach_sampling=True)
+                                  detach_sampling=not cfg.grad_geometry)
     Ld, _ = PB.camera_pass(sc, cam, wh, wh, beams, radius, iter_idx, cfg,
                            photons)
     loss = Ld.mean()
@@ -953,20 +1016,6 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 f"({bound_by})" + ("" if label == "r4" else
                                    "; plain version not run at full film "
                                    "(minutes)"))
-        # Queue 2 row 6, pallas_gather_backward (not ported): the same
-        # cotangents with the extras always on, over the whole dense grid
-        # (no block mask, no dead-chunk skip), so every pair pays geometry
-        beams, rays, scal = args[:3]
-        all_pairs = rays.shape[0] * beams.shape[0] * BG.TILE * BG.CHUNK
-        row6 = bound(all_pairs * GEOM_OPS
-                     + in_range * (BWD_IN_OPS + BWD_EXTRAS_OPS),
-                     nbytes(rays[:, :G.NF], beams, scal, rays[:, :GB.NDR],
-                            rays[:, :GB.NDR], beams))
-        results[names[0]]["sweeps"][f"spec {label} row 6 bound"] = dict(
-            bound_ms=row6[0], bound_by=row6[1], pairs=all_pairs)
-        log(f"[row 6 bound] pallas_gather_backward on the spec {label} "
-            f"sweep's shapes ({all_pairs} pairs, {in_range} in range): "
-            f"{row6[0]:.3f} ms ({row6[1]})")
     return [results[name] for name in names]
 
 
@@ -1365,6 +1414,526 @@ def phase_smoke_consistency(dev):
                 grad_rel_diff=rel)
 
 
+# ---------------------------------------------------------------------------
+# The default gather route (phases 20-25): gather_beams_bruteforce
+# ---------------------------------------------------------------------------
+
+# examples/cornell_fog.pbrt's Integrator and Film lines
+PBRT_SIZE, PBRT_PHOTONS, PBRT_ITERS, PBRT_RADIUS = 256, 65_536, 16, 0.15
+PBRT_LOOK = ((0, 1, -3.9), (0, 1, 0), (0, 1, 0))  # its LookAt; fov 40
+# The two routes sum the same pairs in other orders (Morton-sorted chunks
+# and an AABB cull on the packed route, validity-sorted chunks and no cull
+# here) from the same photon and camera paths: the images differ by float
+# rounding only.  Channel means within 1e-4 relative; 99% of the pixels
+# within rtol 1e-3 (atol 1e-6 for the darkest).
+ROUTE_RTOL, ROUTE_PIXEL_RTOL, ROUTE_PIXEL_SHARE = 1e-4, 1e-3, 0.99
+# chunks of phase 24's R/4 sweep held against the plain version
+TWOPASS_PLAIN_CHUNKS = 64
+
+
+def cornell_fog_pbrt(dev):
+    """examples/cornell_fog.pbrt's scene, built call for call as bre_tpu's
+    parser builds it from the file (scene/parser.py:386-395, 501-507,
+    548-655): the fog on the outside of every wall (MediumInterface "" "fog"),
+    the camera in vacuum, five matte walls of two triangles each and the
+    ceiling quad light (L 9 8 6, material none) whose triangles each carry
+    a diffuse area light at their centroid.
+    tests/test_torch_default_route.py checks it against the parser."""
+    b = SceneBuilder()
+    fog = b.homogeneous_medium((0.02,) * 3, (0.25,) * 3, g=0.2)
+
+    def mesh(points, idx, material, emit=None):
+        p = np.asarray(points, np.float32)
+        for k in range(0, len(idx), 3):
+            v0, v1, v2 = (p[i] for i in idx[k:k + 3])
+            light = len(b._light) if emit is not None else -1
+            tri = b.triangle(v0, v1, v2, material=material, medium_inside=-1,
+                             medium_outside=fog, _area_light=light)
+            if emit is not None:
+                b._add_light(ltype=LIGHT_DIFFUSE_AREA,
+                             position=(v0 + v1 + v2) / 3.0,
+                             emit=np.asarray(emit, np.float32),
+                             shape_kind=SHAPE_TRIANGLE, shape_index=tri,
+                             two_sided=0, medium=fog)
+
+    white = b.matte((0.73, 0.73, 0.73))
+    mesh([(-1, 0, -1), (-1, 0, 1), (1, 0, 1), (1, 0, -1)],
+         [0, 1, 2, 0, 2, 3], white)  # floor
+    mesh([(-1, 2, -1), (-1, 2, 1), (1, 2, 1), (1, 2, -1)],
+         [0, 2, 1, 0, 3, 2], white)  # ceiling
+    mesh([(-1, 0, 1), (-1, 2, 1), (1, 2, 1), (1, 0, 1)],
+         [0, 2, 1, 0, 3, 2], white)  # back wall
+    red = b.matte((0.65, 0.05, 0.05))
+    mesh([(-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1)],
+         [0, 1, 2, 0, 2, 3], red)
+    green = b.matte((0.12, 0.45, 0.15))
+    mesh([(1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)],
+         [0, 2, 1, 0, 3, 2], green)
+    mesh([(-0.3, 1.99, -0.3), (0.3, 1.99, -0.3), (0.3, 1.99, 0.3),
+          (-0.3, 1.99, 0.3)], [0, 1, 2, 0, 2, 3], -1, emit=(9, 8, 6))
+    return b.build(device=dev)
+
+
+def pbrt_camera(dev, size):
+    return make_perspective_camera(tfm.look_at(*PBRT_LOOK), 40.0, size, size,
+                                   device=dev)
+
+
+def cli_cfg(iters, photons, radius=PBRT_RADIUS, **over):
+    """The PhotonBeamConfig bre_tpu/cli.py:103-115 builds from a .pbrt
+    file's Integrator line; imagewritefrequency 1 only times each
+    iteration."""
+    kw = dict(iterations=iters, startiteration=0, enditeration=iters,
+              maxdepth=MAXDEPTH, photonsperiteration=photons,
+              imagewritefrequency=1, initialbeamradius=radius, alpha=0.5,
+              rendersurfaces=True, rendermedia=True, kernel="bre")
+    kw.update(over)
+    return PB.PhotonBeamConfig(**kw)
+
+
+def routes_agree(img, img_ref, what):
+    """The image of one route against the other's (ROUTE_* tolerances)."""
+    ch, ch_ref = img.mean((0, 1)), img_ref.mean((0, 1))
+    rel = float(((ch - ch_ref).abs() / ch_ref).max())
+    share = float(torch.isclose(img, img_ref, rtol=ROUTE_PIXEL_RTOL,
+                                atol=1e-6).all(-1).float().mean())
+    diff = float((img - img_ref).abs().max())
+    log(f"[routes] {what}: channel-mean max rel diff {rel:.3e} (limit "
+        f"{ROUTE_RTOL}); pixels within rtol {ROUTE_PIXEL_RTOL}: {share:.5f} "
+        f"(limit {ROUTE_PIXEL_SHARE}); max |diff| {diff:.3e}")
+    if not (rel <= ROUTE_RTOL and share >= ROUTE_PIXEL_SHARE):
+        raise AssertionError(f"{what}: the two gather routes disagree")
+    return dict(channel_rel_diff=rel, pixel_share=share, max_abs_diff=diff)
+
+
+def fwd_route_check(rays, beams, scal, label):
+    """The forward kernel without a block mask, as the non-packed route
+    launches it, against its plain version (rtol 2e-4 / atol 1e-8), timed
+    with CUDA events beside its bound; every 4th ray tile when the sweep
+    has more live blocks than PLAIN_MAX_LIVE."""
+    live = int(G._live_chunks(beams.shape[0], BG.CHUNK, scal[0, 3],
+                              beams.device).sum())
+    which = "all tiles"
+    if live * rays.shape[0] > PLAIN_MAX_LIVE:
+        rays, which = rays[::4].contiguous(), "every 4th ray tile"
+    ones = torch.ones((beams.shape[0], rays.shape[0]), device=rays.device)
+    in_range, n_blocks = pairs_in_range(rays, beams, scal, ones)
+    kern = lambda: G.gather_forward(rays, beams, scal)  # noqa: E731
+    res = kern()
+    torch.cuda.synchronize()
+    plain_ms, ref = cuda_ms(lambda: G.gather_forward_ref(rays, beams, scal),
+                            1, warm=False)
+    abs_err = float((res - ref).abs().max())
+    rel_err = float(((res - ref).abs() / (ref.abs() + ATOL)).max())
+    ok = bool(torch.isfinite(res).all()) and bool(
+        torch.allclose(res, ref, rtol=RTOL, atol=ATOL))
+    ms, _ = cuda_ms(kern, 3)
+    bound_ms, bound_by = bound(
+        n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * FWD_IN_OPS,
+        nbytes(rays, beams, scal) + rays.shape[0] * G.OUT_ROWS * BG.TILE * 4)
+    log(f"[route parity] {label} ({which}: {rays.shape[0]} ray tiles x "
+        f"{beams.shape[0]} chunks, {n_blocks} live blocks, {in_range} pairs "
+        f"in range, no mask): gather_forward max rel err {rel_err:.3e} max "
+        f"abs err {abs_err:.3e} allclose(rtol={RTOL}, atol={ATOL}) {ok}; "
+        f"kernel {ms:.3f} ms ({n_blocks * BG.TILE * BG.CHUNK / ms / 1e6:.1f} "
+        f"Gpairs/s), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by})")
+    if not ok:
+        raise AssertionError(f"gather_forward disagrees with its plain "
+                             f"version on the {label} sweep")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err,
+                max_rel_err=rel_err, live_blocks=n_blocks,
+                pairs_in_range=in_range, bound_ms=bound_ms,
+                bound_by=bound_by, tiles=which)
+
+
+def phase_cli_config2(dev):
+    """20. The CLI's config 2 on the default route, all 16 iterations."""
+    scene, cam = cornell_fog_pbrt(dev), pbrt_camera(dev, PBRT_SIZE)
+    reset_launches()
+    img, stats, per_iter = timed_render(scene, cam, PBRT_SIZE,
+                                        cli_cfg(PBRT_ITERS, PBRT_PHOTONS))
+    counts, routes = launches(FWD_KERNELS), route_calls()
+    mean = check_image(img, PBRT_SIZE, "CLI config-2 render")
+    warm = float(np.mean(per_iter[1:]))
+    log(f"[cli config 2] examples/cornell_fog.pbrt: {PBRT_SIZE}x{PBRT_SIZE}, "
+        f"{PBRT_PHOTONS} photons/iter, {PBRT_ITERS} iters, radius "
+        f"{PBRT_RADIUS}, maxdepth {MAXDEPTH}, alpha 0.5, gather=auto, "
+        f"grad_geometry=True, gather_chunk=2048: s/iter {per_iter} (warm, "
+        f"iterations 2-{PBRT_ITERS}: {warm:.4f}); valid beams/iter "
+        f"{stats['n_beams'] / PBRT_ITERS:.0f}; image mean {mean:.6f}, finite; "
+        f"launches {counts}; route calls {routes}")
+    if (counts["gather_forward"] <= 0 or routes["gather_beams_packed"] != 0
+            or routes["gather_beams_bruteforce"] <= 0):
+        raise AssertionError(f"the default config must take the non-packed "
+                             f"route through the forward kernel: {counts}, "
+                             f"{routes}")
+    # one more iteration, phase by phase
+    phases, sweeps = [], []
+    saved = [(PB, n, _host_timed(PB, n, phases))
+             for n in ("trace_photon_beams", "compact_beams")]
+    saved += [(BG, "_pack_kernel_inputs",
+               _host_timed(BG, "_pack_kernel_inputs", phases)),
+              (BG, "gather_forward", _event_timed(BG, "gather_forward",
+                                                  sweeps))]
+    try:
+        _, st1, it1 = timed_render(scene, cam, PBRT_SIZE, cli_cfg(
+            PBRT_ITERS + 1, PBRT_PHOTONS, startiteration=PBRT_ITERS))
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+    torch.cuda.synchronize()
+    by = {}
+    for n, t in phases:
+        by.setdefault(n, []).append(t)
+    kernel = [(a[0].shape[0], a[1].shape[0], e0.elapsed_time(e1))
+              for _, e0, e1, a in sweeps]
+    breakdown = dict(
+        iteration_s=it1[0], n_beams=st1["n_beams"],
+        trace_s=sum(by["trace_photon_beams"]), compact_s=sum(by["compact_beams"]),
+        pack_s_per_call=by["_pack_kernel_inputs"],
+        kernel_ms_per_sweep=[dict(ray_tiles=t, chunks=c, ms=ms)
+                             for t, c, ms in kernel])
+    breakdown["rest_s"] = (it1[0] - breakdown["trace_s"] - breakdown["compact_s"]
+                           - sum(by["_pack_kernel_inputs"])
+                           - sum(ms for _, _, ms in kernel) / 1e3)
+    log(f"[cli config 2 breakdown] iteration {PBRT_ITERS + 1}: "
+        f"{it1[0]:.4f} s, valid beams {st1['n_beams']}; trace "
+        f"{breakdown['trace_s']:.4f} s, compaction {breakdown['compact_s']:.4f}"
+        f" s, packing per call "
+        f"{[round(t, 4) for t in by['_pack_kernel_inputs']]} s, kernel per "
+        f"sweep " + ", ".join(f"{t} tiles x {c} chunks {ms:.3f} ms"
+                              for t, c, ms in kernel)
+        + f"; the rest of the camera walk {breakdown['rest_s']:.4f} s")
+    # the largest sweep (the scene's back and side walls face away from
+    # the fog, so only rays leaving the floor and the ceiling continue in
+    # it, at most a quarter of the camera rays: the R/4 budget)
+    rays, beams, scal = max((a for _, _, _, a in sweeps),
+                            key=lambda a: a[0].shape[0])[:3]
+    del sweeps
+    # the same render on the packed route
+    img_packed, _, per_packed = timed_render(
+        scene, cam, PBRT_SIZE, cli_cfg(PBRT_ITERS, PBRT_PHOTONS,
+                                       gather="pallas", grad_geometry=False))
+    agree = routes_agree(img, img_packed, "CLI config 2, default route vs "
+                         "packed route")
+    checked = fwd_route_check(rays, beams, scal, f"CLI config-2 largest "
+                              f"sweep, {rays.shape[0]} ray tiles")
+    return dict(per_iter_s=per_iter, warm_s_per_iter=warm, image_mean=mean,
+                n_beams_per_iter=stats["n_beams"] / PBRT_ITERS,
+                launches=counts, route_calls=routes, breakdown=breakdown,
+                packed_per_iter_s=per_packed, routes=agree), checked
+
+
+def phase_cli_config3(dev, img_packed):
+    """21. The CLI's config 3 on the default route against phase 13's
+    packed-route image."""
+    cfg = PB.PhotonBeamConfig(iterations=SMOKE_ITERS, maxdepth=MAXDEPTH,
+                              photonsperiteration=SMOKE_PHOTONS,
+                              initialbeamradius=0.15, imagewritefrequency=1)
+    reset_launches()
+    img, stats, per_iter = timed_render(smoke_scene(dev),
+                                        smoke_camera(dev, SMOKE_SIZE),
+                                        SMOKE_SIZE, cfg)
+    counts = launches(FWD_KERNELS + HET_FWD_KERNELS)
+    routes = route_calls()
+    mean = check_image(img, SMOKE_SIZE, "CLI config-3 render")
+    log(f"[cli config 3] {SMOKE_SIZE}x{SMOKE_SIZE}, {SMOKE_PHOTONS} photons, "
+        f"{SMOKE_ITERS} iters, radius 0.15, default config: s/iter {per_iter} "
+        f"(warm {np.mean(per_iter[1:]):.4f}); valid beams/iter "
+        f"{stats['n_beams'] / SMOKE_ITERS:.0f}; image mean {mean:.6f}; "
+        f"launches {counts}; route calls {routes}")
+    if counts["gather_forward_het"] <= 0 or routes["gather_beams_packed"]:
+        raise AssertionError(f"config 3 on the default route must launch the "
+                             f"hetero forward kernel: {counts}, {routes}")
+    agree = routes_agree(img, img_packed, "CLI config 3, default route vs "
+                         "phase 13's packed route")
+    return dict(per_iter_s=per_iter, image_mean=mean, launches=counts,
+                route_calls=routes, routes=agree,
+                n_beams_per_iter=stats["n_beams"] / SMOKE_ITERS)
+
+
+def _detached_gather_args(args, kw):
+    beams, media, *segs = args
+    det = lambda x: x.detach() if torch.is_tensor(x) else x  # noqa: E731
+    return ((beams._replace(**{k: det(getattr(beams, k))
+                               for k in beams._fields}),
+             media._replace(**{k: det(getattr(media, k))
+                               for k in media._fields}),
+             *(det(x) for x in segs)), dict(kw))
+
+
+def phase_attached_step(dev):
+    """22. bench.py's fog box at the default config: the attached photon
+    walk and the recompute backward."""
+    wh, photons = BENCH_WH, BENCH_PHOTONS
+    scene, cam = fog_box(dev, wh)
+    cfg = PB.PhotonBeamConfig(maxdepth=MAXDEPTH, photonsperiteration=photons,
+                              initialbeamradius=0.2)
+    rec = []
+    orig = PB.gather_beams_bruteforce
+
+    def first_gather(*a, **k):
+        if not rec:
+            rec.append(_detached_gather_args(a, k))
+        return orig(*a, **k)
+    PB.gather_beams_bruteforce = first_gather
+    try:
+        t_warm, _, _ = timed_step(scene, cam, wh, cfg, 0)
+    finally:
+        PB.gather_beams_bruteforce = orig
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    steps = [timed_step(scene, cam, wh, cfg, it) for it in (1, 2)]
+    counts = launches(KERNELS + TWOPASS_KERNELS)
+    routes = route_calls()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for _, loss, grads in steps:
+        if not np.isfinite(loss):
+            raise AssertionError(f"attached step: loss {loss}")
+        check_grads(grads, "attached step")
+    per_step = [t for t, _, _ in steps]
+    log(f"[attached step] fog box {wh}x{wh}, {photons} photons, maxdepth "
+        f"{MAXDEPTH}, radius 0.2, default config (grad_geometry=True, "
+        f"grad_extras=True): warm step {t_warm:.4f} s, s/step {per_step} "
+        f"(mean {np.mean(per_step):.4f}), peak memory {peak / 2**30:.3f} GiB; "
+        f"value {steps[-1][1]:.6e}; grads {fmt_values(steps[-1][2])}; "
+        f"launches {counts}; route calls {routes}")
+    if counts["gather_forward"] <= 0 or routes["gather_beams_packed"]:
+        raise AssertionError(f"attached step: {counts}, {routes}")
+    # the card against the CPU at 32x32 x 4,000
+    small = []
+    for d in (dev, torch.device("cpu")):
+        sc, cm = fog_box(d, 32)
+        small.append(fwd_bwd(sc, cm, 32, PB.PhotonBeamConfig(
+            maxdepth=MAXDEPTH, photonsperiteration=4000,
+            initialbeamradius=0.2), 1))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = small
+    check_grads(g_cpu, "CPU attached step")
+    rel = {k: float((g_gpu[k].cpu() - g_cpu[k]).abs().max()
+                    / g_cpu[k].abs().max()) for k in g_cpu}
+    log(f"[attached step] 32x32, 4000 photons: value CUDA {l_gpu:.7e} CPU "
+        f"{l_cpu:.7e}; grads max |diff| / max |cpu| {rel} (limit "
+        f"{GRAD_CONSISTENCY_RTOL})")
+    if not (abs(l_gpu / l_cpu - 1) <= CONSISTENCY_RTOL
+            and max(rel.values()) <= GRAD_CONSISTENCY_RTOL):
+        raise AssertionError("attached step: CUDA and CPU disagree")
+    if not rec:
+        raise AssertionError("attached step: no gather was called")
+    return dict(warm_s=t_warm, per_step_s=per_step, peak_memory_bytes=peak,
+                values=[s[1] for s in steps], grads=fmt_values(steps[-1][2]),
+                launches=counts, route_calls=routes,
+                consistency=dict(value_cuda=l_gpu, value_cpu=l_cpu,
+                                 grad_rel_diff=rel)), rec[0]
+
+
+ANALYTIC_LEAVES = ("power_start", "power_end", "radius", "tr", "sigma_s",
+                   "g", "cam_radius")
+
+
+def _analytic_run(gather_args, kw, enabled, mode, W):
+    """One fwd+bwd of the captured gather with the geometry detached:
+    the cotangents in ANALYTIC_LEAVES."""
+    beams, media, a0, a1, d, med, tr, cam_radius = gather_args
+    leaves = dict(power_start=beams.power_start, power_end=beams.power_end,
+                  radius=beams.radius, tr=tr, sigma_s=media.sigma_s,
+                  g=media.g, cam_radius=torch.as_tensor(
+                      cam_radius, dtype=torch.float32, device=a0.device))
+    leaves = {k: v.clone().requires_grad_() for k, v in leaves.items()}
+    BG.PALLAS_BWD_ENABLED, BG.PALLAS_BWD_MODE = enabled, mode
+    out = BG.gather_beams_bruteforce(
+        beams._replace(power_start=leaves["power_start"],
+                       power_end=leaves["power_end"],
+                       radius=leaves["radius"]),
+        media._replace(sigma_s=leaves["sigma_s"], g=leaves["g"]), a0, a1, d,
+        med, leaves["tr"], leaves["cam_radius"],
+        **{**kw, "backend": "pallas", "grad_geometry": False,
+           "grad_extras": True})
+    grads = torch.autograd.grad((out * W).sum(), list(leaves.values()))
+    return dict(zip(leaves, grads))
+
+
+def phase_analytic_bwd(captured):
+    """23. The analytic backward kernels on the non-packed layout against
+    the recompute backward; kernel 6 against its plain version."""
+    gather_args, kw = captured
+    R = gather_args[2].shape[0]
+    W = torch.from_numpy(np.random.RandomState(23).uniform(
+        0, 1, (R, 3)).astype(np.float32)).to(gather_args[2].device)
+    packed = []
+    orig_tp = BG.gather_backward_twopass
+
+    def record(*a):
+        packed.append(a)
+        return orig_tp(*a)
+    saved = (BG.PALLAS_BWD_ENABLED, BG.PALLAS_BWD_MODE)
+    out = {}
+    try:
+        ref = _analytic_run(gather_args, kw, False, "fused", W)
+        BG.gather_backward_twopass = record
+        for mode in ("fused", "twopass"):
+            reset_launches()
+            got = _analytic_run(gather_args, kw, True, mode, W)
+            counts = launches(KERNELS + TWOPASS_KERNELS)
+            errs = {}
+            for k, r in ref.items():
+                r_max = float(r.abs().max())
+                err = float((got[k] - r).abs().max())
+                if not (bool(torch.isfinite(got[k]).all())
+                        and err <= BWD_RTOL * (r_max + 1e-9)):
+                    raise AssertionError(f"{mode} backward: d {k} max |diff| "
+                                         f"{err}, max |ref| {r_max}")
+                errs[k] = err / (r_max + 1e-9)
+            log(f"[analytic bwd] {mode}: {R} rays, chunk {kw.get('chunk')}: "
+                f"per cotangent max |diff| / max|recompute| "
+                + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+                + f"; launches {counts}")
+            need = ("gather_backward_fused" if mode == "fused"
+                    else "gather_backward_twopass")
+            if counts[need] <= 0:
+                raise AssertionError(f"{mode}: {need} never launched")
+            out[mode] = dict(err_over_max_ref=errs, launches=counts)
+    finally:
+        BG.gather_backward_twopass = orig_tp
+        BG.PALLAS_BWD_ENABLED, BG.PALLAS_BWD_MODE = saved
+    rays, beams, scal, ct = packed[0]
+    k1 = GB.gather_backward_twopass(rays, beams, scal, ct)
+    k2 = GB.gather_backward_twopass(rays, beams, scal, ct)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    plain_ms, ref6 = cuda_ms(lambda: GB.gather_backward_twopass_ref(
+        rays, beams, scal, ct), 1, warm=False)
+    errs6 = _bwd_close(k1, ref6, "gather_backward_twopass (phase 22's gather)")
+    ms, _ = cuda_ms(lambda: GB.gather_backward_twopass(rays, beams, scal, ct),
+                    3)
+    bnd = twopass_bound(rays, beams, scal, ct)
+    log(f"[twopass parity] phase 22's first in-medium gather ({rays.shape[0]} "
+        f"ray tiles x {beams.shape[0]} chunks): per cotangent max |diff| / "
+        f"max|ref| " + json.dumps({k: float(f"{v:.3e}") for k, (_, v) in
+                                   errs6.items()})
+        + f"; two runs bit-identical {identical}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
+    if not identical:
+        raise AssertionError("gather_backward_twopass is not deterministic")
+    name, _, rep, src = TWOPASS_KERNELS[0]
+    row = dict(name=name, route="cuda", source=src, replaces=rep,
+               max_abs_err=max(e for e, _ in errs6.values()),
+               err_over_max_ref={k: v for k, (_, v) in errs6.items()},
+               ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+               bound_by=bnd["bound_by"], library_ms=None,
+               sweep="phase 22's first in-medium gather",
+               sweeps={"phase 22 gather": dict(ms=ms, plain_ms=plain_ms, **bnd)})
+    return out, row
+
+
+def twopass_bound(rays, beams, scal, ct):
+    """Kernel 6's bound: every pair of the grid pays the geometry (no mask,
+    no dead-chunk skip), every pair in range of a live beam the backward
+    terms with the extras."""
+    ones = torch.ones((beams.shape[0], rays.shape[0]), device=rays.device)
+    in_range, _ = pairs_in_range(rays, beams, scal, ones)
+    all_pairs = rays.shape[0] * beams.shape[0] * BG.TILE * BG.CHUNK
+    ms, by = bound(all_pairs * GEOM_OPS
+                   + in_range * (BWD_IN_OPS + BWD_EXTRAS_OPS),
+                   nbytes(rays, beams, scal, ct, rays[:, :GB.NDR], beams))
+    return dict(bound_ms=ms, bound_by=by, pairs=all_pairs,
+                pairs_in_range=in_range)
+
+
+def phase_twopass_timing(spec_sweeps, row):
+    """24. Kernel 6 on the spec step's shapes, beside its bound and the
+    fused kernels on the same inputs; its plain version on a slice of the
+    R/4 sweep's chunks."""
+    for label in ("r4", "full"):
+        beams, rays, scal, mask, ct = spec_sweeps[label][:5]
+        ct_p = BG.pack_ct(ct, rays.shape[0])
+        if label == "r4":
+            sl = beams[:TWOPASS_PLAIN_CHUNKS].contiguous()
+            got = GB.gather_backward_twopass(rays, sl, scal, ct_p)
+            torch.cuda.synchronize()
+            plain_ms, ref = cuda_ms(lambda: GB.gather_backward_twopass_ref(
+                rays, sl, scal, ct_p), 1, warm=False)
+            errs = _bwd_close(got, ref, f"gather_backward_twopass (spec R/4, "
+                              f"{TWOPASS_PLAIN_CHUNKS} chunks)")
+            row["max_abs_err"] = max([row["max_abs_err"]]
+                                     + [e for e, _ in errs.values()])
+            for k, (_, v) in errs.items():
+                row["err_over_max_ref"][k] = max(row["err_over_max_ref"][k], v)
+            row["sweeps"]["spec r4 slice"] = dict(
+                chunks=TWOPASS_PLAIN_CHUNKS, plain_ms=plain_ms,
+                err_over_max_ref={k: v for k, (_, v) in errs.items()})
+            log(f"[twopass parity] spec R/4 sweep, first "
+                f"{TWOPASS_PLAIN_CHUNKS} chunks: per cotangent max |diff| / "
+                f"max|ref| " + json.dumps({k: float(f"{v:.3e}") for k, (_, v)
+                                           in errs.items()})
+                + f"; plain {plain_ms:.3f} ms")
+            del ref, got
+        ms, _ = cuda_ms(lambda: GB.gather_backward_twopass(
+            rays, beams, scal, ct_p), 3)
+        ones = torch.ones_like(mask)
+        fused_ms, _ = cuda_ms(lambda: GB.gather_backward_fused(
+            rays, beams, scal, ct_p, ones, True), 3)
+        bnd = twopass_bound(rays, beams, scal, ct_p)
+        row["sweeps"][f"spec {label}"] = dict(ms=ms, fused_ms=fused_ms, **bnd)
+        log(f"[twopass timing] spec {label} sweep ({rays.shape[0]} ray tiles x "
+            f"{beams.shape[0]} chunks, {bnd['pairs']} pairs, "
+            f"{bnd['pairs_in_range']} in range of a live beam): "
+            f"gather_backward_twopass {ms:.3f} ms "
+            f"({bnd['pairs'] / ms / 1e6:.1f} Gpairs/s), bound "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); "
+            f"gather_backward_fused (all-ones mask, extras on, dead-chunk "
+            f"skip) {fused_ms:.3f} ms")
+    return row
+
+
+def phase_breadth(dev):
+    """25. gather="brute" (forward and a gradient) and rendermedia=False on
+    the card against the CPU at 64x64 x 20k photons."""
+    size, photons = 64, 20_000
+    out = {}
+    for label, over in (("brute", dict(gather="brute")),
+                        ("rendermedia=False", dict(rendermedia=False))):
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            reset_launches()
+            img, _, t = timed_render(cornell_fog_pbrt(d), pbrt_camera(d, size),
+                                     size, cli_cfg(1, photons, **over))
+            imgs.append((check_image(img, size, f"{label} render on {d}"),
+                         img, t[0], launches(FWD_KERNELS)))
+        (m_gpu, i_gpu, t_gpu, c_gpu), (m_cpu, i_cpu, t_cpu, _) = imgs
+        rel = float(((i_gpu.mean((0, 1)) - i_cpu.mean((0, 1))).abs()
+                     / i_cpu.mean((0, 1))).max())
+        log(f"[breadth] {label}, {size}x{size}, {photons} photons, 1 iter: "
+            f"mean CUDA {m_gpu:.7f} CPU {m_cpu:.7f}, channel-mean max rel "
+            f"diff {rel:.3e} (limit {CONSISTENCY_RTOL}); s CUDA {t_gpu:.2f} "
+            f"CPU {t_cpu:.2f}; kernel launches on the card {c_gpu}")
+        if not rel <= CONSISTENCY_RTOL or sum(c_gpu.values()):
+            raise AssertionError(f"{label}: CUDA and CPU disagree, or a "
+                                 f"gather kernel launched ({c_gpu})")
+        out[label] = dict(mean_cuda=m_gpu, mean_cpu=m_cpu,
+                          channel_rel_diff=rel)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        scene = cornell_fog_pbrt(d)
+        grads.append(fwd_bwd(scene, pbrt_camera(d, size), size, cli_cfg(
+            1, photons, gather="brute",
+            tr_crossings=PB.default_tr_crossings(scene)), 1))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = grads
+    check_grads(g_cpu, "CPU brute step")
+    rel = {k: float((g_gpu[k].cpu() - g_cpu[k]).abs().max()
+                    / g_cpu[k].abs().max()) for k in g_cpu}
+    log(f"[breadth] gather=brute gradient, {size}x{size}, {photons} photons: "
+        f"value CUDA {l_gpu:.7e} CPU {l_cpu:.7e}; grads CPU "
+        f"{fmt_values(g_cpu)}; max |diff| / max |cpu| {rel} (limit "
+        f"{GRAD_CONSISTENCY_RTOL})")
+    if not (abs(l_gpu / l_cpu - 1) <= CONSISTENCY_RTOL
+            and max(rel.values()) <= GRAD_CONSISTENCY_RTOL):
+        raise AssertionError("gather=brute: CUDA and CPU gradients disagree")
+    out["brute_grad"] = dict(value_cuda=l_gpu, value_cpu=l_cpu,
+                             grad_rel_diff=rel)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -1391,7 +1960,7 @@ def main():
     report["spec_step"], spec_sweeps = phase_spec_step(dev)
     report["trainer"] = phase_trainer(dev)
     kernels += phase_bwd_parity(bench_sweeps, spec_sweeps)
-    del bench_sweeps, spec_sweeps
+    del bench_sweeps
     report["grad_consistency"] = phase_grad_consistency(dev)
     img_smoke, report["smoke"] = phase_smoke_render(dev)
     report["smoke_counted"] = phase_smoke_counted(dev, img_smoke)
@@ -1401,6 +1970,15 @@ def main():
     del smoke_sweeps
     report["smoke_trainer"] = phase_smoke_trainer(dev)
     report["smoke_consistency"] = phase_smoke_consistency(dev)
+    report["cli_config2"], route_sweep = phase_cli_config2(dev)
+    report["cli_config3"] = phase_cli_config3(dev, img_smoke)
+    del img_smoke
+    report["attached_step"], captured = phase_attached_step(dev)
+    report["analytic_bwd"], twopass_row = phase_analytic_bwd(captured)
+    del captured
+    kernels.append(phase_twopass_timing(spec_sweeps, twopass_row))
+    del spec_sweeps
+    report["breadth"] = phase_breadth(dev)
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -1411,9 +1989,21 @@ def main():
                "gather_sparse_het":
                    report["smoke_counted"]["launches"]["gather_sparse_het"],
                "gather_backward_fused_het": report["smoke_steps"]["config3"]
-                   ["launches"]["gather_backward_fused_het"]}
+                   ["launches"]["gather_backward_fused_het"],
+               "gather_backward_twopass": report["analytic_bwd"]["twopass"]
+                   ["launches"]["gather_backward_twopass"]}
+    # rows 1 and 3 on the non-packed route: the CLI's config-2 render and
+    # phase 23's fused run
+    by_route = {"gather_forward": report["cli_config2"]["launches"]
+                ["gather_forward"],
+                "gather_backward_fused": report["analytic_bwd"]["fused"]
+                ["launches"]["gather_backward_fused"]}
     for k in kernels:
         k["launches"] = counted[k["name"]]
+        if k["name"] in by_route:
+            k["launches_non_packed"] = by_route[k["name"]]
+        if k["name"] == "gather_forward":
+            k["sweeps"]["CLI config-2 largest sweep (non-packed)"] = route_sweep
     report["kernels"] = kernels
     report["command_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1424,8 +2014,9 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "sweep")
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
-        if "err_over_max_ref" in kk:
-            row["err_over_max_ref"] = kk["err_over_max_ref"]
+        for key in ("err_over_max_ref", "launches_non_packed"):
+            if key in kk:
+                row[key] = kk[key]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

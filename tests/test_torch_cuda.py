@@ -176,6 +176,106 @@ def test_backward_kernels_match_plain_versions(dev, want_extras):
     assert (float(dense[0][:, GB.DR_G:].abs().max()) > 0) == want_extras
 
 
+def test_twopass_kernels_match_plain_version(dev):
+    """Kernel 6 (``gather_backward_twopass``): every block of the grid, the
+    extras always on, per cotangent against its plain version, and twice
+    bit for bit (no atomics)."""
+    rays, beams, scal, _ = _inputs(dev)
+    ct = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (rays.shape[0], GB.NDR, 256)).astype(np.float32)).to(dev)
+    ct[:, 3:] = 0.0
+    n0 = GB.gather_backward_twopass.launches
+    out = GB.gather_backward_twopass(rays, beams, scal, ct)
+    torch.cuda.synchronize()
+    assert GB.gather_backward_twopass.launches == n0 + 1
+    ref = GB.gather_backward_twopass_ref(rays, beams, scal, ct)
+    assert all(float(r.abs().max()) > 0 for r in ref)
+    _close_by_cotangent(out, ref)
+    for a, b in zip(out, GB.gather_backward_twopass(rays, beams, scal, ct)):
+        assert torch.equal(a, b)
+    # no dead-chunk skip: the chunk past n_valid has cotangents too
+    assert float(out[1][-1].abs().max()) > 0
+
+
+def _bruteforce_grad(d, mode, grad_geometry, monkeypatch):
+    """Cotangents of the non-packed gather (backend "pallas") in the beam
+    powers, radii, the segments' transmittance, sigma_s, g and cam_radius."""
+    monkeypatch.setattr(BG, "PALLAS_BWD_MODE", mode)
+    rs = np.random.RandomState(6)
+    B, R = 1500, 600
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=d)  # noqa: E731
+    ps = rs.uniform(0.5, 2, (B, 3))
+    a0, a1 = rs.uniform(-1, 0, (R, 3)), rs.uniform(0, 1, (R, 3))
+    leaves = dict(power_start=f(ps), power_end=f(ps * rs.uniform(0.1, 1, (B, 3))),
+                  radius=f(np.full(B, 0.15)), tr=f(rs.uniform(0.2, 0.9, (R, 3))),
+                  cam_radius=f(0.1))
+    for v in leaves.values():
+        v.requires_grad_()
+    valid = torch.from_numpy(rs.rand(B) < 0.7).to(d)
+    beams = Beams(start=f(rs.uniform(-1, 1, (B, 3))), end=f(rs.uniform(-1, 1, (B, 3))),
+                  power_start=leaves["power_start"], power_end=leaves["power_end"],
+                  radius=leaves["radius"],
+                  medium=torch.zeros(B, dtype=torch.int64, device=d), valid=valid)
+    scene = _cornell(d)
+    sig = scene.media.sigma_s.detach().clone().requires_grad_()
+    g = scene.media.g.detach().clone().requires_grad_()
+    out = BG.gather_beams_bruteforce(
+        beams, scene.media._replace(sigma_s=sig, g=g), f(a0), f(a1),
+        f((a1 - a0) / np.linalg.norm(a1 - a0, axis=-1, keepdims=True)),
+        torch.zeros(R, dtype=torch.int64, device=d), leaves["tr"],
+        leaves["cam_radius"], chunk=512, power_scale=1e-3, backend="pallas",
+        grad_geometry=grad_geometry)
+    w = f(rs.uniform(0, 1, (R, 3)))
+    return torch.autograd.grad((out * w).sum(), [*leaves.values(), sig, g])
+
+
+@pytest.mark.parametrize("mode,grad_geometry", [("fused", False),
+                                                ("twopass", False),
+                                                ("fused", True)])
+def test_bruteforce_gradients_on_card(dev, mode, grad_geometry, monkeypatch):
+    """The default route's gather on the card: the forward kernel on the
+    non-packed layout, then the analytic backward kernels (geometry
+    detached, "fused" or "twopass") or the recompute backward (geometry
+    attached); gradients against the CPU's, and repeated bit for bit."""
+    n0 = (G.gather_forward.launches, GB.gather_backward_fused.launches,
+          GB.gather_backward_twopass.launches)
+    runs = [_bruteforce_grad(d, mode, grad_geometry, monkeypatch)
+            for d in (dev, dev, torch.device("cpu"))]
+    torch.cuda.synchronize()
+    n1 = (G.gather_forward.launches, GB.gather_backward_fused.launches,
+          GB.gather_backward_twopass.launches)
+    kernel_bwd = not grad_geometry
+    assert n1 == (n0[0] + 2, n0[1] + 2 * (kernel_bwd and mode == "fused"),
+                  n0[2] + 2 * (kernel_bwd and mode == "twopass"))
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        _close(a.cpu(), c)
+
+
+def test_default_route_on_card_matches_cpu(dev):
+    """PhotonBeamConfig's defaults (gather="auto", grad_geometry=True) take
+    the non-packed route: the forward kernel launches, the packed route is
+    never called, and the image agrees with the CPU's."""
+    W = 32
+    cfg = PhotonBeamConfig(iterations=1, maxdepth=5, photonsperiteration=4000,
+                           initialbeamradius=0.12, alpha=0.7)
+    imgs = []
+    n0 = (G.gather_forward.launches, BG.gather_beams_packed.calls,
+          BG.gather_beams_bruteforce.calls)
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)), 50.0, W, W,
+            device=d)
+        img, _ = render_photonbeam(_cornell(d), cam, W, W, cfg)
+        imgs.append(img.cpu())
+    assert G.gather_forward.launches > n0[0]
+    assert BG.gather_beams_packed.calls == n0[1]
+    assert BG.gather_beams_bruteforce.calls > n0[2]
+    assert bool(torch.isfinite(imgs[0]).all()) and float(imgs[1].mean()) > 0
+    rel = float((imgs[0].mean() / imgs[1].mean() - 1).abs())
+    assert rel < 1e-3, rel
+
+
 def test_gather_gradient_on_card(dev):
     """On CUDA tensors the packed gather's output carries a grad_fn and its
     gradients (through the backward kernels) equal the CPU ones (through

@@ -101,16 +101,20 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tinv.optimize_medium(ts, tc, WH, WH, tgt, cfg,
                              tinv.InverseConfig(steps=1, n_devices=4))
-    # the non-packed gather route (ROADMAP Queue 1 item 1) is not ported
+    # the non-packed gather route is ported: the geometry-attached step
+    # and the plain chunk scan run (their values against the reference:
+    # tests/test_torch_train_step.py, test_torch_default_route_breadth.py)
     step = tmesh.make_inverse_train_step(
         ts, tc, WH, WH, tpb.PhotonBeamConfig(**{**CFG, "grad_geometry": True}))
     params = {k: getattr(ts.media, k) for k in PARAMS}
-    with pytest.raises(NotImplementedError, match="bruteforce"):
-        step(params, tgt, 0, 0.4)
-    with pytest.raises(NotImplementedError, match="bruteforce"):
-        tinv.optimize_medium(ts, tc, WH, WH, tgt,
-                             tpb.PhotonBeamConfig(**{**CFG, "gather": "brute"}),
-                             tinv.InverseConfig(steps=1))
+    loss, grads = step(params, tgt, 0, 0.4)
+    assert float(loss) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["sigma_s"].abs().max()) > 0
+    _, losses = tinv.optimize_medium(
+        ts, tc, WH, WH, tgt, tpb.PhotonBeamConfig(**{**CFG, "gather": "brute"}),
+        tinv.InverseConfig(steps=1))
+    assert len(losses) == 1 and np.isfinite(losses).all()
     # density grids are ported: a scene without one carries a (1,1,1)
     # brick that nothing reads, and its gradient is zero, as jax.grad's
     loss, grads = tmesh.make_inverse_train_step(ts, tc, WH, WH, cfg)(

@@ -51,9 +51,7 @@ def test_render_photonbeam_matches():
 
 @pytest.mark.parametrize("over,match", [
     (dict(kernel="compat"), "compat"),
-    (dict(gather="brute"), "bruteforce"),
     (dict(gather="lbvh"), "lbvh"),
-    (dict(grad_geometry=True), "grad_geometry"),
 ])
 def test_unported_options_raise(over, match):
     cfg = tpb.PhotonBeamConfig(**{**CFG, **over})
