@@ -36,32 +36,42 @@
 // What bounds it on an H100: arithmetic, as in the forward.  Each live pair
 // recomputes the forward geometry (~40 FP32 operations) and, inside the blur
 // radius, the phase, kernel and power terms with their derivatives (two
-// rsqrt, three exp).  The TPU kernel's design does not carry over: it sums
-// d_beams[chunk] across a grid loop that runs in order and keeps all of
-// d_rays resident in VMEM; blocks on the card run in parallel in no order,
-// and per-block partials of d_beams at config-2 size would take ~50 GB.  So
-// the design is two sweeps, each output element with exactly one writer:
-//   - d_rays: one 256-thread block per ray tile, one ray per thread in
-//     registers, walking its live chunks in ascending order, each chunk
-//     staged in shared memory with its per-beam terms (as the forward);
-//   - d_beams: one 256-thread block per beam chunk, one beam per thread in
-//     registers, walking its live ray tiles in ascending order, each tile
-//     staged in shared memory (18 KB) with its per-ray terms and ct*sigma_s;
-//     chunks past n_valid write zeros and exit.
+// rsqrt, three exp), in long chains of dependent operations: the card is
+// held back by how many warps it keeps in flight.  The TPU kernel's design
+// does not carry over: it sums d_beams[chunk] across a grid loop that runs
+// in order and keeps all of d_rays resident in VMEM; blocks on the card run
+// in parallel in no order, and per-block partials of d_beams at config-2
+// size would take ~50 GB.  So the design is two sweeps, each output element
+// with exactly one writer, on split_sweep.cuh's split and ring:
+//   - pre-passes: stage_beams writes each live chunk's per-beam terms
+//     (BeamChunk, BeamChunkHet) and stage_rays each ray tile's per-ray terms
+//     with ct*sigma_s (RayTile; RayTileHet with ct, sigma_s and the camera
+//     tables) once per call, instead of once per block that reads them;
+//   - d_rays: a grid of n_tiles x n_splits blocks of 256 threads, one ray
+//     per thread in registers; block (tile, s) walks the live chunks of
+//     split s of the tile's chunk range in ascending order, pulling each
+//     staged chunk through a two-stage shared-memory ring of bulk copies,
+//     into partial cotangents; reduce_splits adds the splits in order.  An
+//     R/4 sweep (64 ray tiles) thus runs 4,224 blocks, 8 waves over the
+//     132 SMs, where one block per tile used 64 of them;
+//   - d_beams: one block per beam chunk (27,344 at the 256x256 / 1M step:
+//     it fills the card as it is), one beam per thread in registers, walking
+//     its live ray tiles in ascending order, each staged tile pulled through
+//     the ring; chunks past n_valid write zeros.
 // The grid-medium instances keep that design.  A ray thread of the d_rays
 // sweep holds its ray, ct and its 14 table coefficients in registers with 22
-// accumulators and their per-chunk partial sums; chunks are staged with the
-// beam tables (24 KB).  A beam thread of the d_beams sweep holds its beam
-// and tables; the ray tile is staged with ct, sigma_s and the camera tables
-// (33 KB).  Both sum each tile's or chunk's partials before adding them,
-// as the plain versions do.
-// The pair work is paid twice (once per sweep): the price of deterministic
-// sums without atomics.  Dense and sparse kernels visit the same blocks in
-// the same order, so they agree bit for bit.  Small sweeps (64 ray tiles at
-// config 2's R/4 budget) leave SMs idle in the d_rays sweep; splitting a
-// tile's chunk range across blocks is later work.
+// accumulators and their per-chunk partial sums; the staged chunks carry the
+// beam tables (21 KB).  A beam thread of the d_beams sweep holds its beam
+// and tables; the staged ray tile carries ct, sigma_s and the camera tables
+// (33 KB, so its two-stage ring takes 66 KB of dynamic shared memory).
+// Both sum each tile's or chunk's partials before adding them, as the plain
+// versions do.  The pair work is paid twice (once per sweep): the price of
+// deterministic sums without atomics.  The sparse d_rays sweep splits each
+// tile's run of listed blocks at the dense sweep's chunk bounds and its
+// d_beams sweep walks the same tiles in the same order, so dense and sparse
+// agree bit for bit.
 
-#include "pair_math.cuh"
+#include "split_sweep.cuh"
 
 namespace {
 
@@ -164,17 +174,22 @@ __device__ __forceinline__ PairWeights pair_weights(float cos_t, float g,
   return w;
 }
 
+// Resident blocks per SM that the register budget must allow (the split
+// count aims at 4 blocks per SM): 80 registers a thread for the
+// homogeneous sweeps, 128 for the grid-medium ones with their 22 (d_rays)
+// or 12 (d_beams) accumulators and partial sums.
+template <bool HETERO>
+constexpr int kBwdMinBlocks = HETERO ? 2 : 3;
+
 // ---- sweep 1: d_rays, one thread per ray --------------------------------
 
-// Stage one chunk and sweep its beams against this thread's ray; the
-// chunk's sums over beams are turned into cotangents and added to acc.
+// Sweep one staged chunk's beams against this thread's ray; the chunk's
+// sums over beams are turned into cotangents and added to acc.
 template <bool EXTRAS>
-__device__ void rays_sweep_chunk(const float* __restrict__ chunk,
-                                 BeamChunk& s, const Ray& r, const RayCt& rc,
-                                 float cam_radius, float inv_min_sin,
-                                 float acc[NDR]) {
-  stage_chunk(chunk, s, threadIdx.x, cam_radius);
-  __syncthreads();
+__device__ __forceinline__ void rays_sweep_chunk(const BeamChunk& s,
+                                                 const Ray& r, const RayCt& rc,
+                                                 float inv_min_sin,
+                                                 float acc[NDR]) {
   float sum_a[3] = {0.0f, 0.0f, 0.0f}, sum_af[3] = {0.0f, 0.0f, 0.0f};
   float sum_g = 0.0f, sum_camr = 0.0f;
 #pragma unroll 2
@@ -209,20 +224,18 @@ __device__ void rays_sweep_chunk(const float* __restrict__ chunk,
   }
   acc[DR_G] = add(acc[DR_G], sum_g);
   acc[DR_CAMR] = add(acc[DR_CAMR], sum_camr);
-  __syncthreads();  // the next chunk overwrites s
 }
 
 // The grid-medium instance of rays_sweep_chunk (_bwd_fused_body_het, ray
 // side): acc holds the NDR_HET rows of d_rays; the DR_TR rows stay 0.
 template <bool EXTRAS>
-__device__ void rays_sweep_chunk(const float* __restrict__ chunk,
-                                 BeamChunkHet& s, const Ray& r,
-                                 const RayCtHet& rc, float cam_radius,
-                                 float inv_min_sin, float acc[NDR_HET]) {
+__device__ __forceinline__ void rays_sweep_chunk(const BeamChunkHet& s,
+                                                 const Ray& r,
+                                                 const RayCtHet& rc,
+                                                 float inv_min_sin,
+                                                 float acc[NDR_HET]) {
   const RayTables& rt = rc.rt;
   const float* ct = rc.ct;
-  stage_chunk(chunk, s, threadIdx.x, cam_radius);
-  __syncthreads();
   float part[NDR_HET] = {};
 #pragma unroll 1
   for (int k = 0; k < C; ++k) {
@@ -282,7 +295,6 @@ __device__ void rays_sweep_chunk(const float* __restrict__ chunk,
   for (int ch = 0; ch < 3; ++ch) part[DR_SIGS + ch] = mul(ct[ch], part[DR_SIGS + ch]);
 #pragma unroll
   for (int row = DR_SIGS; row < NDR_HET; ++row) acc[row] = add(acc[row], part[row]);
-  __syncthreads();  // the next chunk overwrites s
 }
 
 template <int ROWS>
@@ -293,65 +305,68 @@ __device__ void write_rays(float* __restrict__ d_rays, int tile,
   for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];
 }
 
-// scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
-// mask: (n_chunks, n_tiles), 0 = skip the block.  ct: (n_tiles, 8, T).
-// d_rays: (n_tiles, 8, T), (n_tiles, NDR_HET, T) for grid media.
-template <bool EXTRAS, bool HETERO>
-__global__ void __launch_bounds__(T)
-bwd_rays_dense(const float* __restrict__ rays, const float* __restrict__ beams,
-               const float* __restrict__ scalars,
-               const float* __restrict__ mask, const float* __restrict__ ct,
-               float* __restrict__ d_rays, int n_tiles, int n_chunks) {
-  constexpr int nf = HETERO ? NF_HET : NF, nb = HETERO ? NB_HET : NB;
+// The d_rays sweep of either kernel: this block's ray (tile blockIdx.x)
+// against the positions p = walk.first(lo) ... of its walk, each a staged
+// chunk of `staged` (stage_beams); the partial cotangents go to `partial`.
+template <bool EXTRAS, bool HETERO, class Walk, class ChunkOf>
+__device__ __forceinline__ void d_rays_sweep(
+    const float* __restrict__ rays, const float* __restrict__ staged,
+    const float* __restrict__ scalars, const float* __restrict__ ct,
+    const Walk& walk, int lo, ChunkOf chunk_of, float* __restrict__ partial) {
+  constexpr int nf = HETERO ? NF_HET : NF;
   constexpr int ndr = HETERO ? NDR_HET : NDR;
-  __shared__ ChunkT<HETERO> s;
+  using Stage = ChunkT<HETERO>;
+  ring_init<Stage>();
   const int tile = blockIdx.x;
   const float* tile_rows = rays + static_cast<size_t>(tile) * nf * T;
   const float* ct_rows = ct + static_cast<size_t>(tile) * CT_ROWS * T;
   const Ray r = load_ray(tile_rows, threadIdx.x);
-  const float cam_radius = scalars[0];
-  const float inv_min_sin = 1.0f / scalars[2];
-  const float n_valid = scalars[3];
   const auto rc = load_ray_terms<HETERO>(tile_rows, ct_rows, threadIdx.x);
+  const float inv_min_sin = 1.0f / scalars[2];
+  const Stage* chunks = reinterpret_cast<const Stage*>(staged);
   float acc[ndr] = {};
-  for (int j = 0; j < n_chunks; ++j) {
-    // beams are validity-compacted: every chunk past n_valid is dead
-    if (!(static_cast<float>(j * C) < n_valid)) break;
-    if (!(__ldg(mask + static_cast<size_t>(j) * n_tiles + tile) > 0.0f)) continue;
-    rays_sweep_chunk<EXTRAS>(beams + static_cast<size_t>(j) * nb * C, s, r,
-                             rc, cam_radius, inv_min_sin, acc);
-  }
-  write_rays<ndr>(d_rays, tile, acc);
+  ring_walk<Stage>(
+      walk.first(lo), walk.end(), [&](int p) { return walk.next(p); },
+      [&](int p) { return chunks + chunk_of(p); },
+      [&](const Stage& s, int) {
+        rays_sweep_chunk<EXTRAS>(s, r, rc, inv_min_sin, acc);
+      });
+  write_partial<ndr>(partial, acc);
 }
 
-// idx: tile-major ids of ops/gather.py sparse_block_ids; tile_start[t] ..
-// tile_start[t+1] is tile t's run.
+// scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
+// mask: (n_chunks, n_tiles), 0 = skip the block.  ct: (n_tiles, 8, T).
+// Grid (n_tiles, n_splits): block (tile, s) sweeps the live chunks of split
+// s into partial (n_splits, n_tiles, 8|NDR_HET, T).
+template <bool EXTRAS, bool HETERO>
+__global__ void __launch_bounds__(T, kBwdMinBlocks<HETERO>)
+bwd_rays_dense(const float* __restrict__ rays,
+               const float* __restrict__ staged,
+               const float* __restrict__ scalars,
+               const float* __restrict__ mask, const float* __restrict__ ct,
+               float* __restrict__ partial, int n_tiles, int n_chunks) {
+  const ChunkRange cr =
+      split_range(scalars[3], n_chunks, gridDim.y, blockIdx.y);
+  const MaskedChunks walk{mask + blockIdx.x, n_tiles, cr.hi};
+  d_rays_sweep<EXTRAS, HETERO>(rays, staged, scalars, ct, walk, cr.lo,
+                               [](int j) { return j; }, partial);
+}
+
+// idx: tile-major ids of ops/gather.py sparse_block_ids; run_start
+// (n_splits+1, n_tiles): run_start[s][t] .. run_start[s+1][t] are the
+// entries of tile t whose chunk lies in split s.
 template <bool EXTRAS>
-__global__ void __launch_bounds__(T)
-bwd_rays_sparse(const float* __restrict__ rays, const float* __restrict__ beams,
+__global__ void __launch_bounds__(T, kBwdMinBlocks<false>)
+bwd_rays_sparse(const float* __restrict__ rays,
+                const float* __restrict__ staged,
                 const float* __restrict__ scalars, const int* __restrict__ idx,
-                const int* __restrict__ tile_start,
-                const float* __restrict__ ct, float* __restrict__ d_rays,
-                int n_chunks) {
-  __shared__ BeamChunk s;
-  const int tile = blockIdx.x;
-  const float* tile_rows = rays + static_cast<size_t>(tile) * NF * T;
-  const Ray r = load_ray(tile_rows, threadIdx.x);
-  const RayCt rc = load_ray_ct(
-      tile_rows, ct + static_cast<size_t>(tile) * CT_ROWS * T, threadIdx.x);
-  const float cam_radius = scalars[0];
-  const float inv_min_sin = 1.0f / scalars[2];
-  const float n_valid = scalars[3];
-  const int n1 = n_chunks + 1;
-  float acc[NDR] = {};
-  const int k1 = tile_start[tile + 1];
-  for (int k = tile_start[tile]; k < k1; ++k) {
-    const int sub = __ldg(idx + k) % n1;  // 0 = seed entry
-    if (sub == 0 || !(static_cast<float>((sub - 1) * C) < n_valid)) continue;
-    rays_sweep_chunk<EXTRAS>(beams + static_cast<size_t>(sub - 1) * NB * C, s,
-                             r, rc, cam_radius, inv_min_sin, acc);
-  }
-  write_rays<NDR>(d_rays, tile, acc);
+                const int* __restrict__ run_start,
+                const float* __restrict__ ct, float* __restrict__ partial,
+                int n_tiles, int n_chunks) {
+  const int* rs = run_start + static_cast<size_t>(blockIdx.y) * n_tiles + blockIdx.x;
+  const ListedChunks walk{idx, n_chunks + 1, rs[n_tiles], scalars[3]};
+  d_rays_sweep<EXTRAS, false>(rays, staged, scalars, ct, walk, rs[0],
+                              [&](int k) { return walk.chunk(k); }, partial);
 }
 
 // ---- sweep 2: d_beams, one thread per beam -------------------------------
@@ -386,16 +401,14 @@ __device__ void stage_tile(const float* __restrict__ tile_rows,
   s.g[lane] = r.g;
 }
 
-// Stage one ray tile and sweep its rays against this thread's beam; the
-// tile's sums over rays are turned into cotangents and added to acc
-// (d ps 0..2, d pe 3..5, d radius 6).
+// Sweep one staged ray tile's rays against this thread's beam; the tile's
+// sums over rays are turned into cotangents and added to acc (d ps 0..2,
+// d pe 3..5, d radius 6).
 template <bool EXTRAS>
-__device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
-                                 const float* __restrict__ ct_rows,
-                                 RayTile& s, const Beam& bm,
-                                 float inv_min_sin, float acc[NBC]) {
-  stage_tile(tile_rows, ct_rows, s, threadIdx.x);
-  __syncthreads();
+__device__ __forceinline__ void beams_sweep_tile(const RayTile& s,
+                                                 const Beam& bm,
+                                                 float inv_min_sin,
+                                                 float acc[NBC]) {
   float sum_ps[3] = {0.0f, 0.0f, 0.0f}, sum_pe[3] = {0.0f, 0.0f, 0.0f};
   float sum_rad = 0.0f;
 #pragma unroll 2
@@ -425,7 +438,6 @@ __device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
     acc[3 + ch] = add(acc[3 + ch], mul(sum_pe[ch], bm.pe_live[ch]) / bm.pe_s[ch]);
   }
   acc[6] = add(acc[6], sum_rad);
-  __syncthreads();  // the next tile overwrites s
 }
 
 // One staged grid-medium ray tile, field-major (33 KB).
@@ -443,15 +455,9 @@ struct RayTileHet {
   float g[T];
 };
 
-// The grid-medium instance of beams_sweep_tile (_bwd_fused_body_het, beam
-// side): acc holds d ps, d sigma_t_b, d D_b coefficients and d radius
-// (HB_* slots).
-template <bool EXTRAS>
-__device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
-                                 const float* __restrict__ ct_rows,
-                                 RayTileHet& s, const BeamHet& bm,
-                                 float inv_min_sin, float acc[NBC_HET]) {
-  const int lane = threadIdx.x;
+__device__ void stage_tile(const float* __restrict__ tile_rows,
+                           const float* __restrict__ ct_rows, RayTileHet& s,
+                           int lane) {
   const Ray r = load_ray(tile_rows, lane);
   const RayTables rt = load_ray_tables(tile_rows, lane);
 #pragma unroll
@@ -470,7 +476,16 @@ __device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
   s.a[lane] = r.a;
   s.inv_a[lane] = r.inv_a;
   s.g[lane] = r.g;
-  __syncthreads();
+}
+
+// The grid-medium instance of beams_sweep_tile (_bwd_fused_body_het, beam
+// side): acc holds d ps, d sigma_t_b, d D_b coefficients and d radius
+// (HB_* slots).
+template <bool EXTRAS>
+__device__ __forceinline__ void beams_sweep_tile(const RayTileHet& s,
+                                                 const BeamHet& bm,
+                                                 float inv_min_sin,
+                                                 float acc[NBC_HET]) {
   float part[NBC_HET] = {};
 #pragma unroll 1
   for (int i = 0; i < T; ++i) {
@@ -516,7 +531,6 @@ __device__ void beams_sweep_tile(const float* __restrict__ tile_rows,
   }
 #pragma unroll
   for (int k = 0; k < NBC_HET; ++k) acc[k] = add(acc[k], part[k]);
-  __syncthreads();  // the next tile overwrites s
 }
 
 // d_beams rows: zeros for the geometry and padding fields, d ps at BF_PS,
@@ -555,38 +569,59 @@ __device__ auto load_beam_any(const float* __restrict__ chunk, int lane,
   }
 }
 
-template <bool EXTRAS, bool HETERO>
+template <bool HETERO>
+using TileT = typename std::conditional<HETERO, RayTileHet, RayTile>::type;
+
+// Pre-pass: every ray tile's per-ray terms (with ct * sigma_s, or ct and
+// the camera tables), once per call, into staged (n_tiles, 18|33, T).
+template <bool HETERO>
 __global__ void __launch_bounds__(T)
-bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
+stage_rays(const float* __restrict__ rays, const float* __restrict__ ct,
+           float* __restrict__ staged) {
+  constexpr int nf = HETERO ? NF_HET : NF;
+  const int i = blockIdx.x;
+  stage_tile(rays + static_cast<size_t>(i) * nf * T,
+             ct + static_cast<size_t>(i) * CT_ROWS * T,
+             reinterpret_cast<TileT<HETERO>*>(staged)[i], threadIdx.x);
+}
+
+// One block per beam chunk: the live ray tiles of its mask row, ascending,
+// each pulled from staged_rays (stage_rays) through the ring.
+template <bool EXTRAS, bool HETERO>
+__global__ void __launch_bounds__(T, kBwdMinBlocks<HETERO>)
+bwd_beams_dense(const float* __restrict__ staged_rays,
+                const float* __restrict__ beams,
                 const float* __restrict__ scalars,
-                const float* __restrict__ mask, const float* __restrict__ ct,
-                float* __restrict__ d_beams, int n_tiles) {
-  constexpr int nf = HETERO ? NF_HET : NF, nb = HETERO ? NB_HET : NB;
-  using Tile = typename std::conditional<HETERO, RayTileHet, RayTile>::type;
-  __shared__ Tile s;
+                const float* __restrict__ mask, float* __restrict__ d_beams,
+                int n_tiles) {
+  constexpr int nb = HETERO ? NB_HET : NB;
+  using Stage = TileT<HETERO>;
+  ring_init<Stage>();
   const int chunk = blockIdx.x;
-  const float* chunk_fields = beams + static_cast<size_t>(chunk) * nb * C;
   const float* mrow = mask + static_cast<size_t>(chunk) * n_tiles;
   const float inv_min_sin = 1.0f / scalars[2];
-  // chunks past n_valid hold no live beam: zeros, and the block exits
+  // chunks past n_valid hold no live beam: zeros
   float acc[HETERO ? NBC_HET : NBC] = {};
   if (static_cast<float>(chunk * C) < scalars[3]) {
-    const auto bm = load_beam_any<HETERO>(chunk_fields, threadIdx.x,
-                                          scalars[0]);
-    for (int i = 0; i < n_tiles; ++i) {
-      if (!(__ldg(mrow + i) > 0.0f)) continue;
-      beams_sweep_tile<EXTRAS>(rays + static_cast<size_t>(i) * nf * T,
-                               ct + static_cast<size_t>(i) * CT_ROWS * T, s,
-                               bm, inv_min_sin, acc);
-    }
+    const auto bm = load_beam_any<HETERO>(
+        beams + static_cast<size_t>(chunk) * nb * C, threadIdx.x, scalars[0]);
+    const MaskedChunks walk{mrow, 1, n_tiles};  // mask row: tiles i
+    const Stage* tiles = reinterpret_cast<const Stage*>(staged_rays);
+    ring_walk<Stage>(
+        walk.first(0), walk.end(), [&](int i) { return walk.next(i); },
+        [&](int i) { return tiles + i; },
+        [&](const Stage& s, int) {
+          beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
+        });
   }
   write_beams<HETERO>(d_beams, chunk, acc);
 }
 
 // idx: chunk-major ids of ops/gather_bwd.py sparse_block_ids_chunk_major;
-// chunk_start[j] .. chunk_start[j+1] is chunk j's run.
+// chunk_start[j] .. chunk_start[j+1] is chunk j's run.  Each listed tile is
+// staged in shared memory by the block itself.
 template <bool EXTRAS>
-__global__ void __launch_bounds__(T)
+__global__ void __launch_bounds__(T, kBwdMinBlocks<false>)
 bwd_beams_sparse(const float* __restrict__ rays,
                  const float* __restrict__ beams,
                  const float* __restrict__ scalars,
@@ -606,9 +641,12 @@ bwd_beams_sparse(const float* __restrict__ rays,
     for (int k = chunk_start[chunk]; k < k1; ++k) {
       const int sub = __ldg(idx + k) % n1;  // 0 = seed entry
       if (sub == 0) continue;
-      beams_sweep_tile<EXTRAS>(rays + static_cast<size_t>(sub - 1) * NF * T,
-                               ct + static_cast<size_t>(sub - 1) * CT_ROWS * T,
-                               s, bm, inv_min_sin, acc);
+      stage_tile(rays + static_cast<size_t>(sub - 1) * NF * T,
+                 ct + static_cast<size_t>(sub - 1) * CT_ROWS * T, s,
+                 threadIdx.x);
+      __syncthreads();
+      beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
+      __syncthreads();  // the next tile overwrites s
     }
   }
   write_beams<false>(d_beams, chunk, acc);
@@ -758,30 +796,74 @@ bwd_beams_twopass(const float* __restrict__ rays,
   write_beams<false>(d_beams, chunk, acc);
 }
 
-template <bool EXTRAS, bool HETERO>
-int launch_dense(const float* rays, const float* beams, const float* scalars,
-                 const float* mask, const float* ct, float* d_rays,
-                 float* d_beams, int n_tiles, int n_chunks,
-                 cudaStream_t stream) {
-  bwd_rays_dense<EXTRAS, HETERO><<<n_tiles, T, 0, stream>>>(
-      rays, beams, scalars, mask, ct, d_rays, n_tiles, n_chunks);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_beams_dense<EXTRAS, HETERO><<<n_chunks, T, 0, stream>>>(
-      rays, beams, scalars, mask, ct, d_beams, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+// stage_beams and stage_rays, the d_rays sweep over the (n_tiles, n_splits)
+// grid, reduce_splits into d_rays, the d_beams sweep.
+// marks: null, or 6 events recorded on the stream before the first launch
+// and after each of the 5, for timing them one by one.
+__host__ inline cudaError_t mark(cudaEvent_t* marks, int k,
+                                 cudaStream_t stream) {
+  return marks ? cudaEventRecord(marks[k], stream) : cudaSuccess;
 }
 
+template <bool EXTRAS, bool HETERO>
+int launch_dense(const float* rays, const float* beams, const float* scalars,
+                 const float* mask, const float* ct, float* staged_beams,
+                 float* staged_rays, float* partial, float* d_rays,
+                 float* d_beams, int n_tiles, int n_chunks, int n_splits,
+                 cudaStream_t stream, cudaEvent_t* marks) {
+  constexpr int ndr = HETERO ? NDR_HET : NDR;
+  cudaError_t err = mark(marks, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stage_beams<HETERO><<<n_chunks, C, 0, stream>>>(beams, scalars, staged_beams);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(marks, 1, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  stage_rays<HETERO><<<n_tiles, T, 0, stream>>>(rays, ct, staged_rays);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(marks, 2, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  const size_t smem_r = ring_smem_bytes<ChunkT<HETERO>>();
+  if ((err = ring_smem_attr(bwd_rays_dense<EXTRAS, HETERO>, smem_r)) != cudaSuccess)
+    return static_cast<int>(err);
+  bwd_rays_dense<EXTRAS, HETERO><<<dim3(n_tiles, n_splits), T, smem_r, stream>>>(
+      rays, staged_beams, scalars, mask, ct, partial, n_tiles, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(marks, 3, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  reduce_splits<<<dim3(n_tiles, ndr), T, 0, stream>>>(
+      partial, d_rays, n_splits, n_tiles, ndr, ndr);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(marks, 4, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  const size_t smem_b = ring_smem_bytes<TileT<HETERO>>();
+  if ((err = ring_smem_attr(bwd_beams_dense<EXTRAS, HETERO>, smem_b)) != cudaSuccess)
+    return static_cast<int>(err);
+  bwd_beams_dense<EXTRAS, HETERO><<<n_chunks, T, smem_b, stream>>>(
+      staged_rays, beams, scalars, mask, d_beams, n_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(mark(marks, 5, stream));
+}
+
+// stage_beams, the d_rays sweep over the (n_tiles, n_splits) grid, reduce_splits,
+// the d_beams sweep over the chunk-major list.
 template <bool EXTRAS>
 int launch_sparse(const float* rays, const float* beams,
                   const float* scalars, const float* ct, const int* idx_t,
-                  const int* tile_start, const int* idx_c,
-                  const int* chunk_start, float* d_rays, float* d_beams,
-                  int n_tiles, int n_chunks, cudaStream_t stream) {
-  bwd_rays_sparse<EXTRAS><<<n_tiles, T, 0, stream>>>(
-      rays, beams, scalars, idx_t, tile_start, ct, d_rays, n_chunks);
-  const cudaError_t err = cudaGetLastError();
+                  const int* run_start, const int* idx_c,
+                  const int* chunk_start, float* staged_beams, float* partial,
+                  float* d_rays, float* d_beams, int n_tiles, int n_chunks,
+                  int n_splits, cudaStream_t stream) {
+  stage_beams<false><<<n_chunks, C, 0, stream>>>(beams, scalars, staged_beams);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem_r = ring_smem_bytes<BeamChunk>();
+  bwd_rays_sparse<EXTRAS><<<dim3(n_tiles, n_splits), T, smem_r, stream>>>(
+      rays, staged_beams, scalars, idx_t, run_start, ct, partial, n_tiles,
+      n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  reduce_splits<<<dim3(n_tiles, NDR), T, 0, stream>>>(
+      partial, d_rays, n_splits, n_tiles, NDR, NDR);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_beams_sparse<EXTRAS><<<n_chunks, T, 0, stream>>>(
       rays, beams, scalars, idx_c, chunk_start, ct, d_beams, n_tiles);
   return static_cast<int>(cudaGetLastError());
@@ -791,44 +873,39 @@ int launch_sparse(const float* rays, const float* beams,
 
 extern "C" {
 
-// hetero: 0 = homogeneous layouts, 1 = grid media (NF_HET rays, NB_HET
-// beams, NDR_HET d_rays rows)
+// staged_beams: (n_chunks, 16|21, C), staged_rays: (n_tiles, 18|33, T) and
+// partial: (n_splits, n_tiles, 8|NDR_HET, T) scratch.  hetero: 0 =
+// homogeneous layouts, 1 = grid media (NF_HET rays, NB_HET beams, NDR_HET
+// d_rays rows).  marks: null, or 6 events (see mark).
 int bre_gather_backward(const float* rays, const float* beams,
                         const float* scalars, const float* mask,
-                        const float* ct, float* d_rays, float* d_beams,
-                        int n_tiles, int n_chunks, int want_extras, int hetero,
-                        cudaStream_t stream) {
-  if (hetero)
-    return want_extras
-               ? launch_dense<true, true>(rays, beams, scalars, mask, ct,
-                                          d_rays, d_beams, n_tiles, n_chunks,
-                                          stream)
-               : launch_dense<false, true>(rays, beams, scalars, mask, ct,
-                                           d_rays, d_beams, n_tiles, n_chunks,
-                                           stream);
-  return want_extras
-             ? launch_dense<true, false>(rays, beams, scalars, mask, ct,
-                                         d_rays, d_beams, n_tiles, n_chunks,
-                                         stream)
-             : launch_dense<false, false>(rays, beams, scalars, mask, ct,
-                                          d_rays, d_beams, n_tiles, n_chunks,
-                                          stream);
+                        const float* ct, float* staged_beams,
+                        float* staged_rays, float* partial, float* d_rays,
+                        float* d_beams, int n_tiles, int n_chunks,
+                        int n_splits, int want_extras, int hetero,
+                        cudaStream_t stream, cudaEvent_t* marks) {
+  auto* f = hetero ? (want_extras ? &launch_dense<true, true>
+                                  : &launch_dense<false, true>)
+                   : (want_extras ? &launch_dense<true, false>
+                                  : &launch_dense<false, false>);
+  return f(rays, beams, scalars, mask, ct, staged_beams, staged_rays, partial,
+           d_rays, d_beams, n_tiles, n_chunks, n_splits, stream, marks);
 }
 
+// run_start: (n_splits+1, n_tiles) int32 (ops/gather.py split_run_starts);
+// staged_beams and partial as above.
 int bre_gather_backward_sparse(const float* rays, const float* beams,
                                const float* scalars, const float* ct,
-                               const int* idx_t, const int* tile_start,
+                               const int* idx_t, const int* run_start,
                                const int* idx_c, const int* chunk_start,
+                               float* staged_beams, float* partial,
                                float* d_rays, float* d_beams, int n_tiles,
-                               int n_chunks, int want_extras,
+                               int n_chunks, int n_splits, int want_extras,
                                cudaStream_t stream) {
-  return want_extras
-             ? launch_sparse<true>(rays, beams, scalars, ct, idx_t,
-                                   tile_start, idx_c, chunk_start, d_rays,
-                                   d_beams, n_tiles, n_chunks, stream)
-             : launch_sparse<false>(rays, beams, scalars, ct, idx_t,
-                                    tile_start, idx_c, chunk_start, d_rays,
-                                    d_beams, n_tiles, n_chunks, stream);
+  auto* f = want_extras ? &launch_sparse<true> : &launch_sparse<false>;
+  return f(rays, beams, scalars, ct, idx_t, run_start, idx_c, chunk_start,
+           staged_beams, partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,
+           stream);
 }
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin; a fourth

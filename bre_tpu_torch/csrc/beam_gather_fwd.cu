@@ -26,14 +26,22 @@
 // What bounds it on an H100: arithmetic, not bytes.  A live block is 65,536
 // pairs read from 256 x (18 + 16) floats; each pair costs ~50 FP32
 // instructions (an IEEE divide among them) and, inside the blur radius, two
-// rsqrt and three exp on the SFU.  The design answers that:
-//   - one block of 256 threads per ray tile, one ray per thread, the ray's
-//     fields (and log(tr), |d1|^2, 1/|d1|^2) in registers for the whole sweep;
-//   - each live chunk is staged once in shared memory (16 KB; 24 KB with the
-//     grid tables) together with its per-beam derived terms (pair_math.cuh
-//     BeamChunk, BeamChunkHet), so the per-beam divides, rsqrt and logs are
-//     paid once per chunk, not once per pair; a grid-medium ray thread
-//     keeps its 14 table coefficients in registers beside the ray;
+// rsqrt and three exp on the SFU, in long chains of dependent operations.
+// So the card is held back by how many warps it can keep in flight to hide
+// those chains, and the design (split_sweep.cuh) fills it:
+//   - a grid of n_tiles x n_splits blocks of 256 threads, one ray per thread,
+//     the ray's fields (and log(tr), |d1|^2, 1/|d1|^2) in registers; block
+//     (tile, s) folds the live chunks of split s of the tile's chunk range
+//     (K = ceil(n_live / n_splits) chunks, read from n_valid on the device)
+//     into partial sums, and reduce_splits adds the splits in order.  An R/4
+//     sweep (64 ray tiles) thus runs 4,224 blocks, 8 waves over the 132
+//     SMs, instead of 64 blocks on 64 of them;
+//   - stage_beams writes each live chunk's per-beam terms (pair_math.cuh
+//     BeamChunk, BeamChunkHet: the divides, rsqrt and logs a pair would
+//     otherwise repeat) once per call; a block pulls its next live chunk
+//     (16 KB; 21 KB with the grid tables) with one bulk copy into a
+//     two-stage shared-memory ring while it sweeps the current one; a
+//     grid-medium ray thread keeps its 14 table coefficients in registers;
 //   - pairs outside the blur radius (most of them) branch past the phase,
 //     kernel and exp work;
 //   - FP32 on the CUDA cores, no tensor cores: TF32/bf16 rounding biased the
@@ -43,12 +51,15 @@
 //     multiply-adds) and buys agreement with the plain version to float ulps.
 //     Compiled without fast-math, so exp, log and division are the accurate
 //     ones.
-// Each output element is written by exactly one thread, chunks are walked in
-// ascending order with one partial sum per chunk, so results are
-// deterministic run to run and the dense and sparse kernels agree bit for bit
-// on the same live blocks.
+// Each output element is written by exactly one thread of reduce_splits;
+// each block walks its chunks in ascending order with one partial sum per
+// chunk, and the splits are added in order, so results are deterministic
+// run to run.  The sparse kernel splits each tile's run of listed blocks at
+// the same chunk bounds (ops/gather.py split_run_starts) and folds the same
+// chunks in the same order, so dense and sparse agree bit for bit on the
+// same live blocks.
 
-#include "pair_math.cuh"
+#include "split_sweep.cuh"
 
 namespace {
 
@@ -119,104 +130,148 @@ __device__ __forceinline__ void pair_accumulate(const Ray& r,
   }
 }
 
-// Stage one chunk and sweep its 256 beams against this thread's ray; the
+// Sweep one staged chunk's 256 beams against this thread's ray; the
 // chunk's partial sums are added to acc in a fixed order.
 template <bool HETERO>
-__device__ void sweep_chunk(const float* __restrict__ chunk,
-                            ChunkT<HETERO>& s, const Ray& r,
-                            const RayTables& rt, float cam_radius,
-                            float inv_min_sin, float acc[3]) {
-  const int lane = threadIdx.x;
-  stage_chunk(chunk, s, lane, cam_radius);
-  __syncthreads();
+__device__ __forceinline__ void sweep_chunk(const ChunkT<HETERO>& s,
+                                            const Ray& r, const RayTables& rt,
+                                            float inv_min_sin, float acc[3]) {
   float part[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll 4
   for (int k = 0; k < C; ++k) pair_accumulate(r, rt, s, k, inv_min_sin, part);
   acc[0] = add(acc[0], part[0]);
   acc[1] = add(acc[1], part[1]);
   acc[2] = add(acc[2], part[2]);
-  __syncthreads();  // the next chunk overwrites s
-}
-
-__device__ void write_tile(float* __restrict__ out, int tile,
-                           const float acc[3]) {
-  float* o = out + static_cast<size_t>(tile) * OUT_ROWS * T + threadIdx.x;
-#pragma unroll
-  for (int row = 0; row < 3; ++row) o[row * T] = acc[row];
-#pragma unroll
-  for (int row = 3; row < OUT_ROWS; ++row) o[row * T] = 0.0f;
 }
 
 // This thread's ray and, for a grid medium, its tables.
 template <bool HETERO>
-__device__ void load_ray_all(const float* __restrict__ rays, int tile, Ray& r,
-                             RayTables& rt) {
+__device__ __forceinline__ void load_ray_all(const float* __restrict__ rays,
+                                             int tile, Ray& r, RayTables& rt) {
   constexpr int nf = HETERO ? NF_HET : NF;
   const float* tile_rows = rays + static_cast<size_t>(tile) * nf * T;
   r = load_ray(tile_rows, threadIdx.x);
   if (HETERO) rt = load_ray_tables(tile_rows, threadIdx.x);
 }
 
-// scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
-// mask: (n_chunks, n_tiles), 0 = skip the block.
+// Resident blocks per SM that the register budget must allow (the split
+// count aims at 4 blocks per SM): 64 registers a thread for the
+// homogeneous sweep, 80 with the grid tables.
 template <bool HETERO>
-__global__ void __launch_bounds__(T)
-gather_dense_kernel(const float* __restrict__ rays,
-                    const float* __restrict__ beams,
-                    const float* __restrict__ scalars,
-                    const float* __restrict__ mask, float* __restrict__ out,
-                    int n_tiles, int n_chunks) {
-  constexpr int nb = HETERO ? NB_HET : NB;
-  __shared__ ChunkT<HETERO> s;
-  const int tile = blockIdx.x;
+constexpr int kFwdMinBlocks = HETERO ? 3 : 4;
+
+// The ray-side sweep of either kernel: this block's ray against the
+// positions p = walk.first(lo) ... of its walk, each a staged chunk of
+// `staged` (stage_beams); the partial sums go to `partial`.
+template <bool HETERO, class Walk, class ChunkOf>
+__device__ __forceinline__ void ray_sweep(const float* __restrict__ rays,
+                                          const float* __restrict__ staged,
+                                          const float* __restrict__ scalars,
+                                          const Walk& walk, int lo,
+                                          ChunkOf chunk_of,
+                                          float* __restrict__ partial) {
+  using Stage = ChunkT<HETERO>;
+  ring_init<Stage>();
   Ray r;
   RayTables rt;
-  load_ray_all<HETERO>(rays, tile, r, rt);
-  const float cam_radius = scalars[0];
+  load_ray_all<HETERO>(rays, blockIdx.x, r, rt);
   const float inv_min_sin = 1.0f / scalars[2];
-  const float n_valid = scalars[3];
+  const Stage* chunks = reinterpret_cast<const Stage*>(staged);
   float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int j = 0; j < n_chunks; ++j) {
-    // beams are validity-compacted: every chunk past n_valid is dead
-    if (!(static_cast<float>(j * C) < n_valid)) break;
-    if (!(__ldg(mask + static_cast<size_t>(j) * n_tiles + tile) > 0.0f)) continue;
-    sweep_chunk<HETERO>(beams + static_cast<size_t>(j) * nb * C, s, r, rt,
-                        cam_radius, inv_min_sin, acc);
-  }
-  write_tile(out, tile, acc);
+  ring_walk<Stage>(
+      walk.first(lo), walk.end(),
+      [&](int p) { return walk.next(p); },
+      [&](int p) { return chunks + chunk_of(p); },
+      [&](const Stage& s, int) {
+        sweep_chunk<HETERO>(s, r, rt, inv_min_sin, acc);
+      });
+  write_partial<3>(partial, acc);
+}
+
+// scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
+// mask: (n_chunks, n_tiles), 0 = skip the block.  Grid (n_tiles, n_splits):
+// block (tile, s) sweeps the live chunks of split s into partial
+// (n_splits, n_tiles, 3, T).
+template <bool HETERO>
+__global__ void __launch_bounds__(T, kFwdMinBlocks<HETERO>)
+gather_dense_kernel(const float* __restrict__ rays,
+                    const float* __restrict__ staged,
+                    const float* __restrict__ scalars,
+                    const float* __restrict__ mask,
+                    float* __restrict__ partial, int n_tiles, int n_chunks) {
+  const ChunkRange cr =
+      split_range(scalars[3], n_chunks, gridDim.y, blockIdx.y);
+  const MaskedChunks walk{mask + blockIdx.x, n_tiles, cr.hi};
+  ray_sweep<HETERO>(rays, staged, scalars, walk, cr.lo,
+                    [](int j) { return j; }, partial);
 }
 
 // idx: tile-major extended block ids tile*(n_chunks+1) + chunk+1, with a seed
 // entry tile*(n_chunks+1) per tile and fill entries n_tiles*(n_chunks+1)
-// (ops/gather.py sparse_block_ids); tile_start[t]..tile_start[t+1] is tile
-// t's run of idx.
+// (ops/gather.py sparse_block_ids); run_start (n_splits+1, n_tiles):
+// run_start[s][t] .. run_start[s+1][t] are the entries of tile t whose
+// chunk lies in split s (ops/gather.py split_run_starts).
 template <bool HETERO>
-__global__ void __launch_bounds__(T)
+__global__ void __launch_bounds__(T, kFwdMinBlocks<HETERO>)
 gather_sparse_kernel(const float* __restrict__ rays,
-                     const float* __restrict__ beams,
+                     const float* __restrict__ staged,
                      const float* __restrict__ scalars,
                      const int* __restrict__ idx,
-                     const int* __restrict__ tile_start,
-                     float* __restrict__ out, int n_tiles, int n_chunks) {
-  constexpr int nb = HETERO ? NB_HET : NB;
-  __shared__ ChunkT<HETERO> s;
-  const int tile = blockIdx.x;
-  Ray r;
-  RayTables rt;
-  load_ray_all<HETERO>(rays, tile, r, rt);
-  const float cam_radius = scalars[0];
-  const float inv_min_sin = 1.0f / scalars[2];
-  const float n_valid = scalars[3];
-  const int n1 = n_chunks + 1;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  const int k1 = tile_start[tile + 1];
-  for (int k = tile_start[tile]; k < k1; ++k) {
-    const int sub = __ldg(idx + k) % n1;  // 0 = seed entry
-    if (sub == 0 || !(static_cast<float>((sub - 1) * C) < n_valid)) continue;
-    sweep_chunk<HETERO>(beams + static_cast<size_t>(sub - 1) * nb * C, s, r,
-                        rt, cam_radius, inv_min_sin, acc);
-  }
-  write_tile(out, tile, acc);
+                     const int* __restrict__ run_start,
+                     float* __restrict__ partial, int n_tiles, int n_chunks) {
+  const int* rs = run_start + static_cast<size_t>(blockIdx.y) * n_tiles + blockIdx.x;
+  const ListedChunks walk{idx, n_chunks + 1, rs[n_tiles], scalars[3]};
+  ray_sweep<HETERO>(rays, staged, scalars, walk, rs[0],
+                    [&](int k) { return walk.chunk(k); }, partial);
+}
+
+// stage_beams, one ray-side kernel over the (n_tiles, n_splits) grid, then
+// reduce_splits into out (n_tiles, 8, T).
+template <bool HETERO, class Launch>
+int launch_forward(const float* beams, const float* scalars, float* staged,
+                   float* partial, float* out, int n_tiles, int n_chunks,
+                   int n_splits, cudaStream_t stream, Launch ray_kernel) {
+  stage_beams<HETERO><<<n_chunks, C, 0, stream>>>(beams, scalars, staged);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = ray_kernel(dim3(n_tiles, n_splits),
+                   ring_smem_bytes<ChunkT<HETERO>>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_splits<<<dim3(n_tiles, OUT_ROWS), T, 0, stream>>>(
+      partial, out, n_splits, n_tiles, 3, OUT_ROWS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool HETERO>
+int forward_dense(const float* rays, const float* beams, const float* scalars,
+                  const float* mask, float* staged, float* partial, float* out,
+                  int n_tiles, int n_chunks, int n_splits,
+                  cudaStream_t stream) {
+  return launch_forward<HETERO>(
+      beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
+      stream, [&](dim3 grid, size_t smem) {
+        cudaError_t err = ring_smem_attr(gather_dense_kernel<HETERO>, smem);
+        if (err != cudaSuccess) return err;
+        gather_dense_kernel<HETERO><<<grid, T, smem, stream>>>(
+            rays, staged, scalars, mask, partial, n_tiles, n_chunks);
+        return cudaGetLastError();
+      });
+}
+
+template <bool HETERO>
+int forward_sparse(const float* rays, const float* beams,
+                   const float* scalars, const int* idx, const int* run_start,
+                   float* staged, float* partial, float* out, int n_tiles,
+                   int n_chunks, int n_splits, cudaStream_t stream) {
+  return launch_forward<HETERO>(
+      beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
+      stream, [&](dim3 grid, size_t smem) {
+        cudaError_t err = ring_smem_attr(gather_sparse_kernel<HETERO>, smem);
+        if (err != cudaSuccess) return err;
+        gather_sparse_kernel<HETERO><<<grid, T, smem, stream>>>(
+            rays, staged, scalars, idx, run_start, partial, n_tiles, n_chunks);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace
@@ -227,31 +282,33 @@ const char* bre_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// hetero: 0 = homogeneous layouts (NF, NB), 1 = grid media (NF_HET, NB_HET)
+// staged: (n_chunks, 16|21, C) scratch; partial: (n_splits, n_tiles, 3, T)
+// scratch; out: (n_tiles, 8, T).  hetero: 0 = homogeneous layouts (NF, NB),
+// 1 = grid media (NF_HET, NB_HET).
 int bre_gather_forward(const float* rays, const float* beams,
-                       const float* scalars, const float* mask, float* out,
-                       int n_tiles, int n_chunks, int hetero,
-                       cudaStream_t stream) {
-  if (hetero)
-    gather_dense_kernel<true><<<n_tiles, T, 0, stream>>>(
-        rays, beams, scalars, mask, out, n_tiles, n_chunks);
-  else
-    gather_dense_kernel<false><<<n_tiles, T, 0, stream>>>(
-        rays, beams, scalars, mask, out, n_tiles, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+                       const float* scalars, const float* mask, float* staged,
+                       float* partial, float* out, int n_tiles, int n_chunks,
+                       int n_splits, int hetero, cudaStream_t stream) {
+  return hetero ? forward_dense<true>(rays, beams, scalars, mask, staged,
+                                      partial, out, n_tiles, n_chunks,
+                                      n_splits, stream)
+                : forward_dense<false>(rays, beams, scalars, mask, staged,
+                                       partial, out, n_tiles, n_chunks,
+                                       n_splits, stream);
 }
 
+// run_start: (n_splits+1, n_tiles) int32 (ops/gather.py split_run_starts).
 int bre_gather_sparse(const float* rays, const float* beams,
                       const float* scalars, const int* idx,
-                      const int* tile_start, float* out, int n_tiles,
-                      int n_chunks, int hetero, cudaStream_t stream) {
-  if (hetero)
-    gather_sparse_kernel<true><<<n_tiles, T, 0, stream>>>(
-        rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks);
-  else
-    gather_sparse_kernel<false><<<n_tiles, T, 0, stream>>>(
-        rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+                      const int* run_start, float* staged, float* partial,
+                      float* out, int n_tiles, int n_chunks, int n_splits,
+                      int hetero, cudaStream_t stream) {
+  return hetero ? forward_sparse<true>(rays, beams, scalars, idx, run_start,
+                                       staged, partial, out, n_tiles, n_chunks,
+                                       n_splits, stream)
+                : forward_sparse<false>(rays, beams, scalars, idx, run_start,
+                                        staged, partial, out, n_tiles,
+                                        n_chunks, n_splits, stream);
 }
 
 }  // extern "C"

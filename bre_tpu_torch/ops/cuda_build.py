@@ -29,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("beam_gather_fwd.cu", "beam_gather_bwd.cu")
-HEADERS = ("pair_math.cuh",)
+HEADERS = ("pair_math.cuh", "split_sweep.cuh", "bulk_copy.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libbre_tpu_torch_kernels.so"
@@ -113,21 +113,25 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bre_cuda_error_string.argtypes = [i]
     lib.bre_cuda_error_string.restype = ctypes.c_char_p
-    # rays, beams, scalars, mask, out, n_tiles, n_chunks, hetero, stream
-    lib.bre_gather_forward.argtypes = [p, p, p, p, p, i, i, i, p]
+    # rays, beams, scalars, mask, staged, partial, out, n_tiles, n_chunks,
+    # n_splits, hetero, stream
+    lib.bre_gather_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bre_gather_forward.restype = i
-    # rays, beams, scalars, idx, tile_start, out, n_tiles, n_chunks, hetero,
-    # stream
-    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    # rays, beams, scalars, idx, run_start, staged, partial, out, n_tiles,
+    # n_chunks, n_splits, hetero, stream
+    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bre_gather_sparse.restype = i
-    # rays, beams, scalars, mask, ct, d_rays, d_beams, n_tiles, n_chunks,
-    # want_extras, hetero, stream
-    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    # rays, beams, scalars, mask, ct, staged_beams, staged_rays, partial,
+    # d_rays, d_beams, n_tiles, n_chunks, n_splits, want_extras, hetero,
+    # stream, marks
+    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, p, p]
     lib.bre_gather_backward.restype = i
-    # rays, beams, scalars, ct, idx_t, tile_start, idx_c, chunk_start,
-    # d_rays, d_beams, n_tiles, n_chunks, want_extras, stream
+    # rays, beams, scalars, ct, idx_t, run_start, idx_c, chunk_start,
+    # staged_beams, partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,
+    # want_extras, stream
     lib.bre_gather_backward_sparse.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               i, i, i, p]
+                                               p, p, i, i, i, i, p]
     lib.bre_gather_backward_sparse.restype = i
     # rays, beams, scalars, ct, d_rays, d_beams, n_tiles, n_chunks, stream
     lib.bre_gather_backward_twopass.argtypes = [p, p, p, p, p, p, i, i, p]

@@ -30,6 +30,11 @@ only for CPU tensors; for CUDA tensors they launch the kernels of
 the ray rows are ``NF_HET``, or raise.  Each wrapper counts its kernel
 launches per instance, in ``<wrapper>.launches`` (homogeneous) and
 ``<wrapper>.launches_het``.
+
+The kernels split each ray tile's chunk range across ``split_count`` blocks
+and add the splits' partial sums in a fixed order (``csrc/split_sweep.cuh``);
+``split_bounds`` and ``split_run_starts`` are that plan in Python, for the
+sparse kernel's list and for the tests.
 """
 
 from __future__ import annotations
@@ -70,6 +75,18 @@ NB_HET = NB + 8  # 24
 OUT_ROWS = 8
 KERNEL_TILE = 256  # rays per tile and beams per chunk of the CUDA kernels
 KERNEL_CHUNK = 256
+
+# The ray-side sweeps split each ray tile's chunk range across blocks
+# (csrc/split_sweep.cuh).  The split count aims at 4 resident 256-thread
+# blocks on each of the H100's 132 SMs, 8 waves over: a 64-tile (R/4) sweep
+# fills the card, the SMs keep warps enough to hide the pair math's
+# dependent chains, and blocks of uneven work (the block mask) even out
+# with a short last wave.  Of 1, 2, 4 and 8 such waves, 8 was fastest on
+# every main-path sweep (PERF.md, PR 5).
+SPLIT_TARGET_BLOCKS = 8 * 4 * 132
+# rows of one staged chunk (pair_math.cuh BeamChunk, BeamChunkHet): the
+# beam fields with their per-beam terms, written once per call
+STAGED_BEAM_ROWS, STAGED_BEAM_ROWS_HET = 16, 21
 
 # plain version: pairs evaluated per batch of blocks (bounds its memory);
 # larger on a card, where every op of a batch is one launch
@@ -353,6 +370,38 @@ def _check_cuda(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def split_count(n_tiles: int, n_chunks: int) -> int:
+    """Blocks per ray tile of the ray-side sweeps: SPLIT_TARGET_BLOCKS
+    spread over the tiles, at most one per chunk.  A function of the shapes
+    only, so dense and sparse sweeps of one call split alike."""
+    return max(1, min(n_chunks, -(-SPLIT_TARGET_BLOCKS // max(1, n_tiles))))
+
+
+def split_bounds(n_valid, n_chunks: int, n_splits: int):
+    """(n_splits + 1,) int64 chunk bounds on n_valid's device: split s
+    sweeps chunks [b[s], b[s+1]).  The live chunks (j*C < n_valid) are cut
+    into ranges of K = ceil(n_live / n_splits); the kernels compute the same
+    from n_valid on the card (split_range, csrc/split_sweep.cuh), so no
+    host sync and no split for the dead tail."""
+    n_valid = torch.as_tensor(n_valid, dtype=torch.float32)
+    n_live = torch.clamp(torch.ceil(n_valid / KERNEL_CHUNK), 0,
+                         n_chunks).to(torch.int64)
+    k = (n_live + n_splits - 1) // n_splits
+    s = torch.arange(n_splits + 1, device=n_valid.device, dtype=torch.int64)
+    return torch.minimum(s * k, n_live)
+
+
+def split_run_starts(idx, n_tiles: int, n_chunks: int, bounds):
+    """(n_splits + 1, n_tiles) int32 positions in a tile-major id list of
+    ``sparse_block_ids``: entries [r[s, t], r[s+1, t]) are tile t's listed
+    blocks whose chunk lies in split s of ``bounds`` (no seed entries)."""
+    n1 = n_chunks + 1
+    keys = (torch.arange(n_tiles, device=idx.device, dtype=torch.int64)[None]
+            * n1 + 1 + bounds.to(idx.device)[:, None])
+    return torch.searchsorted(idx, keys.to(idx.dtype).contiguous()).to(
+        torch.int32).contiguous()
+
+
 def run_starts(idx, n_runs, run_len):
     """Where each of ``n_runs`` runs of a sorted extended id list starts,
     plus its end: run r holds the ids in [r*run_len, (r+1)*run_len)."""
@@ -395,11 +444,30 @@ def count_launch(wrapper, hetero: bool) -> None:
         wrapper.launches += 1
 
 
+def staged_beams_buffer(rays_packed, n_chunks, hetero):
+    """Scratch for the kernels' beam pre-pass, (n_chunks, 16|21, C)."""
+    rows = STAGED_BEAM_ROWS_HET if hetero else STAGED_BEAM_ROWS
+    return torch.empty((n_chunks, rows, KERNEL_CHUNK), dtype=torch.float32,
+                       device=rays_packed.device)
+
+
+def _forward_buffers(rays_packed, n_tiles, n_chunks, n_splits, hetero):
+    """The staged chunks, the splits' partial sums (n_splits, n_tiles, 3,
+    T) and the output (n_tiles, 8, T)."""
+    dev = rays_packed.device
+    return (staged_beams_buffer(rays_packed, n_chunks, hetero),
+            torch.empty((n_splits, n_tiles, 3, KERNEL_TILE),
+                        dtype=torch.float32, device=dev),
+            torch.empty((n_tiles, OUT_ROWS, KERNEL_TILE), dtype=torch.float32,
+                        device=dev))
+
+
 def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
     """Dense forward (replaces ``pallas_gather_forward``): returns
     (n_tiles, 8, T).  CPU tensors take ``gather_forward_ref``; CUDA tensors
-    launch ``gather_dense_kernel`` (its heterogeneous instance for NF_HET
-    rays)."""
+    launch ``stage_beams``, ``gather_dense_kernel`` over ``split_count``
+    blocks per ray tile and ``reduce_splits`` (their heterogeneous
+    instances for NF_HET rays)."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     if block_mask is None:
         block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
@@ -412,13 +480,14 @@ def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
     _, _, hetero = _check_packed(rays_packed, beams_packed, scalars)
     _check_cuda("block_mask", block_mask, torch.float32, (n_chunks, n_tiles))
     lib = load_library()
-    out = torch.empty((n_tiles, OUT_ROWS, KERNEL_TILE), dtype=torch.float32,
-                      device=rays_packed.device)
+    n_splits = split_count(n_tiles, n_chunks)
+    staged, partial, out = _forward_buffers(rays_packed, n_tiles, n_chunks,
+                                            n_splits, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_forward(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        block_mask.data_ptr(), out.data_ptr(), n_tiles, n_chunks,
-        int(hetero), stream)
+        block_mask.data_ptr(), staged.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), n_tiles, n_chunks, n_splits, int(hetero), stream)
     check_status(lib, err, "gather_dense_kernel")
     count_launch(gather_forward, hetero)
     return out
@@ -428,7 +497,8 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
     """Sparse live-block forward (replaces ``pallas_gather_sparse``) over
     ``sparse_block_ids`` ids: returns (n_tiles, 8, T).  CPU tensors take
     ``gather_sparse_ref``; CUDA tensors launch ``gather_sparse_kernel``
-    (its heterogeneous instance for NF_HET rays)."""
+    (its heterogeneous instance for NF_HET rays) with the dense kernel's
+    split, between the same pre-pass and reduction."""
     if rays_packed.device.type == "cpu":
         return gather_sparse_ref(rays_packed, beams_packed, scalars, idx)
     from .cuda_build import check_status, load_library
@@ -436,15 +506,18 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
     n_tiles, n_chunks, hetero = _check_packed(rays_packed, beams_packed,
                                               scalars)
     _check_cuda("idx", idx, torch.int32, (idx.shape[0],))
-    tile_start = run_starts(idx, n_tiles, n_chunks + 1)
+    n_splits = split_count(n_tiles, n_chunks)
+    run_start = split_run_starts(
+        idx, n_tiles, n_chunks, split_bounds(scalars[0, 3], n_chunks, n_splits))
     lib = load_library()
-    out = torch.empty((n_tiles, OUT_ROWS, KERNEL_TILE), dtype=torch.float32,
-                      device=rays_packed.device)
+    staged, partial, out = _forward_buffers(rays_packed, n_tiles, n_chunks,
+                                            n_splits, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        idx.data_ptr(), tile_start.data_ptr(), out.data_ptr(), n_tiles,
-        n_chunks, int(hetero), stream)
+        idx.data_ptr(), run_start.data_ptr(), staged.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n_tiles, n_chunks, n_splits,
+        int(hetero), stream)
     check_status(lib, err, "gather_sparse_kernel")
     count_launch(gather_sparse, hetero)
     return out

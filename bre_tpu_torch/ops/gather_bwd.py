@@ -35,6 +35,8 @@ wrapper counts its launches per instance in ``<wrapper>.launches`` and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .gather import (BF_DP, BF_PE, BF_PS, BF_RAD, BF_SIGT, KERNEL_CHUNK,
@@ -44,7 +46,8 @@ from .gather import (BF_DP, BF_PE, BF_PS, BF_RAD, BF_SIGT, KERNEL_CHUNK,
                      _REF_BATCH_PAIRS_CPU, beam_power_ref, block_col,
                      block_row, count_launch, hetero_decay_ref,
                      hetero_tables_ref, is_hetero, pair_geometry_ref,
-                     run_starts)
+                     run_starts, split_bounds, split_count,
+                     split_run_starts, staged_beams_buffer)
 
 # per-ray cotangent rows of d_rays (pallas_gather_bwd.py:59-70)
 DR_TR = 0  # d tr_full rgb rows 0..2
@@ -80,6 +83,11 @@ D_BEAMS_ROWS_HET = dict(power_start=slice(BF_PS, BF_PS + 3),
                         sigma_t=slice(BF_SIGT, BF_SIGT + 3))
 
 _INV_4PI = 0.07957747154594767
+
+# rows of one staged ray tile (csrc/beam_gather_bwd.cu RayTile: the ray with
+# its per-ray terms and ct * sigma_s; RayTileHet: with ct, sigma_s and the
+# camera tables), written once per call
+STAGED_RAY_ROWS, STAGED_RAY_ROWS_HET = 18, 33
 
 
 def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
@@ -421,13 +429,43 @@ def _outputs(rays_packed, n_tiles, n_chunks, hetero):
                         dtype=torch.float32, device=dev))
 
 
+def _partial(rays_packed, n_splits, n_tiles, hetero):
+    """The d_rays sweep's per-split partial cotangents, (n_splits, n_tiles,
+    8|NDR_HET, T)."""
+    return torch.empty((n_splits, n_tiles, NDR_HET if hetero else NDR,
+                        KERNEL_TILE), dtype=torch.float32,
+                       device=rays_packed.device)
+
+
+# the dense backward's launches, in order, as gather_backward_fused.marks
+# times them
+BACKWARD_KERNELS = ("stage_beams", "stage_rays", "bwd_rays_dense",
+                    "reduce_splits", "bwd_beams_dense")
+
+
+def _event_handles(events):
+    """A C array of the CUDA events' handles, or None.  Each event must have
+    been recorded once (torch creates the handle at the first record)."""
+    if events is None:
+        return None
+    if len(events) != len(BACKWARD_KERNELS) + 1 or not all(
+            e.cuda_event for e in events):
+        raise ValueError(f"marks: {len(BACKWARD_KERNELS) + 1} recorded "
+                         "torch.cuda.Event(enable_timing=True)")
+    return (ctypes.c_void_p * len(events))(*[e.cuda_event for e in events])
+
+
 def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
                           block_mask=None, want_extras=True):
     """Dense backward (replaces ``pallas_gather_backward_fused``): returns
     (d_rays (n_tiles, 8|NDR_HET, T), d_beams (n_chunks, NB|NB_HET, C)).
     CPU tensors take ``gather_backward_fused_ref``; CUDA tensors launch the
-    two sweeps of ``csrc/beam_gather_bwd.cu`` (d_rays tile by tile, d_beams
-    chunk by chunk), their heterogeneous instances for NF_HET rays."""
+    two sweeps of ``csrc/beam_gather_bwd.cu`` (d_rays over ``split_count``
+    blocks per ray tile and ``reduce_splits``, d_beams chunk by chunk)
+    after their pre-passes, the heterogeneous instances for NF_HET rays.
+    With ``gather_backward_fused.marks`` set to 6 recorded timing events,
+    the launches record them in between (``BACKWARD_KERNELS`` order), so
+    each kernel can be timed alone."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     if block_mask is None:
         block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
@@ -441,13 +479,22 @@ def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
     _check_cuda("block_mask", block_mask, torch.float32, (n_chunks, n_tiles))
     _check_ct(ct, n_tiles, rays_packed.device)
     lib = load_library()
+    n_splits = split_count(n_tiles, n_chunks)
     d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, hetero)
+    staged_beams = staged_beams_buffer(rays_packed, n_chunks, hetero)
+    staged_rays = torch.empty(
+        (n_tiles, STAGED_RAY_ROWS_HET if hetero else STAGED_RAY_ROWS,
+         KERNEL_TILE), dtype=torch.float32, device=rays_packed.device)
+    partial = _partial(rays_packed, n_splits, n_tiles, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
+    marks = _event_handles(gather_backward_fused.marks)
     err = lib.bre_gather_backward(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        block_mask.data_ptr(), ct.data_ptr(), d_rays.data_ptr(),
-        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)),
-        int(hetero), stream)
+        block_mask.data_ptr(), ct.data_ptr(), staged_beams.data_ptr(),
+        staged_rays.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
+        d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
+        int(bool(want_extras)), int(hetero), stream,
+        None if marks is None else ctypes.addressof(marks))
     check_status(lib, err, "gather_backward kernels")
     count_launch(gather_backward_fused, hetero)
     return d_rays, d_beams
@@ -474,16 +521,23 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
                 (idx_tile_major.shape[0],))
     _check_cuda("idx_chunk_major", idx_chunk_major, torch.int32,
                 (idx_chunk_major.shape[0],))
-    tile_start = run_starts(idx_tile_major, n_tiles, n_chunks + 1)
+    n_splits = split_count(n_tiles, n_chunks)
+    run_start = split_run_starts(
+        idx_tile_major, n_tiles, n_chunks,
+        split_bounds(scalars[0, 3], n_chunks, n_splits))
     chunk_start = run_starts(idx_chunk_major, n_chunks, n_tiles + 1)
     lib = load_library()
     d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, False)
+    staged_beams = staged_beams_buffer(rays_packed, n_chunks, False)
+    partial = _partial(rays_packed, n_splits, n_tiles, False)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_backward_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        ct.data_ptr(), idx_tile_major.data_ptr(), tile_start.data_ptr(),
-        idx_chunk_major.data_ptr(), chunk_start.data_ptr(), d_rays.data_ptr(),
-        d_beams.data_ptr(), n_tiles, n_chunks, int(bool(want_extras)), stream)
+        ct.data_ptr(), idx_tile_major.data_ptr(), run_start.data_ptr(),
+        idx_chunk_major.data_ptr(), chunk_start.data_ptr(),
+        staged_beams.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
+        d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
+        int(bool(want_extras)), stream)
     check_status(lib, err, "gather_backward_sparse kernels")
     gather_backward_sparse.launches += 1
     return d_rays, d_beams
@@ -519,5 +573,6 @@ def gather_backward_twopass(rays_packed, beams_packed, scalars, ct):
 
 
 gather_backward_fused.launches = gather_backward_fused.launches_het = 0
+gather_backward_fused.marks = None
 gather_backward_sparse.launches = 0
 gather_backward_twopass.launches = 0

@@ -24,7 +24,9 @@ its own failure and nothing falls back to the CPU or a plain version):
      are kept for phase 6;
   6. kernel parity: both forward kernels against their plain PyTorch
      versions on those main-path inputs, rtol 2e-4 / atol 1e-8, each timed
-     with CUDA events after a warm-up, beside its bound;
+     with CUDA events after a warm-up, beside its bound; the dense kernel
+     run twice, the same bits both times, with its splits per ray tile and
+     blocks;
   7. device consistency: a 64x64, 20,000-photon, 1-iteration render on the
      card (kernels) and on the CPU (plain versions) must agree.
   The training path, a forward+backward iteration in the medium parameters:
@@ -48,10 +50,13 @@ its own failure and nothing falls back to the CPU or a plain version):
      the bench step's sweeps (want_extras both ways) and on the spec step's
      R/4 sweep, max|d| <= 2e-4 * (max|ref| + 1e-9) per cotangent (d tr,
      d sigma_s, d g, d cam_radius, d power_start, d power_end, d radius,
-     each against its own max|ref|); dense and sparse bit for bit; both
-     timed on the spec step's full-film and R/4 sweeps beside their bounds
-     (the plain backward at full film would take minutes and is not run
-     there);
+     each against its own max|ref|); dense and sparse bit for bit, the
+     dense kernel twice bit for bit; both timed on the spec step's
+     full-film and R/4 sweeps beside their bounds (the plain backward at
+     full film would take minutes and is not run there), and the dense
+     one's kernels timed one by one there, with CUDA events recorded
+     between its launches (the pre-passes, the d_rays sweep, the split
+     reduction, the d_beams sweep);
  12. gradient consistency: CUDA against CPU gradients of a 32x32,
      4,000-photon config-2 step.
 
@@ -69,7 +74,8 @@ its own failure and nothing falls back to the CPU or a plain version):
  15. hetero forward parity: one more config-3 iteration, timed phase by
      phase; both hetero forward kernels against their plain versions on
      its sweeps (every 4th ray tile of a sweep with more than 400,000 live
-     blocks), rtol 2e-4, timed beside their bounds;
+     blocks), rtol 2e-4, timed beside their bounds; the dense one twice
+     bit for bit;
  16. hetero steps: the fwd+bwd iteration in (density, sigma_s) on
      examples/bench_hetero_bwd.py's scene (128x128, 50k photons, a warm and
      3 timed steps) and one config-3 step at 512x512 x 100k after a warm
@@ -77,8 +83,9 @@ its own failure and nothing falls back to the CPU or a plain version):
  17. hetero backward parity: the hetero backward kernels against their
      plain versions on the bench step's sweeps (want_extras both ways) and
      the config-3 step's R/4 sweep, each cotangent against its own
-     max|ref|, the d tr_full, d power_end and geometry rows exactly 0;
-     timed on the config-3 step's sweeps beside their bounds;
+     max|ref|, the d tr_full, d power_end and geometry rows exactly 0, two
+     runs bit for bit; timed on the config-3 step's sweeps beside their
+     bounds, and kernel by kernel;
  18. hetero trainer: optimize_medium, 3 steps with examples/inverse_smoke.py's
      settings (3 views at 64x64, 20k photons, density only, tv_weight 2e-3,
      lr 3e-2), counted;
@@ -135,7 +142,10 @@ Prints, before the last line, one JSON line with each kernel's launches
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
 phase 23 for kernel 6; rows 1 and 3 also count their launches on the
 non-packed route, phases 20 and 23), max abs error (and, for the backward kernels, max |diff| / max|ref|
-per cotangent), time beside its plain version's and its bound; the last
+per cotangent), time beside its plain version's and its bound, and the
+splits per ray tile and blocks of its headline sweep (row 1's is the
+config-2 R/4 sweep, row 3's the spec step's; ``beam_blocks`` is the
+backward's d_beams grid); the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Details go to chiprun_out/chip_smoke.json.  Exits nonzero
 without a card.
@@ -277,16 +287,25 @@ def ptxas_summary(build_log):
 
 
 def _demangle(mangled):
-    """gather_dense_kernel<true> style names of the kernels' instances."""
+    """gather_dense_kernel<true> style names of the kernels' instances; the
+    beam pre-pass and reduce_splits, compiled into both sources, carry the
+    source's tag."""
     m = re.search(r"(gather_dense_kernel|gather_sparse_kernel|bwd_rays_dense|"
-                  r"bwd_beams_dense|bwd_rays_sparse|bwd_beams_sparse)I(.*)E",
-                  mangled)
-    if not m:
-        plain = re.search(r"(bwd_rays_twopass|bwd_beams_twopass)", mangled)
-        return plain.group(1) if plain else mangled
-    args = ["true" if b == "1" else "false"
-            for b in re.findall(r"Lb([01])E", m.group(2))]
-    return f"{m.group(1)}<{', '.join(args)}>"
+                  r"bwd_beams_dense|bwd_rays_sparse|bwd_beams_sparse|"
+                  r"stage_beams|stage_rays)I(.*)E", mangled)
+    if m:
+        args = ["true" if b == "1" else "false"
+                for b in re.findall(r"Lb([01])E", m.group(2))]
+        name = f"{m.group(1)}<{', '.join(args)}>"
+    else:
+        plain = re.search(r"(bwd_rays_twopass|bwd_beams_twopass|"
+                          r"reduce_splits)", mangled)
+        if not plain:
+            return mangled
+        name = plain.group(1)
+    if name.startswith(("stage_beams", "reduce_splits")):
+        name += " (fwd)" if "beam_gather_fwd" in mangled else " (bwd)"
+    return name
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -418,6 +437,34 @@ def bound(ops, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def split_grid(rays, beams):
+    """The ray-side sweep's grid for these inputs: splits per ray tile
+    (ops/gather.split_count, a function of the shapes) and blocks."""
+    n_splits = G.split_count(rays.shape[0], beams.shape[0])
+    return dict(n_splits=n_splits, blocks=rays.shape[0] * n_splits)
+
+
+def backward_kernel_ms(run):
+    """Device ms of each launch of one dense backward call, ``run()``
+    (gather_bwd.BACKWARD_KERNELS: the pre-passes, the d_rays sweep, the
+    split reduction, the d_beams sweep), from CUDA events that the wrapper's
+    ``marks`` record between the launches.  (torch.profiler dropped kernel
+    records after the first sessions in one process.)"""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(GB.BACKWARD_KERNELS) + 1)]
+    for e in marks:
+        e.record()  # creates the event
+    torch.cuda.synchronize()
+    GB.gather_backward_fused.marks = marks
+    try:
+        run()
+    finally:
+        GB.gather_backward_fused.marks = None
+    torch.cuda.synchronize()
+    return {name: marks[i].elapsed_time(marks[i + 1])
+            for i, name in enumerate(GB.BACKWARD_KERNELS)}
+
+
 # ---------------------------------------------------------------------------
 # The forward path (phases 3-7)
 # ---------------------------------------------------------------------------
@@ -546,6 +593,7 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
     n_live = int((mask > 0).sum())
     idx, _ = G.sparse_block_ids(mask, n_live)
     idx1, _ = G.sparse_block_ids(mask[:, :1].contiguous(), mask.shape[0])
+    grid = split_grid(rays, beams)
     in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
     ops = n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * in_ops
     out_bytes = rays.shape[0] * G.OUT_ROWS * BG.TILE * 4
@@ -559,6 +607,12 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
             lambda: G.gather_sparse_ref(rays[:1], beams, scal, idx1)), (
             (rays, beams, scal, mask), (rays, beams, scal, idx))):
         res = kern()
+        if name == names[0]:  # the dense kernel: the same bits twice
+            if not torch.equal(res, kern()):
+                raise AssertionError(f"{name} ({label}): two runs differ")
+            log(f"[{tag}] {label}: {name} two runs bit-identical, "
+                f"{grid['n_splits']} splits x {rays.shape[0]} ray tiles = "
+                f"{grid['blocks']} blocks")
         torch.cuda.synchronize()
         warm()
         plain_ms, ref = cuda_ms(plain, 1, warm=False)
@@ -581,7 +635,7 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err,
                          max_rel_err=rel_err, live_blocks=n_live,
                          pairs_in_range=in_range, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         bound_by=bound_by, **grid)
         outs.append(res)
         del ref
     if not torch.equal(outs[0], outs[1]):
@@ -609,7 +663,8 @@ def _add_sweep(results, checked, label, headline):
         if headline:
             r.update(ms=m["ms"], plain_ms=m["plain_ms"],
                      bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-                     sweep=headline)
+                     sweep=headline, n_splits=m["n_splits"],
+                     blocks=m["blocks"])
 
 
 def phase_parity(sweeps):
@@ -622,8 +677,12 @@ def phase_parity(sweeps):
         checked = fwd_sweep_check([n for n, _, _, _ in FWD_KERNELS], rays,
                                   beams, scal, mask, FWD_IN_OPS, label,
                                   "parity")
-        _add_sweep(results, checked, label,
-                   "config-2 full film" if label == "full" else None)
+        # the dense kernel's headline is the R/4 sweep (64 ray tiles, where
+        # the split matters most); the sparse one launches at full film
+        for name, m in checked.items():
+            head = {("gather_forward", "r4"): "config-2 R/4 budget",
+                    ("gather_sparse", "full"): "config-2 full film"}
+            _add_sweep(results, {name: m}, label, head.get((name, label)))
     return list(results.values())
 
 
@@ -961,6 +1020,9 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
     for label, args, extras in cases:
         dense, sparse, plain, inputs, n_live = _bwd_case(args, extras)
         outs = [dense(), sparse()]
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], dense())):
+            raise AssertionError(f"gather_backward_fused: two runs differ on "
+                                 f"the {label} sweep")
         torch.cuda.synchronize()
         for name, out, ref_fn in zip(names, outs, plain):
             plain_ms, ref = cuda_ms(ref_fn, 1, warm=False)
@@ -992,12 +1054,14 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 + ", max |diff| "
                 + json.dumps({k: float(f"{v:.3e}") for k, v in
                               sw["max_abs_err"].items()}))
-        log(f"[bwd parity] {label}: dense and sparse agree bit for bit")
+        log(f"[bwd parity] {label}: dense and sparse agree bit for bit; the "
+            f"dense kernel's two runs bit-identical")
     for label in ("r4", "full"):
         args = spec_sweeps[label]
         extras = args[6]
         dense, sparse, _, inputs, n_live = _bwd_case(args, extras)
         bounds, in_range = _bwd_bound(args, inputs, extras)
+        grid = dict(split_grid(args[1], args[0]), beam_blocks=args[0].shape[0])
         for name, fn in zip(names, (dense, sparse)):
             ms, _ = cuda_ms(fn, 3)
             bound_ms, bound_by = bounds[name]
@@ -1005,10 +1069,10 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
             results[name]["sweeps"][f"spec {label} timing"] = dict(
                 ms=ms, live_blocks=n_live, gpairs_s=gpairs,
                 pairs_in_range=in_range, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, **grid)
             if label == "r4":
                 results[name].update(ms=ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+                                     bound_by=bound_by, **grid)
             log(f"[bwd timing] spec {label} sweep ({args[1].shape[0]} ray "
                 f"tiles x {args[0].shape[0]} chunks, {n_live} live blocks, "
                 f"{in_range} pairs in range): {name} {ms:.3f} ms, "
@@ -1016,6 +1080,14 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 f"({bound_by})" + ("" if label == "r4" else
                                    "; plain version not run at full film "
                                    "(minutes)"))
+        parts = backward_kernel_ms(dense)
+        results[names[0]]["sweeps"][f"spec {label} timing"]["kernels_ms"] = parts
+        log(f"[bwd kernels] spec {label} sweep, gather_backward_fused "
+            f"({grid['n_splits']} splits x {args[1].shape[0]} ray tiles = "
+            f"{grid['blocks']} d_rays blocks, {grid['beam_blocks']} d_beams "
+            f"blocks), device ms per kernel (CUDA events between the "
+            f"launches): " + json.dumps({k: round(v, 3) for k, v in
+                                         parts.items()}))
     return [results[name] for name in names]
 
 
@@ -1286,6 +1358,10 @@ def phase_smoke_bwd_parity(sweeps):
         plain_ms, ref = cuda_ms(lambda: GB.gather_backward_fused_ref(
             rays, beams, scal, ct_p, mask, extras), 1, warm=False)
         errs = _bwd_close(out, ref, f"{name} ({label})", het=True)
+        if not all(torch.equal(a, b) for a, b in zip(
+                out, GB.gather_backward_fused(rays, beams, scal, ct_p, mask,
+                                              extras))):
+            raise AssertionError(f"{name} ({label}): two runs differ")
         r["max_abs_err"] = max([r["max_abs_err"]]
                                + [e for e, _ in errs.values()])
         for k, (_, rel) in errs.items():
@@ -1301,14 +1377,18 @@ def phase_smoke_bwd_parity(sweeps):
             f"want_extras={extras}) {name}: plain {plain_ms:.3f} ms; per "
             f"cotangent max |diff| / max|ref| "
             + json.dumps({k: float(f"{v:.3e}") for k, (_, v) in errs.items()})
-            + "; d tr_full, d power_end and geometry rows exactly 0")
+            + "; d tr_full, d power_end and geometry rows exactly 0; two "
+            "runs bit-identical")
         del ref
     for n_tiles, args in sorted(by_tiles.items(), reverse=True):
         beams, rays, scal, mask, ct = args[:5]
         extras = args[6]
         ct_p = BG.pack_ct(ct, rays.shape[0])
-        ms, _ = cuda_ms(lambda: GB.gather_backward_fused(
-            rays, beams, scal, ct_p, mask, extras), 3)
+        run = lambda: GB.gather_backward_fused(  # noqa: E731
+            rays, beams, scal, ct_p, mask, extras)
+        ms, _ = cuda_ms(run, 3)
+        grid = dict(split_grid(rays, beams), beam_blocks=beams.shape[0])
+        parts = backward_kernel_ms(run)
         in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
         ops = (n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range
                * (BWD_IN_OPS_HET + (BWD_EXTRAS_OPS_HET if extras else 0)))
@@ -1318,16 +1398,19 @@ def phase_smoke_bwd_parity(sweeps):
         n_live = int((mask > 0).sum())
         r["sweeps"][f"config3 {n_tiles} tiles timing"] = dict(
             ms=ms, live_blocks=n_live, pairs_in_range=in_range,
-            bound_ms=bound_ms, bound_by=bound_by,
-            gpairs_s=n_live * BG.TILE * BG.CHUNK / ms / 1e6)
+            bound_ms=bound_ms, bound_by=bound_by, kernels_ms=parts,
+            gpairs_s=n_live * BG.TILE * BG.CHUNK / ms / 1e6, **grid)
         if n_tiles == r4_tiles or "ms" not in r:
             r.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                     sweep=f"config-3 step, {n_tiles} ray tiles")
+                     sweep=f"config-3 step, {n_tiles} ray tiles", **grid)
         log(f"[smoke bwd timing] config-3 step, {n_tiles} ray tiles x "
             f"{beams.shape[0]} chunks, {n_live} live blocks, {in_range} "
             f"pairs in range: {name} {ms:.3f} ms, "
             f"{n_live * BG.TILE * BG.CHUNK / ms / 1e6:.1f} Gpairs/s, bound "
-            f"{bound_ms:.3f} ms ({bound_by})")
+            f"{bound_ms:.3f} ms ({bound_by}); {grid['n_splits']} splits x "
+            f"{n_tiles} ray tiles = {grid['blocks']} d_rays blocks; device "
+            f"ms per kernel (CUDA events between the launches) "
+            + json.dumps({k: round(v, 3) for k, v in parts.items()}))
     if "plain_ms" not in r:
         r["plain_ms"] = r["sweeps"][f"{cases[0][0]} extras=False"]["plain_ms"]
     return r
@@ -1822,6 +1905,7 @@ def phase_analytic_bwd(captured):
                ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                bound_by=bnd["bound_by"], library_ms=None,
                sweep="phase 22's first in-medium gather",
+               n_splits=1, blocks=rays.shape[0], beam_blocks=beams.shape[0],
                sweeps={"phase 22 gather": dict(ms=ms, plain_ms=plain_ms, **bnd)})
     return out, row
 
@@ -2014,7 +2098,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "sweep")
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
-        for key in ("err_over_max_ref", "launches_non_packed"):
+        for key in ("err_over_max_ref", "launches_non_packed", "n_splits",
+                    "blocks", "beam_blocks"):
             if key in kk:
                 row[key] = kk[key]
     print(json.dumps({"kernels": rows}))

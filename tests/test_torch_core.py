@@ -120,11 +120,12 @@ def test_morton3_bit_exact():
 
 
 def test_port_imports_no_jax():
-    """bre_tpu_torch and chip_smoke.py never import JAX or bre_tpu."""
+    """bre_tpu_torch and the card scripts never import JAX or bre_tpu."""
     pat = re.compile(r"^\s*(import\s+(jax|bre_tpu)\b|from\s+(jax|bre_tpu)\b)",
                      re.M)
     files = sorted((REPO / "bre_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "kernel_ab.py",
+              REPO / "profile_step.py"]
     assert len(files) > 15
     for f in files:
         assert not pat.search(f.read_text()), f"{f} imports jax or bre_tpu"

@@ -11,7 +11,10 @@ reference's Pallas tolerance, tests/test_pallas_gather.py:47; measured ~1e-6:
 the kernel rounds every product and sum as the plain version does and only
 the sum order and the math library's exp/log/rsqrt differ); backward kernels
 max|d| <= 2e-4 * (max|ref| + 1e-9) per cotangent (the reference's backward
-criterion, tests/test_pallas_gather.py:448, held per gradient there).  CUDA vs CPU image
+criterion, tests/test_pallas_gather.py:448, held per gradient there).  The
+split sweeps (rows 1-5) are held on shapes with more than one split per ray
+tile, one ray tile, and fewer valid beams than one chunk, dense against
+sparse and run against run bit for bit.  CUDA vs CPU image
 means 1e-3: same PCG32 streams, float-ulp flips of a few photon decisions
 at most.  The grid-density (heterogeneous) instances are held to the same
 criteria; their zero rows (d tr_full, d power_end, geometry) exactly 0."""
@@ -91,6 +94,60 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="int32"):
         G.gather_sparse(rays, beams, scal, torch.zeros(4, dtype=torch.int64,
                                                        device=dev))
+
+
+def _split_inputs(dev, n_tiles, n_chunks, n_valid, het):
+    """Inputs whose every chunk is live in the mask's first row, at a given
+    n_valid: the split plan's edge cases."""
+    rays, beams, scal, mask = (_het_inputs if het else _inputs)(
+        dev, max(n_tiles, 2), n_chunks, seed=n_tiles + n_chunks)
+    rays, mask = rays[:n_tiles].contiguous(), mask[:, :n_tiles].contiguous()
+    mask[0] = 1.0
+    scal[0, 3] = n_valid
+    return rays, beams, scal, mask
+
+
+@pytest.mark.parametrize("het", [False, True])
+@pytest.mark.parametrize("n_tiles,n_chunks,n_valid", [
+    (1, 24, 23 * 256 - 7),   # one ray tile: one split per chunk
+    (3, 12, 100),            # fewer valid beams than one chunk
+    (3, 12, 0),              # none valid: every split writes zeros
+    (300, 40, 40 * 256 - 9),  # 15 splits of up to 3 chunks, the last empty
+])
+def test_split_sweeps_match_plain_versions(dev, het, n_tiles, n_chunks,
+                                           n_valid):
+    """Rows 1-5 with each tile's chunk range split across blocks: each
+    kernel against its plain version, dense against sparse bit for bit
+    (homogeneous), and two runs bit for bit."""
+    rays, beams, scal, mask = _split_inputs(dev, n_tiles, n_chunks, n_valid,
+                                            het)
+    assert G.split_count(n_tiles, n_chunks) > 1
+    ct = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (n_tiles, GB.NDR, 256)).astype(np.float32)).to(dev)
+    ct[:, 3:] = 0.0
+    idx, _ = G.sparse_block_ids(mask, int(mask.sum()))
+    fwd = [G.gather_forward(rays, beams, scal, mask) for _ in range(2)]
+    bwd = [GB.gather_backward_fused(rays, beams, scal, ct, mask, True)
+           for _ in range(2)]
+    sparse = G.gather_sparse(rays, beams, scal, idx)
+    torch.cuda.synchronize()
+    ref = G.gather_forward_ref(rays, beams, scal, mask)
+    torch.testing.assert_close(fwd[0], ref, rtol=2e-4, atol=1e-8)
+    assert torch.equal(fwd[0], fwd[1]) and torch.equal(fwd[0], sparse)
+    assert (float(ref.abs().max()) > 0) == (n_valid > 0)
+    bref = GB.gather_backward_fused_ref(rays, beams, scal, ct, mask, True)
+    rows = ((GB.D_RAYS_ROWS_HET, GB.D_BEAMS_ROWS_HET) if het
+            else (GB.D_RAYS_ROWS, GB.D_BEAMS_ROWS))
+    for o, r, rr in zip(bwd[0], bref, rows):
+        for name, sl in rr.items():
+            err = float((o[:, sl] - r[:, sl]).abs().max())
+            assert err <= 2e-4 * (float(r[:, sl].abs().max()) + 1e-9), name
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    if not het:
+        idx_c, _ = GB.sparse_block_ids_chunk_major(mask, int(mask.sum()))
+        bsp = GB.gather_backward_sparse(rays, beams, scal, ct, idx, idx_c,
+                                        True)
+        assert all(torch.equal(a, b) for a, b in zip(bwd[0], bsp))
 
 
 def _cornell(dev):
