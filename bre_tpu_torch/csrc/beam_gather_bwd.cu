@@ -42,11 +42,11 @@
 // in order and keeps all of d_rays resident in VMEM; blocks on the card run
 // in parallel in no order, and per-block partials of d_beams at config-2
 // size would take ~50 GB.  So the design is two sweeps, each output element
-// with exactly one writer, on split_sweep.cuh's split and ring:
-//   - pre-passes: stage_beams writes each live chunk's per-beam terms
-//     (BeamChunk, BeamChunkHet) and stage_rays each ray tile's per-ray terms
-//     with ct*sigma_s (RayTile; RayTileHet with ct, sigma_s and the camera
-//     tables) once per call, instead of once per block that reads them;
+// with exactly one writer, the d_rays sweep on split_sweep.cuh's split and
+// ring:
+//   - pre-pass: stage_beams writes each live chunk's per-beam terms
+//     (BeamChunk, BeamChunkHet) once per call, instead of once per block
+//     that reads them;
 //   - d_rays: a grid of n_tiles x n_splits blocks of 256 threads, one ray
 //     per thread in registers; block (tile, s) walks the live chunks of
 //     split s of the tile's chunk range in ascending order, pulling each
@@ -56,14 +56,15 @@
 //     132 SMs, where one block per tile used 64 of them;
 //   - d_beams: one block per beam chunk (27,344 at the 256x256 / 1M step:
 //     it fills the card as it is), one beam per thread in registers, walking
-//     its live ray tiles in ascending order, each staged tile pulled through
-//     the ring; chunks past n_valid write zeros.
+//     its live ray tiles in ascending order, each staged in shared memory by
+//     the block (RayTile: the per-ray terms with ct*sigma_s; RayTileHet with
+//     ct, sigma_s and the camera tables); chunks past n_valid write zeros.
 // The grid-medium instances keep that design.  A ray thread of the d_rays
 // sweep holds its ray, ct and its 14 table coefficients in registers with 22
 // accumulators and their per-chunk partial sums; the staged chunks carry the
 // beam tables (21 KB).  A beam thread of the d_beams sweep holds its beam
 // and tables; the staged ray tile carries ct, sigma_s and the camera tables
-// (33 KB, so its two-stage ring takes 66 KB of dynamic shared memory).
+// (32 KB).
 // Both sum each tile's or chunk's partials before adding them, as the plain
 // versions do.  The pair work is paid twice (once per sweep): the price of
 // deterministic sums without atomics.  The sparse d_rays sweep splits each
@@ -176,10 +177,16 @@ __device__ __forceinline__ PairWeights pair_weights(float cos_t, float g,
 
 // Resident blocks per SM that the register budget must allow (the split
 // count aims at 4 blocks per SM): 80 registers a thread for the
-// homogeneous sweeps, 128 for the grid-medium ones with their 22 (d_rays)
-// or 12 (d_beams) accumulators and partial sums.
+// homogeneous d_rays sweeps, 128 for the grid-medium ones with their 22
+// accumulators and partial sums.
 template <bool HETERO>
 constexpr int kBwdMinBlocks = HETERO ? 2 : 3;
+
+// The dense d_beams sweep's: 64 registers a thread (4 blocks per SM) for
+// the homogeneous instance without the extras, 85 (3) for the others,
+// which spill at 64.
+template <bool EXTRAS, bool HETERO>
+constexpr int kBeamsMinBlocks = EXTRAS || HETERO ? 3 : 4;
 
 // ---- sweep 1: d_rays, one thread per ray --------------------------------
 
@@ -569,34 +576,18 @@ __device__ auto load_beam_any(const float* __restrict__ chunk, int lane,
   }
 }
 
-template <bool HETERO>
-using TileT = typename std::conditional<HETERO, RayTileHet, RayTile>::type;
-
-// Pre-pass: every ray tile's per-ray terms (with ct * sigma_s, or ct and
-// the camera tables), once per call, into staged (n_tiles, 18|33, T).
-template <bool HETERO>
-__global__ void __launch_bounds__(T)
-stage_rays(const float* __restrict__ rays, const float* __restrict__ ct,
-           float* __restrict__ staged) {
-  constexpr int nf = HETERO ? NF_HET : NF;
-  const int i = blockIdx.x;
-  stage_tile(rays + static_cast<size_t>(i) * nf * T,
-             ct + static_cast<size_t>(i) * CT_ROWS * T,
-             reinterpret_cast<TileT<HETERO>*>(staged)[i], threadIdx.x);
-}
-
 // One block per beam chunk: the live ray tiles of its mask row, ascending,
-// each pulled from staged_rays (stage_rays) through the ring.
+// each staged in shared memory by the block itself.  (Recomputing a tile's
+// per-ray terms here timed faster on the H100 than copying them in from a
+// pre-pass, through a bulk-copy ring or plain loads.)
 template <bool EXTRAS, bool HETERO>
-__global__ void __launch_bounds__(T, kBwdMinBlocks<HETERO>)
-bwd_beams_dense(const float* __restrict__ staged_rays,
-                const float* __restrict__ beams,
+__global__ void __launch_bounds__(T, kBeamsMinBlocks<EXTRAS, HETERO>)
+bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
                 const float* __restrict__ scalars,
-                const float* __restrict__ mask, float* __restrict__ d_beams,
-                int n_tiles) {
-  constexpr int nb = HETERO ? NB_HET : NB;
-  using Stage = TileT<HETERO>;
-  ring_init<Stage>();
+                const float* __restrict__ mask, const float* __restrict__ ct,
+                float* __restrict__ d_beams, int n_tiles) {
+  constexpr int nf = HETERO ? NF_HET : NF, nb = HETERO ? NB_HET : NB;
+  __shared__ typename std::conditional<HETERO, RayTileHet, RayTile>::type s;
   const int chunk = blockIdx.x;
   const float* mrow = mask + static_cast<size_t>(chunk) * n_tiles;
   const float inv_min_sin = 1.0f / scalars[2];
@@ -605,14 +596,14 @@ bwd_beams_dense(const float* __restrict__ staged_rays,
   if (static_cast<float>(chunk * C) < scalars[3]) {
     const auto bm = load_beam_any<HETERO>(
         beams + static_cast<size_t>(chunk) * nb * C, threadIdx.x, scalars[0]);
-    const MaskedChunks walk{mrow, 1, n_tiles};  // mask row: tiles i
-    const Stage* tiles = reinterpret_cast<const Stage*>(staged_rays);
-    ring_walk<Stage>(
-        walk.first(0), walk.end(), [&](int i) { return walk.next(i); },
-        [&](int i) { return tiles + i; },
-        [&](const Stage& s, int) {
-          beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
-        });
+    for (int i = 0; i < n_tiles; ++i) {
+      if (!(__ldg(mrow + i) > 0.0f)) continue;
+      stage_tile(rays + static_cast<size_t>(i) * nf * T,
+                 ct + static_cast<size_t>(i) * CT_ROWS * T, s, threadIdx.x);
+      __syncthreads();
+      beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
+      __syncthreads();  // the next tile overwrites s
+    }
   }
   write_beams<HETERO>(d_beams, chunk, acc);
 }
@@ -796,52 +787,27 @@ bwd_beams_twopass(const float* __restrict__ rays,
   write_beams<false>(d_beams, chunk, acc);
 }
 
-// stage_beams and stage_rays, the d_rays sweep over the (n_tiles, n_splits)
-// grid, reduce_splits into d_rays, the d_beams sweep.
-// marks: null, or 6 events recorded on the stream before the first launch
-// and after each of the 5, for timing them one by one.
-__host__ inline cudaError_t mark(cudaEvent_t* marks, int k,
-                                 cudaStream_t stream) {
-  return marks ? cudaEventRecord(marks[k], stream) : cudaSuccess;
-}
-
+// stage_beams, the d_rays sweep over the (n_tiles, n_splits) grid,
+// reduce_splits into d_rays, the d_beams sweep.
 template <bool EXTRAS, bool HETERO>
 int launch_dense(const float* rays, const float* beams, const float* scalars,
                  const float* mask, const float* ct, float* staged_beams,
-                 float* staged_rays, float* partial, float* d_rays,
-                 float* d_beams, int n_tiles, int n_chunks, int n_splits,
-                 cudaStream_t stream, cudaEvent_t* marks) {
+                 float* partial, float* d_rays, float* d_beams, int n_tiles,
+                 int n_chunks, int n_splits, cudaStream_t stream) {
   constexpr int ndr = HETERO ? NDR_HET : NDR;
-  cudaError_t err = mark(marks, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   stage_beams<HETERO><<<n_chunks, C, 0, stream>>>(beams, scalars, staged_beams);
-  if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = mark(marks, 1, stream)) != cudaSuccess)
-    return static_cast<int>(err);
-  stage_rays<HETERO><<<n_tiles, T, 0, stream>>>(rays, ct, staged_rays);
-  if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = mark(marks, 2, stream)) != cudaSuccess)
-    return static_cast<int>(err);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem_r = ring_smem_bytes<ChunkT<HETERO>>();
-  if ((err = ring_smem_attr(bwd_rays_dense<EXTRAS, HETERO>, smem_r)) != cudaSuccess)
-    return static_cast<int>(err);
   bwd_rays_dense<EXTRAS, HETERO><<<dim3(n_tiles, n_splits), T, smem_r, stream>>>(
       rays, staged_beams, scalars, mask, ct, partial, n_tiles, n_chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = mark(marks, 3, stream)) != cudaSuccess)
-    return static_cast<int>(err);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   reduce_splits<<<dim3(n_tiles, ndr), T, 0, stream>>>(
       partial, d_rays, n_splits, n_tiles, ndr, ndr);
-  if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = mark(marks, 4, stream)) != cudaSuccess)
-    return static_cast<int>(err);
-  const size_t smem_b = ring_smem_bytes<TileT<HETERO>>();
-  if ((err = ring_smem_attr(bwd_beams_dense<EXTRAS, HETERO>, smem_b)) != cudaSuccess)
-    return static_cast<int>(err);
-  bwd_beams_dense<EXTRAS, HETERO><<<n_chunks, T, smem_b, stream>>>(
-      staged_rays, beams, scalars, mask, d_beams, n_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(mark(marks, 5, stream));
+  bwd_beams_dense<EXTRAS, HETERO><<<n_chunks, T, 0, stream>>>(
+      rays, beams, scalars, mask, ct, d_beams, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // stage_beams, the d_rays sweep over the (n_tiles, n_splits) grid, reduce_splits,
@@ -873,23 +839,21 @@ int launch_sparse(const float* rays, const float* beams,
 
 extern "C" {
 
-// staged_beams: (n_chunks, 16|21, C), staged_rays: (n_tiles, 18|33, T) and
-// partial: (n_splits, n_tiles, 8|NDR_HET, T) scratch.  hetero: 0 =
-// homogeneous layouts, 1 = grid media (NF_HET rays, NB_HET beams, NDR_HET
-// d_rays rows).  marks: null, or 6 events (see mark).
+// staged_beams: (n_chunks, 16|21, C) and partial: (n_splits, n_tiles,
+// 8|NDR_HET, T) scratch.  hetero: 0 = homogeneous layouts, 1 = grid media
+// (NF_HET rays, NB_HET beams, NDR_HET d_rays rows).
 int bre_gather_backward(const float* rays, const float* beams,
                         const float* scalars, const float* mask,
-                        const float* ct, float* staged_beams,
-                        float* staged_rays, float* partial, float* d_rays,
-                        float* d_beams, int n_tiles, int n_chunks,
-                        int n_splits, int want_extras, int hetero,
-                        cudaStream_t stream, cudaEvent_t* marks) {
+                        const float* ct, float* staged_beams, float* partial,
+                        float* d_rays, float* d_beams, int n_tiles,
+                        int n_chunks, int n_splits, int want_extras,
+                        int hetero, cudaStream_t stream) {
   auto* f = hetero ? (want_extras ? &launch_dense<true, true>
                                   : &launch_dense<false, true>)
                    : (want_extras ? &launch_dense<true, false>
                                   : &launch_dense<false, false>);
-  return f(rays, beams, scalars, mask, ct, staged_beams, staged_rays, partial,
-           d_rays, d_beams, n_tiles, n_chunks, n_splits, stream, marks);
+  return f(rays, beams, scalars, mask, ct, staged_beams, partial, d_rays,
+           d_beams, n_tiles, n_chunks, n_splits, stream);
 }
 
 // run_start: (n_splits+1, n_tiles) int32 (ops/gather.py split_run_starts);

@@ -250,8 +250,6 @@ int forward_dense(const float* rays, const float* beams, const float* scalars,
   return launch_forward<HETERO>(
       beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
       stream, [&](dim3 grid, size_t smem) {
-        cudaError_t err = ring_smem_attr(gather_dense_kernel<HETERO>, smem);
-        if (err != cudaSuccess) return err;
         gather_dense_kernel<HETERO><<<grid, T, smem, stream>>>(
             rays, staged, scalars, mask, partial, n_tiles, n_chunks);
         return cudaGetLastError();
@@ -266,8 +264,6 @@ int forward_sparse(const float* rays, const float* beams,
   return launch_forward<HETERO>(
       beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
       stream, [&](dim3 grid, size_t smem) {
-        cudaError_t err = ring_smem_attr(gather_sparse_kernel<HETERO>, smem);
-        if (err != cudaSuccess) return err;
         gather_sparse_kernel<HETERO><<<grid, T, smem, stream>>>(
             rays, staged, scalars, idx, run_start, partial, n_tiles, n_chunks);
         return cudaGetLastError();

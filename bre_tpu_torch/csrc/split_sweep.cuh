@@ -15,9 +15,9 @@
 // order: one writer per element, no atomics, the same bits on every run.
 // n_splits is a function of the shapes only (ops/gather.py split_count).
 //
-// Ring.  A pre-pass writes each chunk's (or ray tile's) staged terms once
-// per call to device memory, field-major, exactly as a block would stage
-// them in shared memory (pair_math.cuh stage_chunk).  A block then walks its
+// Ring.  A pre-pass writes each chunk's staged terms once per call to
+// device memory, field-major, exactly as a block would stage them in shared
+// memory (pair_math.cuh stage_chunk).  A block then walks its
 // live blocks with two stages in shared memory: while it sweeps one stage,
 // one bulk copy fills the other, completed on that stage's mbarrier; one
 // wait and one barrier per staged block.
@@ -63,6 +63,9 @@ __device__ __forceinline__ uint64_t* ring_bars() {
 
 template <class Stage>
 constexpr size_t ring_smem_bytes() {
+  static_assert(2 * sizeof(Stage) + 2 * sizeof(uint64_t) <= 48 * 1024,
+                "a ring must fit the 48 KB of dynamic shared memory that a "
+                "launch may take without raising the kernel's limit");
   return 2 * sizeof(Stage) + 2 * sizeof(uint64_t);
 }
 
@@ -106,8 +109,7 @@ __device__ __forceinline__ void ring_walk(int p, int end, Next next, Src src,
 
 // The positions j < hi whose block-mask entry line[j * stride] is > 0:
 // the live chunks of a split for one ray tile (line = mask + tile, stride
-// n_tiles), or the live ray tiles of one chunk (line = its mask row,
-// stride 1).  (first, end, next) of a ring_walk.
+// n_tiles).  (first, end, next) of a ring_walk.
 struct MaskedChunks {
   const float* line;
   int stride, hi;
@@ -194,15 +196,6 @@ __device__ __forceinline__ void write_partial(float* __restrict__ partial,
              threadIdx.x;
 #pragma unroll
   for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];
-}
-
-// Launch helper: the dynamic shared memory of a ring kernel, above the
-// 48 KB default only after the attribute is raised.
-template <class Kernel>
-cudaError_t ring_smem_attr(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace

@@ -121,11 +121,10 @@ def load_library() -> ctypes.CDLL:
     # n_chunks, n_splits, hetero, stream
     lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bre_gather_sparse.restype = i
-    # rays, beams, scalars, mask, ct, staged_beams, staged_rays, partial,
-    # d_rays, d_beams, n_tiles, n_chunks, n_splits, want_extras, hetero,
-    # stream, marks
-    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                        i, i, p, p]
+    # rays, beams, scalars, mask, ct, staged_beams, partial, d_rays, d_beams,
+    # n_tiles, n_chunks, n_splits, want_extras, hetero, stream
+    lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, p]
     lib.bre_gather_backward.restype = i
     # rays, beams, scalars, ct, idx_t, run_start, idx_c, chunk_start,
     # staged_beams, partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,

@@ -29,7 +29,8 @@ only for CPU tensors; for CUDA tensors they launch the kernels of
 ``csrc/beam_gather_fwd.cu`` (T = C = 256), the heterogeneous instance when
 the ray rows are ``NF_HET``, or raise.  Each wrapper counts its kernel
 launches per instance, in ``<wrapper>.launches`` (homogeneous) and
-``<wrapper>.launches_het``.
+``<wrapper>.launches_het``, and keeps the grid of its last launch in
+``<wrapper>.last_grid``: (ray tiles, splits per tile).
 
 The kernels split each ray tile's chunk range across ``split_count`` blocks
 and add the splits' partial sums in a fixed order (``csrc/split_sweep.cuh``);
@@ -435,9 +436,12 @@ def _check_packed(rays_packed, beams_packed, scalars):
     return n_tiles, n_chunks, hetero
 
 
-def count_launch(wrapper, hetero: bool) -> None:
+def count_launch(wrapper, grid, hetero: bool) -> None:
     """One more launch of ``wrapper``'s homogeneous or heterogeneous
-    kernel instance."""
+    kernel instance, whose grid was ``grid``: (ray tiles, splits per tile)
+    of the ray-side sweep, and the backward's d_beams blocks.  The grid is
+    kept as ``wrapper.last_grid``."""
+    wrapper.last_grid = grid
     if hetero:
         wrapper.launches_het += 1
     else:
@@ -489,7 +493,7 @@ def gather_forward(rays_packed, beams_packed, scalars, block_mask=None):
         block_mask.data_ptr(), staged.data_ptr(), partial.data_ptr(),
         out.data_ptr(), n_tiles, n_chunks, n_splits, int(hetero), stream)
     check_status(lib, err, "gather_dense_kernel")
-    count_launch(gather_forward, hetero)
+    count_launch(gather_forward, (n_tiles, n_splits), hetero)
     return out
 
 
@@ -519,9 +523,10 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
         partial.data_ptr(), out.data_ptr(), n_tiles, n_chunks, n_splits,
         int(hetero), stream)
     check_status(lib, err, "gather_sparse_kernel")
-    count_launch(gather_sparse, hetero)
+    count_launch(gather_sparse, (n_tiles, n_splits), hetero)
     return out
 
 
 gather_forward.launches = gather_forward.launches_het = 0
 gather_sparse.launches = gather_sparse.launches_het = 0
+gather_forward.last_grid = gather_sparse.last_grid = None

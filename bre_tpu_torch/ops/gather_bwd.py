@@ -30,12 +30,11 @@ The dense wrapper picks the heterogeneous instance for NF_HET rays; the
 sparse and two-pass backward are homogeneous only, as in the reference,
 which takes the dense one for grid media (beam_gather.py:1147).  Each
 wrapper counts its launches per instance in ``<wrapper>.launches`` and
-``<wrapper>.launches_het``.
+``<wrapper>.launches_het``, and keeps the grid of its last launch in
+``<wrapper>.last_grid``: (ray tiles, splits per tile, d_beams blocks).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -83,11 +82,6 @@ D_BEAMS_ROWS_HET = dict(power_start=slice(BF_PS, BF_PS + 3),
                         sigma_t=slice(BF_SIGT, BF_SIGT + 3))
 
 _INV_4PI = 0.07957747154594767
-
-# rows of one staged ray tile (csrc/beam_gather_bwd.cu RayTile: the ray with
-# its per-ray terms and ct * sigma_s; RayTileHet: with ct, sigma_s and the
-# camera tables), written once per call
-STAGED_RAY_ROWS, STAGED_RAY_ROWS_HET = 18, 33
 
 
 def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
@@ -437,24 +431,6 @@ def _partial(rays_packed, n_splits, n_tiles, hetero):
                        device=rays_packed.device)
 
 
-# the dense backward's launches, in order, as gather_backward_fused.marks
-# times them
-BACKWARD_KERNELS = ("stage_beams", "stage_rays", "bwd_rays_dense",
-                    "reduce_splits", "bwd_beams_dense")
-
-
-def _event_handles(events):
-    """A C array of the CUDA events' handles, or None.  Each event must have
-    been recorded once (torch creates the handle at the first record)."""
-    if events is None:
-        return None
-    if len(events) != len(BACKWARD_KERNELS) + 1 or not all(
-            e.cuda_event for e in events):
-        raise ValueError(f"marks: {len(BACKWARD_KERNELS) + 1} recorded "
-                         "torch.cuda.Event(enable_timing=True)")
-    return (ctypes.c_void_p * len(events))(*[e.cuda_event for e in events])
-
-
 def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
                           block_mask=None, want_extras=True):
     """Dense backward (replaces ``pallas_gather_backward_fused``): returns
@@ -462,10 +438,7 @@ def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
     CPU tensors take ``gather_backward_fused_ref``; CUDA tensors launch the
     two sweeps of ``csrc/beam_gather_bwd.cu`` (d_rays over ``split_count``
     blocks per ray tile and ``reduce_splits``, d_beams chunk by chunk)
-    after their pre-passes, the heterogeneous instances for NF_HET rays.
-    With ``gather_backward_fused.marks`` set to 6 recorded timing events,
-    the launches record them in between (``BACKWARD_KERNELS`` order), so
-    each kernel can be timed alone."""
+    after the beam pre-pass, the heterogeneous instances for NF_HET rays."""
     n_tiles, n_chunks = rays_packed.shape[0], beams_packed.shape[0]
     if block_mask is None:
         block_mask = torch.ones((n_chunks, n_tiles), dtype=torch.float32,
@@ -482,21 +455,15 @@ def gather_backward_fused(rays_packed, beams_packed, scalars, ct,
     n_splits = split_count(n_tiles, n_chunks)
     d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, hetero)
     staged_beams = staged_beams_buffer(rays_packed, n_chunks, hetero)
-    staged_rays = torch.empty(
-        (n_tiles, STAGED_RAY_ROWS_HET if hetero else STAGED_RAY_ROWS,
-         KERNEL_TILE), dtype=torch.float32, device=rays_packed.device)
     partial = _partial(rays_packed, n_splits, n_tiles, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
-    marks = _event_handles(gather_backward_fused.marks)
     err = lib.bre_gather_backward(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
         block_mask.data_ptr(), ct.data_ptr(), staged_beams.data_ptr(),
-        staged_rays.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
-        d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
-        int(bool(want_extras)), int(hetero), stream,
-        None if marks is None else ctypes.addressof(marks))
+        partial.data_ptr(), d_rays.data_ptr(), d_beams.data_ptr(), n_tiles,
+        n_chunks, n_splits, int(bool(want_extras)), int(hetero), stream)
     check_status(lib, err, "gather_backward kernels")
-    count_launch(gather_backward_fused, hetero)
+    count_launch(gather_backward_fused, (n_tiles, n_splits, n_chunks), hetero)
     return d_rays, d_beams
 
 
@@ -539,7 +506,7 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
         d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
         int(bool(want_extras)), stream)
     check_status(lib, err, "gather_backward_sparse kernels")
-    gather_backward_sparse.launches += 1
+    count_launch(gather_backward_sparse, (n_tiles, n_splits, n_chunks), False)
     return d_rays, d_beams
 
 
@@ -568,11 +535,12 @@ def gather_backward_twopass(rays_packed, beams_packed, scalars, ct):
         ct.data_ptr(), d_rays.data_ptr(), d_beams.data_ptr(), n_tiles,
         n_chunks, stream)
     check_status(lib, err, "gather_backward_twopass kernels")
-    gather_backward_twopass.launches += 1
+    count_launch(gather_backward_twopass, (n_tiles, 1, n_chunks), False)
     return d_rays, d_beams
 
 
 gather_backward_fused.launches = gather_backward_fused.launches_het = 0
-gather_backward_fused.marks = None
 gather_backward_sparse.launches = 0
 gather_backward_twopass.launches = 0
+gather_backward_fused.last_grid = gather_backward_sparse.last_grid = None
+gather_backward_twopass.last_grid = None

@@ -24,9 +24,9 @@ its own failure and nothing falls back to the CPU or a plain version):
      are kept for phase 6;
   6. kernel parity: both forward kernels against their plain PyTorch
      versions on those main-path inputs, rtol 2e-4 / atol 1e-8, each timed
-     with CUDA events after a warm-up, beside its bound; the dense kernel
-     run twice, the same bits both times, with its splits per ray tile and
-     blocks;
+     with CUDA events after a warm-up, beside its bound and the grid its
+     wrapper launched (splits per ray tile, blocks); the dense kernel run
+     twice, the same bits both times;
   7. device consistency: a 64x64, 20,000-photon, 1-iteration render on the
      card (kernels) and on the CPU (plain versions) must agree.
   The training path, a forward+backward iteration in the medium parameters:
@@ -52,11 +52,11 @@ its own failure and nothing falls back to the CPU or a plain version):
      d sigma_s, d g, d cam_radius, d power_start, d power_end, d radius,
      each against its own max|ref|); dense and sparse bit for bit, the
      dense kernel twice bit for bit; both timed on the spec step's
-     full-film and R/4 sweeps beside their bounds (the plain backward at
-     full film would take minutes and is not run there), and the dense
-     one's kernels timed one by one there, with CUDA events recorded
-     between its launches (the pre-passes, the d_rays sweep, the split
-     reduction, the d_beams sweep);
+     full-film and R/4 sweeps beside their bounds and launched grids (the
+     plain backward at full film would take minutes and is not run there),
+     and the dense one's kernels timed one by one there under
+     torch.profiler, in a child process (the beam pre-pass, the d_rays sweep,
+     the split reduction, the d_beams sweep);
  12. gradient consistency: CUDA against CPU gradients of a 32x32,
      4,000-photon config-2 step.
 
@@ -85,7 +85,7 @@ its own failure and nothing falls back to the CPU or a plain version):
      the config-3 step's R/4 sweep, each cotangent against its own
      max|ref|, the d tr_full, d power_end and geometry rows exactly 0, two
      runs bit for bit; timed on the config-3 step's sweeps beside their
-     bounds, and kernel by kernel;
+     bounds and launched grids, and kernel by kernel as in phase 11;
  18. hetero trainer: optimize_medium, 3 steps with examples/inverse_smoke.py's
      settings (3 views at 64x64, 20k photons, density only, tv_weight 2e-3,
      lr 3e-2), counted;
@@ -143,9 +143,9 @@ ones, phases 13, 14 and 16's config-3 step for the hetero instances,
 phase 23 for kernel 6; rows 1 and 3 also count their launches on the
 non-packed route, phases 20 and 23), max abs error (and, for the backward kernels, max |diff| / max|ref|
 per cotangent), time beside its plain version's and its bound, and the
-splits per ray tile and blocks of its headline sweep (row 1's is the
-config-2 R/4 sweep, row 3's the spec step's; ``beam_blocks`` is the
-backward's d_beams grid); the last
+splits per ray tile and blocks that its wrapper launched on its headline
+sweep (row 1's is the config-2 R/4 sweep, row 3's the spec step's;
+``beam_blocks`` is the backward's d_beams grid); the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Details go to chiprun_out/chip_smoke.json.  Exits nonzero
 without a card.
@@ -156,6 +156,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -292,7 +293,7 @@ def _demangle(mangled):
     source's tag."""
     m = re.search(r"(gather_dense_kernel|gather_sparse_kernel|bwd_rays_dense|"
                   r"bwd_beams_dense|bwd_rays_sparse|bwd_beams_sparse|"
-                  r"stage_beams|stage_rays)I(.*)E", mangled)
+                  r"stage_beams)I(.*)E", mangled)
     if m:
         args = ["true" if b == "1" else "false"
                 for b in re.findall(r"Lb([01])E", m.group(2))]
@@ -437,32 +438,72 @@ def bound(ops, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def split_grid(rays, beams):
-    """The ray-side sweep's grid for these inputs: splits per ray tile
-    (ops/gather.split_count, a function of the shapes) and blocks."""
-    n_splits = G.split_count(rays.shape[0], beams.shape[0])
-    return dict(n_splits=n_splits, blocks=rays.shape[0] * n_splits)
+def launched_grid(wrapper):
+    """The grid of ``wrapper``'s last launch as the wrapper passed it to
+    its kernels: splits per ray tile, ray-side blocks and, for the
+    backward, d_beams blocks."""
+    grid = wrapper.last_grid
+    out = dict(n_splits=grid[1], blocks=grid[0] * grid[1])
+    if len(grid) > 2:
+        out["beam_blocks"] = grid[2]
+    return out
 
 
-def backward_kernel_ms(run):
-    """Device ms of each launch of one dense backward call, ``run()``
-    (gather_bwd.BACKWARD_KERNELS: the pre-passes, the d_rays sweep, the
-    split reduction, the d_beams sweep), from CUDA events that the wrapper's
-    ``marks`` record between the launches.  (torch.profiler dropped kernel
-    records after the first sessions in one process.)"""
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(len(GB.BACKWARD_KERNELS) + 1)]
-    for e in marks:
-        e.record()  # creates the event
+# the dense backward's launches, in order (csrc/beam_gather_bwd.cu
+# launch_dense)
+BACKWARD_LAUNCHES = ("stage_beams", "bwd_rays_dense", "reduce_splits",
+                     "bwd_beams_dense")
+PROFILE_REPS = 3
+
+
+def backward_kernel_ms(cases):
+    """{label: {kernel: device ms}}: each launch of the dense backward
+    (BACKWARD_LAUNCHES: the beam pre-pass, the d_rays sweep, the split
+    reduction, the d_beams sweep) on each case (label: gather_backward_fused
+    arguments), the mean of PROFILE_REPS calls, from one torch.profiler
+    session in a child process (``chip_smoke.py --profile-backward FILE``):
+    a process records kernels in its first profiler session only."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cases.pt")
+        torch.save(cases, path)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--profile-backward",
+             path], capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"the backward's profile failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def profile_backward(path):
+    """The child of backward_kernel_ms: prints its result as one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+    cases = torch.load(path)
+    for args in cases.values():  # warm-up
+        GB.gather_backward_fused(*args)
     torch.cuda.synchronize()
-    GB.gather_backward_fused.marks = marks
-    try:
-        run()
-    finally:
-        GB.gather_backward_fused.marks = None
-    torch.cuda.synchronize()
-    return {name: marks[i].elapsed_time(marks[i + 1])
-            for i, name in enumerate(GB.BACKWARD_KERNELS)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in cases.values():
+            for _ in range(PROFILE_REPS):
+                GB.gather_backward_fused(*args)
+        torch.cuda.synchronize()
+    pat = re.compile(r"\b(" + "|".join(BACKWARD_LAUNCHES) + r")\b")
+    found = sorted(((e.time_range.start, e.time_range.end, m.group(1))
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and (m := pat.search(e.name))))
+    n = len(BACKWARD_LAUNCHES)
+    names = [k for _, _, k in found]
+    if names != list(BACKWARD_LAUNCHES) * (PROFILE_REPS * len(cases)):
+        raise AssertionError(f"the profile holds {len(found)} backward "
+                             f"launches, not {n} per call: {names[:2 * n]}")
+    out, per_case = {}, n * PROFILE_REPS
+    for k, label in enumerate(cases):
+        runs = found[k * per_case:(k + 1) * per_case]
+        out[label] = {name: sum((e - s) / 1e3 for s, e, _ in runs[i::n])
+                      / PROFILE_REPS
+                      for i, name in enumerate(BACKWARD_LAUNCHES)}
+    print(json.dumps(out), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -593,12 +634,12 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
     n_live = int((mask > 0).sum())
     idx, _ = G.sparse_block_ids(mask, n_live)
     idx1, _ = G.sparse_block_ids(mask[:, :1].contiguous(), mask.shape[0])
-    grid = split_grid(rays, beams)
     in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
     ops = n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * in_ops
     out_bytes = rays.shape[0] * G.OUT_ROWS * BG.TILE * 4
     out, outs = {}, []
-    for name, kern, plain, warm, inputs in zip(names, (
+    for name, wrapper, kern, plain, warm, inputs in zip(
+            names, (G.gather_forward, G.gather_sparse), (
             lambda: G.gather_forward(rays, beams, scal, mask),
             lambda: G.gather_sparse(rays, beams, scal, idx)), (
             lambda: G.gather_forward_ref(rays, beams, scal, mask),
@@ -610,9 +651,7 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
         if name == names[0]:  # the dense kernel: the same bits twice
             if not torch.equal(res, kern()):
                 raise AssertionError(f"{name} ({label}): two runs differ")
-            log(f"[{tag}] {label}: {name} two runs bit-identical, "
-                f"{grid['n_splits']} splits x {rays.shape[0]} ray tiles = "
-                f"{grid['blocks']} blocks")
+            log(f"[{tag}] {label}: {name} two runs bit-identical")
         torch.cuda.synchronize()
         warm()
         plain_ms, ref = cuda_ms(plain, 1, warm=False)
@@ -622,13 +661,15 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
         rel_err = float(((res - ref).abs() / (ref.abs() + ATOL)).max())
         ok = bool(torch.allclose(res, ref, rtol=RTOL, atol=ATOL))
         ms, _ = cuda_ms(kern, 3)
+        grid = launched_grid(wrapper)
         bound_ms, bound_by = bound(ops, nbytes(*inputs) + out_bytes)
         log(f"[{tag}] {label}, {n_live} live blocks, {in_range} pairs in "
             f"range: {name} max rel err {rel_err:.3e} max abs err "
             f"{abs_err:.3e} (|ref| max {float(ref.abs().max()):.3e}) "
             f"allclose(rtol={RTOL}, atol={ATOL}) {ok}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            + note)
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+            f"launched {grid['n_splits']} splits x {rays.shape[0]} ray tiles "
+            f"= {grid['blocks']} blocks" + note)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the {label} sweep")
@@ -1056,14 +1097,16 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                               sw["max_abs_err"].items()}))
         log(f"[bwd parity] {label}: dense and sparse agree bit for bit; the "
             f"dense kernel's two runs bit-identical")
+    profiled = {}
     for label in ("r4", "full"):
         args = spec_sweeps[label]
         extras = args[6]
         dense, sparse, _, inputs, n_live = _bwd_case(args, extras)
         bounds, in_range = _bwd_bound(args, inputs, extras)
-        grid = dict(split_grid(args[1], args[0]), beam_blocks=args[0].shape[0])
-        for name, fn in zip(names, (dense, sparse)):
+        for name, fn, wrapper in zip(names, (dense, sparse), (
+                GB.gather_backward_fused, GB.gather_backward_sparse)):
             ms, _ = cuda_ms(fn, 3)
+            grid = launched_grid(wrapper)
             bound_ms, bound_by = bounds[name]
             gpairs = n_live * BG.TILE * BG.CHUNK / ms / 1e6
             results[name]["sweeps"][f"spec {label} timing"] = dict(
@@ -1077,17 +1120,17 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 f"tiles x {args[0].shape[0]} chunks, {n_live} live blocks, "
                 f"{in_range} pairs in range): {name} {ms:.3f} ms, "
                 f"{gpairs:.1f} Gpairs/s, bound {bound_ms:.3f} ms "
-                f"({bound_by})" + ("" if label == "r4" else
-                                   "; plain version not run at full film "
-                                   "(minutes)"))
-        parts = backward_kernel_ms(dense)
+                f"({bound_by}); launched {grid['n_splits']} splits x "
+                f"{args[1].shape[0]} ray tiles = {grid['blocks']} d_rays "
+                f"blocks, {grid['beam_blocks']} d_beams blocks"
+                + ("" if label == "r4" else "; plain version not run at "
+                   "full film (minutes)"))
+        profiled[label] = (*inputs["gather_backward_fused"], extras)
+    for label, parts in backward_kernel_ms(profiled).items():
         results[names[0]]["sweeps"][f"spec {label} timing"]["kernels_ms"] = parts
-        log(f"[bwd kernels] spec {label} sweep, gather_backward_fused "
-            f"({grid['n_splits']} splits x {args[1].shape[0]} ray tiles = "
-            f"{grid['blocks']} d_rays blocks, {grid['beam_blocks']} d_beams "
-            f"blocks), device ms per kernel (CUDA events between the "
-            f"launches): " + json.dumps({k: round(v, 3) for k, v in
-                                         parts.items()}))
+        log(f"[bwd kernels] spec {label} sweep, gather_backward_fused, device "
+            f"ms per kernel (torch.profiler, mean of {PROFILE_REPS}): "
+            + json.dumps({k: round(v, 3) for k, v in parts.items()}))
     return [results[name] for name in names]
 
 
@@ -1380,15 +1423,14 @@ def phase_smoke_bwd_parity(sweeps):
             + "; d tr_full, d power_end and geometry rows exactly 0; two "
             "runs bit-identical")
         del ref
+    profiled = {}
     for n_tiles, args in sorted(by_tiles.items(), reverse=True):
         beams, rays, scal, mask, ct = args[:5]
         extras = args[6]
         ct_p = BG.pack_ct(ct, rays.shape[0])
-        run = lambda: GB.gather_backward_fused(  # noqa: E731
-            rays, beams, scal, ct_p, mask, extras)
-        ms, _ = cuda_ms(run, 3)
-        grid = dict(split_grid(rays, beams), beam_blocks=beams.shape[0])
-        parts = backward_kernel_ms(run)
+        case = profiled[str(n_tiles)] = (rays, beams, scal, ct_p, mask, extras)
+        ms, _ = cuda_ms(lambda: GB.gather_backward_fused(*case), 3)
+        grid = launched_grid(GB.gather_backward_fused)
         in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
         ops = (n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range
                * (BWD_IN_OPS_HET + (BWD_EXTRAS_OPS_HET if extras else 0)))
@@ -1398,7 +1440,7 @@ def phase_smoke_bwd_parity(sweeps):
         n_live = int((mask > 0).sum())
         r["sweeps"][f"config3 {n_tiles} tiles timing"] = dict(
             ms=ms, live_blocks=n_live, pairs_in_range=in_range,
-            bound_ms=bound_ms, bound_by=bound_by, kernels_ms=parts,
+            bound_ms=bound_ms, bound_by=bound_by,
             gpairs_s=n_live * BG.TILE * BG.CHUNK / ms / 1e6, **grid)
         if n_tiles == r4_tiles or "ms" not in r:
             r.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1407,9 +1449,13 @@ def phase_smoke_bwd_parity(sweeps):
             f"{beams.shape[0]} chunks, {n_live} live blocks, {in_range} "
             f"pairs in range: {name} {ms:.3f} ms, "
             f"{n_live * BG.TILE * BG.CHUNK / ms / 1e6:.1f} Gpairs/s, bound "
-            f"{bound_ms:.3f} ms ({bound_by}); {grid['n_splits']} splits x "
-            f"{n_tiles} ray tiles = {grid['blocks']} d_rays blocks; device "
-            f"ms per kernel (CUDA events between the launches) "
+            f"{bound_ms:.3f} ms ({bound_by}); launched {grid['n_splits']} "
+            f"splits x {n_tiles} ray tiles = {grid['blocks']} d_rays blocks, "
+            f"{grid['beam_blocks']} d_beams blocks")
+    for n_tiles, parts in backward_kernel_ms(profiled).items():
+        r["sweeps"][f"config3 {n_tiles} tiles timing"]["kernels_ms"] = parts
+        log(f"[smoke bwd kernels] config-3 step, {n_tiles} ray tiles, device "
+            f"ms per kernel (torch.profiler, mean of {PROFILE_REPS}): "
             + json.dumps({k: round(v, 3) for k, v in parts.items()}))
     if "plain_ms" not in r:
         r["plain_ms"] = r["sweeps"][f"{cases[0][0]} extras=False"]["plain_ms"]
@@ -1889,6 +1935,7 @@ def phase_analytic_bwd(captured):
     errs6 = _bwd_close(k1, ref6, "gather_backward_twopass (phase 22's gather)")
     ms, _ = cuda_ms(lambda: GB.gather_backward_twopass(rays, beams, scal, ct),
                     3)
+    grid = launched_grid(GB.gather_backward_twopass)
     bnd = twopass_bound(rays, beams, scal, ct)
     log(f"[twopass parity] phase 22's first in-medium gather ({rays.shape[0]} "
         f"ray tiles x {beams.shape[0]} chunks): per cotangent max |diff| / "
@@ -1905,7 +1952,7 @@ def phase_analytic_bwd(captured):
                ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                bound_by=bnd["bound_by"], library_ms=None,
                sweep="phase 22's first in-medium gather",
-               n_splits=1, blocks=rays.shape[0], beam_blocks=beams.shape[0],
+               **grid,
                sweeps={"phase 22 gather": dict(ms=ms, plain_ms=plain_ms, **bnd)})
     return out, row
 
@@ -2019,6 +2066,8 @@ def phase_breadth(dev):
 
 
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
+        return profile_backward(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
                          "this smoke test needs a CUDA card")

@@ -121,7 +121,6 @@ def test_split_sweeps_match_plain_versions(dev, het, n_tiles, n_chunks,
     (homogeneous), and two runs bit for bit."""
     rays, beams, scal, mask = _split_inputs(dev, n_tiles, n_chunks, n_valid,
                                             het)
-    assert G.split_count(n_tiles, n_chunks) > 1
     ct = torch.from_numpy(np.random.RandomState(3).uniform(
         -1, 1, (n_tiles, GB.NDR, 256)).astype(np.float32)).to(dev)
     ct[:, 3:] = 0.0
@@ -131,6 +130,11 @@ def test_split_sweeps_match_plain_versions(dev, het, n_tiles, n_chunks,
            for _ in range(2)]
     sparse = G.gather_sparse(rays, beams, scal, idx)
     torch.cuda.synchronize()
+    n_splits = G.split_count(n_tiles, n_chunks)
+    assert n_splits > 1
+    assert G.gather_forward.last_grid == (n_tiles, n_splits)
+    assert G.gather_sparse.last_grid == (n_tiles, n_splits)
+    assert GB.gather_backward_fused.last_grid == (n_tiles, n_splits, n_chunks)
     ref = G.gather_forward_ref(rays, beams, scal, mask)
     torch.testing.assert_close(fwd[0], ref, rtol=2e-4, atol=1e-8)
     assert torch.equal(fwd[0], fwd[1]) and torch.equal(fwd[0], sparse)
