@@ -11,10 +11,12 @@ The ported slices: the forward progressive photon-beam render
 (``integrators.photonbeam.render_photonbeam``) on homogeneous and
 grid-density media, and its gradient in the medium parameters and the
 density grid (``parallel.mesh.make_inverse_train_step``,
-``integrators.inverse.optimize_medium``, one device), with the packed
-beam-radiance gather and its backward on hand-written CUDA kernels
-(``ops/gather.py``, ``ops/gather_bwd.py``, ``csrc/``).  Paths outside the
-slices raise ``NotImplementedError`` naming their ROADMAP item.
+``integrators.inverse.optimize_medium``), on one device or sharded over
+the ranks of a ``torch.distributed`` process group (``parallel.mesh``,
+``parallel.dryrun``), with the beam-radiance gather and its backward on
+hand-written CUDA kernels (``ops/gather.py``, ``ops/gather_bwd.py``,
+``csrc/``).  Paths outside the slices raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..core import transform as tfm
-from ..core.math import length
+from ..core.math import dot, length
 from ..media import gather_medium, grid_density, phase_hg
 from ..ops.gather import (_REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU, BF_B0,
                           BF_B1, BF_PE, BF_PS, BF_RAD, BF_VALID, NB,
@@ -167,21 +167,6 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
 
 
-def _dot3(x, y):
-    """x . y over the trailing 3-axis, summed in index order as the kernels'
-    ``dot3`` and the CPU's ``sum(-1)`` do.  A CUDA ``sum(-1)`` of a 3-axis
-    does not always add in that order, and near-parallel pairs (``a e - b^2``
-    cancelling) turn that last bit into a different closest point: on the
-    card the recompute backward then missed the kernels' beam-power
-    cotangents by 1.4e-3 of their max."""
-    return x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1] + x[..., 2] * y[..., 2]
-
-
-def _length3(v):
-    """``core.math.length`` with the index-order sum of ``_dot3``."""
-    return torch.sqrt(torch.clamp_min(_dot3(v, v), 1e-30))
-
-
 def _safe_div(cond, num, den):
     """where(cond, num / where(cond, den, 1), 0): both wheres, so neither
     the value nor the cotangent of an unselected lane is inf or NaN."""
@@ -196,11 +181,11 @@ def closest_points_segments_exact(a0, a1, b0, b1):
     d1 = a1 - a0
     d2 = b1 - b0
     r = a0 - b0
-    a = _dot3(d1, d1)
-    e = _dot3(d2, d2)
-    b = _dot3(d1, d2)
-    c = _dot3(d1, r)
-    f = _dot3(d2, r)
+    a = dot(d1, d1)
+    e = dot(d2, d2)
+    b = dot(d1, d2)
+    c = dot(d1, r)
+    f = dot(d2, r)
     denom = a * e - b * b
     s = _clip(_safe_div(denom > 1e-12, b * f - c * e, denom), 0.0, 1.0)
     t = _safe_div(e > 1e-12, b * s + f, e)
@@ -269,17 +254,17 @@ def _chunk_contrib(cb: dict, seg: dict, kernel: int, power_scale: float,
     a0 = sg(seg["a0"])[:, None]  # (R, 1, 3)
     a1 = sg(seg["a1"])[:, None]
     pa, pb, cp_valid = closest_points_segments_exact(a0, a1, c_start, c_end)
-    dist = _length3(pa - pb)  # (R, C)
+    dist = length(pa - pb)  # (R, C)
     width = sx(seg["cam_radius"]) + c_rad
     r = dist / _max(width, 1e-30)
     in_range = ((r < 1.0) & cp_valid).to(torch.float32) * c_valid
 
     # the physically normalized 1D-1D estimate
-    beam_len = _max(_length3(c_end - c_start), 1e-30)
+    beam_len = _max(length(c_end - c_start), 1e-30)
     b_dirn = (c_end - c_start) / beam_len[..., None]
-    t_b = _dot3(pb - c_start, b_dirn)
+    t_b = dot(pb - c_start, b_dirn)
     frac_b = _clip(t_b / beam_len, 0.0, 1.0)
-    t_c = _dot3(pa - seg["a0"][:, None], seg["dir"][:, None])
+    t_c = dot(pa - seg["a0"][:, None], seg["dir"][:, None])
     frac_c = _clip(t_c / seg["len"][:, None], 0.0, 1.0)
     if "d_cam_poly" in seg:
         # grid media: transmittance and sigma_s from the segments'
@@ -296,7 +281,7 @@ def _chunk_contrib(cb: dict, seg: dict, kernel: int, power_scale: float,
                                _max(seg["tr_full"], 1e-30)[:, None], frac_c)
         sigs = seg["sigma_s"][:, None]
 
-    cos_theta = _dot3(seg["dir"][:, None], b_dirn)
+    cos_theta = dot(seg["dir"][:, None], b_dirn)
     rho = phase_hg(cos_theta, sx(seg["g"])[:, None])
     sin_theta = _max(torch.sqrt(_max(1.0 - cos_theta * cos_theta, 1e-12)),
                      min_sin_theta)
@@ -834,7 +819,7 @@ def gather_beams_bruteforce(beams, media: Media, seg_a0, seg_a1, seg_dir,
               power_end=pad(beams.power_end), radius=pad(beams.radius),
               valid_f=pad(beams.valid.to(torch.float32)))
     _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
-    len_ = _length3(seg_a1 - seg_a0)
+    len_ = length(seg_a1 - seg_a0)
     seg = dict(a0=seg_a0, a1=seg_a1, dir=seg_dir, len=_max(len_, 1e-30),
                tr_full=seg_tr_full, sigma_s=sigma_s_seg, g=g_seg,
                in_med_f=seg_in_med.to(torch.float32),

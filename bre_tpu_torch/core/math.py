@@ -15,7 +15,14 @@ SHADOW_EPSILON = 1e-4
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum(-1)
+    """a . b over the trailing 3-axis, added in index order, (a0 b0 + a1 b1)
+    + a2 b2, each product rounded on its own, as the kernels' ``dot3`` and
+    the CPU's ``sum(-1)`` add.  A CUDA ``sum(-1)`` of a 3-axis does not
+    always add in that order, and near-parallel beam pairs (``a e - b^2``
+    cancelling) turn that last bit into a different closest point: on the
+    card the recompute backward then missed the kernels' beam-power
+    cotangents by 1.4e-3 of their max."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
 def absdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -27,7 +34,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def length_squared(v: torch.Tensor) -> torch.Tensor:
-    return (v * v).sum(-1)
+    return dot(v, v)
 
 
 def length(v: torch.Tensor) -> torch.Tensor:

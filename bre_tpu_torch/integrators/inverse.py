@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..integrators.photonbeam import PhotonBeamConfig
-from ..parallel.mesh import check_devices, make_inverse_train_step
+from ..parallel.mesh import make_inverse_train_step, make_mesh
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 
@@ -25,7 +25,9 @@ from ..scene.scene import Scene
 class InverseConfig:
     steps: int = 100
     learning_rate: float = 2e-2
-    n_devices: Optional[int] = None  # None and 1: the scene's one device
+    # None: every rank of the process group, or the scene's one device
+    # without a group (parallel.mesh.make_mesh)
+    n_devices: Optional[int] = None
     optimize: tuple = ("sigma_a", "sigma_s")  # subset of params to fit
     # total-variation prior on the density grid, loss += tv_weight *
     # sum over axes of mean(diff(density)^2); applies when density is fitted
@@ -48,18 +50,20 @@ def optimize_medium(scene: Scene, camera, width: int, height: int, target,
                     init_params: Optional[Dict[str, torch.Tensor]] = None,
                     callback: Optional[Callable] = None):
     """Adam descent on mean((render(params) - target)^2); parameters are
-    clamped to >= 0 after each step.  Returns (params, losses).
+    clamped to >= 0 after each step.  Returns (params, losses).  Over
+    several ranks every rank holds the same gradients, so every rank takes
+    the same steps.
 
     ``camera``/``target`` may be lists of matching length: steps then cycle
     through the views, ``view_block`` steps per view."""
-    check_devices(inv_cfg.n_devices)
+    mesh = make_mesh(inv_cfg.n_devices)
     cameras = [camera] if isinstance(camera, Camera) else list(camera)
     targets = [target] if len(cameras) == 1 and not isinstance(
         target, (list, tuple)) else list(target)
     if len(cameras) != len(targets):
         raise ValueError(f"{len(cameras)} cameras but {len(targets)} targets")
     step_fns = [make_inverse_train_step(scene, c, width, height, render_cfg,
-                                        inv_cfg.n_devices) for c in cameras]
+                                        mesh) for c in cameras]
     dev = scene.device
     params = init_params or dict(sigma_a=scene.media.sigma_a,
                                  sigma_s=scene.media.sigma_s, g=scene.media.g,

@@ -9,7 +9,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .core.math import INV_PI, coordinate_system, cross, dot, face_forward, normalize
+from .core.math import (INV_PI, coordinate_system, cross, dot, face_forward,
+                        length_squared, normalize)
 from .core.sampling import cosine_hemisphere_pdf, cosine_sample_hemisphere
 from .scene.scene import Materials
 
@@ -54,8 +55,8 @@ def sample_bsdf(materials: Materials, mat_idx: torch.Tensor, n: torch.Tensor,
 
     ns = face_forward(n, wo)
     t_in = tangent if tangent is not None else torch.zeros_like(n)
-    ss_raw = t_in - n * (t_in * n).sum(-1, keepdim=True)
-    ss_len = torch.sqrt((ss_raw * ss_raw).sum(-1))
+    ss_raw = t_in - n * dot(t_in, n)[:, None]
+    ss_len = torch.sqrt(length_squared(ss_raw))
     ss_ok = ss_len > 1e-6
     ss = ss_raw / torch.clamp_min(ss_len, 1e-12)[:, None]
     cvx, cvy = _local_frame(ns)

@@ -18,7 +18,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .core import transform as tfm
-from .core.math import INV_4PI, PI, coordinate_system, dot, spherical_direction_basis
+from .core.math import (INV_4PI, PI, coordinate_system, dot, length,
+                        spherical_direction_basis)
 from .core.rng import PCG32State, pcg32_next_f32
 from .core.samplers import stream_1d, stream_rng, stream_with_rng
 from .scene.scene import MEDIUM_GRID, Media
@@ -211,7 +212,7 @@ def sample_homogeneous(sigma_a, sigma_s, d, t_max, u_channel,
     """HomogeneousMedium::Sample (homogeneous.cpp:50-77), vectorized;
     t_max in units of |d|."""
     sigma_t = sigma_a + sigma_s
-    d_len = torch.sqrt(torch.clamp_min((d * d).sum(-1), 1e-30))
+    d_len = length(d)
     channel = torch.clamp_max((u_channel * 3).to(torch.int64), 2)
     sig_c = torch.gather(sigma_t, -1, channel[..., None])[..., 0]
     pos = sig_c > 1e-12
@@ -315,5 +316,5 @@ def tr_homogeneous(sigma_a, sigma_s, d, t_max) -> torch.Tensor:
     """HomogeneousMedium::Tr = exp(-sigma_t * min(tMax*|d|, inf))
     (homogeneous.cpp:44-48)."""
     sigma_t = sigma_a + sigma_s
-    d_len = torch.sqrt(torch.clamp_min((d * d).sum(-1), 1e-30))
+    d_len = length(d)
     return torch.exp(-sigma_t * torch.clamp_max(t_max * d_len, _MAX_F)[..., None])

@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.math import cross, normalize
+from ..core.math import cross, dot, normalize
 from .scene import SHAPE_SPHERE, SHAPE_TRIANGLE, Scene
 
 BIG = 1e30
@@ -41,9 +41,9 @@ def ray_sphere(o, d, center, radius, t_min, t_max):
     """(R,3),(R,3) x (N,3),(N,) -> (R,N) nearest t in (t_min, t_max) or BIG
     (stable quadratic, reference sphere.cpp:117-170)."""
     oc = o[:, None, :] - center[None, :, :]
-    a = (d * d).sum(-1)[:, None]
-    b = 2.0 * (oc * d[:, None, :]).sum(-1)
-    c = (oc * oc).sum(-1) - (radius * radius)[None, :]
+    a = dot(d, d)[:, None]
+    b = 2.0 * dot(oc, d[:, None, :])
+    c = dot(oc, oc) - (radius * radius)[None, :]
     disc = b * b - 4.0 * a * c
     ok = (disc > 0.0) & (radius > 0.0)[None, :]
     one = torch.ones_like(disc)
@@ -70,14 +70,14 @@ def ray_triangle(o, d, p0, p1, p2, t_min, t_max):
     e2 = (p2 - p0)[None, :, :]
     dv = d[:, None, :]
     pv = cross(dv.expand(-1, e2.shape[1], -1), e2.expand(dv.shape[0], -1, -1))
-    det = (e1 * pv).sum(-1)
+    det = dot(e1, pv)
     ok = det.abs() > _EPS
     inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
     tv = o[:, None, :] - p0[None, :, :]
-    u = (tv * pv).sum(-1) * inv_det
+    u = dot(tv, pv) * inv_det
     qv = cross(tv, e1.expand_as(tv))
-    v = (dv * qv).sum(-1) * inv_det
-    t = (e2 * qv).sum(-1) * inv_det
+    v = dot(dv, qv) * inv_det
+    t = dot(e2, qv) * inv_det
     inside = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     in_range = (t > t_min[:, None]) & (t < t_max[:, None])
     return torch.where(ok & inside & in_range, t, torch.full_like(t, BIG))
@@ -148,11 +148,11 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         # with the geometric normal face-forwarded into its hemisphere
         # (Triangle::Intersect, reference intersect.py:446-466)
         rel = p - q0
-        d11 = (e1 * e1).sum(-1)
-        d12 = (e1 * e2).sum(-1)
-        d22 = (e2 * e2).sum(-1)
-        dr1 = (rel * e1).sum(-1)
-        dr2 = (rel * e2).sum(-1)
+        d11 = dot(e1, e1)
+        d12 = dot(e1, e2)
+        d22 = dot(e2, e2)
+        dr1 = dot(rel, e1)
+        dr2 = dot(rel, e2)
         det = torch.clamp_min(d11 * d22 - d12 * d12, 1e-20)
         b1 = (d22 * dr1 - d12 * dr2) / det
         b2 = (d11 * dr2 - d12 * dr1) / det
@@ -161,7 +161,7 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         ns_t = normalize((1.0 - b1 - b2)[:, None] * vn0 + b1[:, None] * vn1
                          + b2[:, None] * vn2)
         use_vn = is_t & has_vn
-        flip_n = torch.where((ns_t * n).sum(-1) < 0.0, -1.0, 1.0)
+        flip_n = torch.where(dot(ns_t, n) < 0.0, -1.0, 1.0)
         n = torch.where(use_vn[:, None], n * flip_n[:, None], n)
         ns = torch.where(use_vn[:, None], ns_t, n)
     if Ns > 0:

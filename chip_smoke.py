@@ -137,6 +137,29 @@ its own failure and nothing falls back to the CPU or a plain version):
      and rendermedia=False at 64x64 x 20k photons, on the card against the
      CPU.
 
+ Several ranks (torch.distributed; the card is one H100, so NCCL runs one
+ rank and two ranks share the card through gloo), and part of the camera
+ walk's arithmetic:
+ 26. NCCL world size 1: phase 9's spec step (fog box, 256x256, 1M photons,
+     radius 0.1, gather="auto", geometry detached) as
+     make_inverse_train_step's loss mean(Ld^2), through
+     initialize_distributed(backend="nccl") with one rank, against the same
+     step on the one-device mesh: loss and every gradient bit for bit;
+     s/step and peak memory of both, beside the card's name and power
+     limit; the NCCL step counted (rows 1 and 3 must launch);
+ 27. dryrun_multichip: two gloo ranks on the card at
+     __graft_entry__.dryrun_multichip's size (16x16, 256 photons, the
+     default route) and at bench.py's 128x128 x 50k (geometry detached),
+     and one NCCL rank at the graft size, each against the one-device step
+     (loss within 1e-4 relative, sigma_a gradient within 1e-3 of its max;
+     the one NCCL rank bit for bit), every rank's kernel launches in its
+     sharded step (a forward kernel on every rank, and at the bench size a
+     backward kernel); times logged as first calls;
+ 28. index-order dot: every core.math.dot of the intersector and the BSDF
+     in a 64x64, 20,000-photon config-2 render, and length_squared of its
+     first operand, bit for bit (a0 b0 + a1 b1) + a2 b2 in numpy float32;
+     how often the card's sum(-1) differs is logged.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -154,6 +177,7 @@ without a card.
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -161,11 +185,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from bre_tpu_torch import materials as MAT  # noqa: E402
 from bre_tpu_torch.accel import beam_gather as BG  # noqa: E402
+from bre_tpu_torch.core import math as CMATH  # noqa: E402
 from bre_tpu_torch.core import transform as tfm  # noqa: E402
 from bre_tpu_torch.integrators import inverse as INV  # noqa: E402
 from bre_tpu_torch.integrators import photonbeam as PB  # noqa: E402
@@ -174,7 +201,9 @@ from bre_tpu_torch.lights import light_power_distribution  # noqa: E402
 from bre_tpu_torch.ops import cuda_build  # noqa: E402
 from bre_tpu_torch.ops import gather as G  # noqa: E402
 from bre_tpu_torch.ops import gather_bwd as GB  # noqa: E402
+from bre_tpu_torch.parallel import dryrun as DRYRUN  # noqa: E402
 from bre_tpu_torch.parallel import mesh as MESH  # noqa: E402
+from bre_tpu_torch.scene import intersect as ISECT  # noqa: E402
 from bre_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 from bre_tpu_torch.scene.camera import make_perspective_camera  # noqa: E402
 from bre_tpu_torch.scene.scene import LIGHT_DIFFUSE_AREA, SHAPE_TRIANGLE  # noqa: E402
@@ -950,7 +979,7 @@ def phase_trainer(dev):
                               gather="auto", grad_geometry=False,
                               grad_extras=True)
     run = MESH.sharded_photonbeam_iteration(
-        scene, cam, SIZE, SIZE, cfg, light_power_distribution(scene))
+        scene, cam, SIZE, SIZE, cfg, None, light_power_distribution(scene))
     with torch.no_grad():
         target = run(100, 0.12).reshape(SIZE, SIZE, 3)
     start = dict(sigma_a=scene.media.sigma_a, sigma_s=scene.media.sigma_s * 0.5,
@@ -1475,7 +1504,7 @@ def phase_smoke_trainer(dev):
     with torch.no_grad():
         for vi, cam in enumerate(cams):
             run = MESH.sharded_photonbeam_iteration(
-                scene_true, cam, INV_WH, INV_WH, cfg,
+                scene_true, cam, INV_WH, INV_WH, cfg, None,
                 light_power_distribution(scene_true))
             acc = sum(run(1000 + vi * 100 + i, 0.18)
                       for i in range(INV_TARGET_ITERS))
@@ -2065,6 +2094,161 @@ def phase_breadth(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Several ranks (phases 26-27) and the index-order dot (phase 28)
+# ---------------------------------------------------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_world1(dev, card):
+    """26. phase 9's spec step (fog box, 256x256, 1M photons, geometry
+    detached) as make_inverse_train_step's loss mean(Ld^2) over the
+    one-rank NCCL mesh, bit for bit the one-device mesh's; s/step and peak
+    memory of both, the NCCL step counted."""
+    wh, photons = SPEC_WH, SPEC_PHOTONS
+    scene, cam = fog_box(dev, wh)
+    cfg = PB.PhotonBeamConfig(maxdepth=MAXDEPTH, photonsperiteration=photons,
+                              initialbeamradius=0.1, gather="auto",
+                              grad_geometry=False, grad_extras=False)
+    params = {k: getattr(scene.media, k) for k in DRYRUN.PARAMS}
+    target = torch.zeros((wh * wh, 3), device=dev)
+
+    def timed(step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, grads = step(params, target, 1, 0.1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev),
+                loss, grads)
+
+    one = MESH.make_inverse_train_step(scene, cam, wh, wh, cfg)
+    t_one_warm = timed(one)[0]
+    t_one, peak_one, loss_one, g_one = timed(one)
+    mesh = MESH.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                       backend="nccl")
+    try:
+        if (mesh.size, mesh.rank, mesh.device, dist.get_backend()) != (
+                1, 0, dev, "nccl"):
+            raise AssertionError(f"NCCL world size 1: mesh {mesh}")
+        step = MESH.make_inverse_train_step(scene, cam, wh, wh, cfg, mesh)
+        t_warm = timed(step)[0]
+        reset_launches()
+        t_nccl, peak, loss, grads = timed(step)
+        counts = launches()
+    finally:
+        dist.destroy_process_group()
+    # grad_extras=False: g's gradient is 0, as in phase 9
+    check_grads({k: grads[k] for k in ("sigma_a", "sigma_s")},
+                "NCCL world-size-1 step")
+    identical = torch.equal(loss, loss_one) and all(
+        torch.equal(grads[k], g_one[k]) for k in grads)
+    log(f"[nccl x1] {card}: spec step (fog box {wh}x{wh}, {photons} photons, "
+        f"radius 0.1, gather=auto, geometry detached), loss mean(Ld^2): "
+        f"one-device mesh warm {t_one_warm:.4f} s, {t_one:.4f} s/step, peak "
+        f"{peak_one / 2**30:.3f} GiB; NCCL world size 1 warm {t_warm:.4f} s "
+        f"(the communicator starts), {t_nccl:.4f} s/step, peak "
+        f"{peak / 2**30:.3f} GiB; loss {float(loss):.9e}, grads "
+        f"{fmt_values(grads)}; bit-identical {identical}; launches {counts}")
+    if not identical:
+        raise AssertionError("NCCL world size 1 differs from the one-device "
+                             "mesh")
+    missing = [k for k in ("gather_forward", "gather_backward_fused")
+               if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"NCCL world size 1: kernels never launched: "
+                             f"{missing} ({counts})")
+    return dict(one_device_warm_s=t_one_warm, one_device_s=t_one,
+                one_device_peak_bytes=peak_one, warm_s=t_warm, step_s=t_nccl,
+                peak_memory_bytes=peak, loss=float(loss),
+                grads=fmt_values(grads), bit_identical=identical,
+                launches=counts)
+
+
+def phase_ranks(card):
+    """27. dryrun_multichip: two gloo ranks sharing the card at the graft
+    size and at bench.py's 128x128 x 50k, and one NCCL rank at the graft
+    size, each against the one-device step (the reference's invariant),
+    with every rank's kernel launches in its sharded step."""
+    out = {}
+    for label, n, backend, size in (("gloo x2 graft", 2, "gloo", "graft"),
+                                    ("gloo x2 bench", 2, "gloo", "bench"),
+                                    ("nccl x1 graft", 1, "nccl", "graft")):
+        t0 = time.perf_counter()
+        res = DRYRUN.dryrun_multichip(n, device="cuda", backend=backend,
+                                      size=size)
+        res["command_s"] = time.perf_counter() - t0
+        log(f"[ranks] {label}, {card}: loss {res['loss']:.9e} one-device "
+            f"{res['loss_1']:.9e}, loss rel {res['loss_rel']:.3e} (limit "
+            f"{DRYRUN.LOSS_RTOL}), grad max|diff|/max|one-device| "
+            f"{res['grad_rel']} (sigma_a limit {DRYRUN.GRAD_RTOL}), "
+            f"bit-identical {res['bit_identical']}; sharded step "
+            f"{res['step_s']:.4f} s, one-device {res['step_1_s']:.4f} s "
+            f"(first calls; correctness runs), {res['command_s']:.1f} s in "
+            f"all; launches per rank {res['launches_per_rank']}")
+        fwd = ("gather_forward", "gather_sparse")
+        bwd = ("gather_backward_fused", "gather_backward_sparse")
+        for rank, c in enumerate(res["launches_per_rank"]):
+            # the graft size takes the default route: the forward kernel and
+            # the plain recompute backward; bench the packed route
+            need = (fwd, bwd) if size == "bench" else (fwd,)
+            if not all(sum(c[k] for k in ks) > 0 for ks in need):
+                raise AssertionError(f"{label}: rank {rank} launched {c}")
+        if n == 1 and not res["bit_identical"]:
+            raise AssertionError(f"{label}: one rank differs from the "
+                                 "one-device mesh")
+        out[label] = res
+    return out
+
+
+def phase_dot_order(dev):
+    """28. core.math.dot and length_squared on the card over the camera
+    walk's own vectors (every dot of the intersector and the BSDF in a
+    64x64, 20,000-photon config-2 render): bit for bit (a0 b0 + a1 b1) +
+    a2 b2 in numpy float32; how often the card's sum(-1) differs is
+    logged."""
+    rec = []
+    orig = CMATH.dot
+
+    def recording(a, b):
+        rec.append((a.detach(), b.detach()))
+        return orig(a, b)
+    saved = [(m, m.dot) for m in (ISECT, MAT)]
+    for m, _ in saved:
+        m.dot = recording
+    try:
+        render(dev, 64, 20_000, 1)
+    finally:
+        for m, fn in saved:
+            m.dot = fn
+    n_lanes = n_sum_diff = 0
+    for a, b in rec:
+        a, b = torch.broadcast_tensors(a, b)
+        an, bn = a.cpu().numpy(), b.cpu().numpy()
+        with np.errstate(over="ignore", invalid="ignore"):  # 1e30 sentinels
+            want = (an[..., 0] * bn[..., 0] + an[..., 1] * bn[..., 1]) \
+                + an[..., 2] * bn[..., 2]
+            want_sq = (an[..., 0] * an[..., 0] + an[..., 1] * an[..., 1]) \
+                + an[..., 2] * an[..., 2]
+        if not (np.array_equal(CMATH.dot(a, b).cpu().numpy(), want)
+                and np.array_equal(CMATH.length_squared(a).cpu().numpy(),
+                                   want_sq)):
+            raise AssertionError(f"core.math.dot on the card is not the "
+                                 f"index-order sum (shape {tuple(a.shape)})")
+        n_lanes += want.size
+        n_sum_diff += int(((a * b).sum(-1).cpu().numpy() != want).sum())
+    log(f"[dot order] {len(rec)} dot calls, {n_lanes} lanes: core.math.dot "
+        f"and length_squared bit for bit the index-order sum; the card's "
+        f"sum(-1) differs at {n_sum_diff} lanes")
+    if not rec:
+        raise AssertionError("the render made no dot call")
+    return dict(calls=len(rec), lanes=n_lanes, sum_minus1_differs=n_sum_diff)
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2112,6 +2296,10 @@ def main():
     kernels.append(phase_twopass_timing(spec_sweeps, twopass_row))
     del spec_sweeps
     report["breadth"] = phase_breadth(dev)
+    report["nccl_world1"] = phase_nccl_world1(dev, report["card"])
+    torch.cuda.empty_cache()  # the ranks of phase 27 share the card
+    report["ranks"] = phase_ranks(report["card"])
+    report["dot_order"] = phase_dot_order(dev)
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run

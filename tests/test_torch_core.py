@@ -23,6 +23,7 @@ from bre_tpu_torch.accel import lbvh as tlbvh
 from bre_tpu_torch.core import rng as trng
 from bre_tpu_torch.core import sampling as tsamp
 from bre_tpu_torch.core import transform as ttfm
+from bre_tpu_torch.core.math import dot, length_squared
 from bre_tpu_torch.core.samplers import stream_1d
 from bre_tpu_torch.scene import camera as tcam
 from torch_parity import to_np
@@ -117,6 +118,28 @@ def test_morton3_bit_exact():
     j = to_np(jlbvh.morton3(jnp.asarray(p))).astype(np.int64)
     t = to_np(tlbvh.morton3(torch.from_numpy(p)))
     np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("shape", [(4096, 3), (64, 33, 3)])
+def test_dot_adds_in_index_order(shape):
+    """core.math.dot is (x0 y0 + x1 y1) + x2 y2, each product rounded on
+    its own, bit for bit (numpy float32 rounds every operation), at
+    magnitudes from 1e-3 to 1e3 and with cancelling terms."""
+    rs = np.random.RandomState(3)
+    x, y = (rs.randn(*shape).astype(np.float32)
+            * np.float32(10.0) ** rs.randint(-3, 4, shape).astype(np.float32)
+            for _ in range(2))
+    want = (x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1]) + x[..., 2] * y[..., 2]
+    want_sq = (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) \
+        + x[..., 2] * x[..., 2]
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    np.testing.assert_array_equal(to_np(dot(tx, ty)), want)
+    np.testing.assert_array_equal(to_np(length_squared(tx)), want_sq)
+    # broadcasting, as the intersector's (R, N) sweeps use it
+    np.testing.assert_array_equal(to_np(dot(tx[:1], ty)),
+                                  (x[:1, ..., 0] * y[..., 0]
+                                   + x[:1, ..., 1] * y[..., 1])
+                                  + x[:1, ..., 2] * y[..., 2])
 
 
 def test_port_imports_no_jax():

@@ -96,9 +96,11 @@ def test_unported_options_raise():
     _, ts, _, tc, target = _setup()
     cfg = tpb.PhotonBeamConfig(**CFG)
     tgt = torch.from_numpy(target)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmesh.make_inverse_train_step(ts, tc, WH, WH, cfg, n_devices=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # several ranks need a process group (tests/test_torch_mesh*.py run
+    # them): without one, the mesh of n > 1 ranks is refused
+    with pytest.raises(ValueError, match="initialize_distributed"):
+        tmesh.make_inverse_train_step(ts, tc, WH, WH, cfg, tmesh.make_mesh(2))
+    with pytest.raises(ValueError, match="initialize_distributed"):
         tinv.optimize_medium(ts, tc, WH, WH, tgt, cfg,
                              tinv.InverseConfig(steps=1, n_devices=4))
     # the non-packed gather route is ported: the geometry-attached step
