@@ -15,8 +15,10 @@ density grid (``parallel.mesh.make_inverse_train_step``,
 the ranks of a ``torch.distributed`` process group (``parallel.mesh``,
 ``parallel.dryrun``), with the beam-radiance gather and its backward on
 hand-written CUDA kernels (``ops/gather.py``, ``ops/gather_bwd.py``,
-``csrc/``).  Paths outside the slices raise ``NotImplementedError`` naming
-their ROADMAP item.
+``csrc/``), and the scene input around them: the ``.pbrt`` parser, image
+and PLY I/O, checkpoint/resume and the command line,
+``python -m bre_tpu_torch.cli scene.pbrt``.  Paths outside the slices raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam

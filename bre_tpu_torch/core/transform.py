@@ -1,14 +1,47 @@
 """4x4 transforms (counterpart of ``bre_tpu/core/transform.py``).
 
-``look_at`` and ``perspective`` build their matrices in numpy exactly as the
-reference does (float64 math, one float32 cast) and return float32 CPU
-tensors; ``apply_point``/``apply_vector`` apply them to batches.
+``translate``, ``scale``, ``rotate``, ``look_at`` and ``perspective`` build
+their matrices in numpy exactly as the reference does (float64 where it
+uses float64, rounded to float32 at the same points) and return float32 CPU
+tensors, so the scene parser's CTM is bit for bit the reference's;
+``apply_point``/``apply_vector`` apply them to batches.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def translate(delta) -> torch.Tensor:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = np.asarray(delta, np.float32)
+    return torch.from_numpy(m)
+
+
+def scale(sx, sy=None, sz=None) -> torch.Tensor:
+    if sy is None:
+        sy = sz = sx
+    return torch.from_numpy(np.diag(np.array([sx, sy, sz, 1.0], np.float32)))
+
+
+def rotate(deg: float, axis) -> torch.Tensor:
+    """Rotation about an arbitrary axis (pbrt transform.cpp:140-170)."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    t = np.deg2rad(deg)
+    s, c = np.sin(t), np.cos(t)
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0] = a[0] * a[0] + (1 - a[0] * a[0]) * c
+    m[0, 1] = a[0] * a[1] * (1 - c) - a[2] * s
+    m[0, 2] = a[0] * a[2] * (1 - c) + a[1] * s
+    m[1, 0] = a[0] * a[1] * (1 - c) + a[2] * s
+    m[1, 1] = a[1] * a[1] + (1 - a[1] * a[1]) * c
+    m[1, 2] = a[1] * a[2] * (1 - c) - a[0] * s
+    m[2, 0] = a[0] * a[2] * (1 - c) - a[1] * s
+    m[2, 1] = a[1] * a[2] * (1 - c) + a[0] * s
+    m[2, 2] = a[2] * a[2] + (1 - a[2] * a[2]) * c
+    return torch.from_numpy(m.astype(np.float32))
 
 
 def look_at(pos, look, up) -> torch.Tensor:

@@ -26,12 +26,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..accel.beam_gather import (CHUNK, KERNEL_BRE, TILE, compact_beams,
                                  gather_beams_bruteforce, gather_beams_packed,
                                  medium_interval_poly, pack_beams_compact,
                                  permute_rows, validity_order)
+from ..checkpoint import load_checkpoint, save_checkpoint
 from ..core.math import absdot, dot, offset_ray_origin
 from ..core.rng import pcg32_init, pcg32_next_f32
 from ..core.spectrum import luminance
@@ -286,11 +288,11 @@ def render_photonbeam(scene: Scene, camera: Camera, width: int, height: int,
 
     Returns (image (H,W,3) tensor on the scene's device, stats dict).
     ``write_callback(iter, image)`` runs every ``imagewritefrequency``
-    iterations and at the end, with a CPU copy of the running image."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path is not ported (ROADMAP Queue 1: "
-            "integrators/photonbeam checkpoint.py)")
+    iterations and at the end, with a CPU copy of the running image.  With
+    ``checkpoint_path``, the state (the next iteration, its radius and the
+    float32 ``Ld`` sum) is saved at every write point, and a checkpoint
+    past ``startiteration`` is resumed from (the reference's
+    photonbeam.py:545-552, 622-629)."""
     _check_config(cfg)
     check_slice(scene)
     if cfg.tr_crossings is None:
@@ -302,13 +304,25 @@ def render_photonbeam(scene: Scene, camera: Camera, width: int, height: int,
 
     # radius fast-forward for startiteration (photonbeam.cpp:354-357)
     radius = float(cfg.initialbeamradius)
-    for i in range(cfg.startiteration):
+    start_iter = cfg.startiteration
+    for i in range(start_iter):
         radius = radius * (i + cfg.alpha) / (i + 1)
 
     Ld_total = torch.zeros((n_pixels, 3), dtype=torch.float32,
                            device=scene.device)
+    resumed = False
+    if checkpoint_path is not None:
+        ck = load_checkpoint(checkpoint_path)
+        if ck is not None and ck["iteration"] > start_iter:
+            Ld = ck["buffers"]["Ld"]
+            if Ld.shape != (n_pixels, 3) or Ld.dtype != np.float32:
+                raise ValueError(
+                    f"{checkpoint_path}: Ld is {Ld.dtype} {Ld.shape}, not "
+                    f"float32 ({n_pixels}, 3) for a {width}x{height} film")
+            start_iter, radius, resumed = ck["iteration"], ck["radius"], True
+            Ld_total = torch.as_tensor(Ld, device=scene.device)
     stats_total: dict = {}
-    for it in range(cfg.startiteration, end_iter):
+    for it in range(start_iter, end_iter):
         # radius is rounded to float32 where it enters the device, as in
         # the reference's f32 schedule array
         rad32 = float(torch.tensor(radius, dtype=torch.float32))
@@ -322,11 +336,16 @@ def render_photonbeam(scene: Scene, camera: Camera, width: int, height: int,
             stats_total[k] = stats_total.get(k, 0) + int(v)
         radius = radius * (it + cfg.alpha) / (it + 1)  # photonbeam.cpp:562
         done = it + 1
-        if write_callback is not None and (
-                done == end_iter or done % cfg.imagewritefrequency == 0):
-            img = (Ld_total / done).reshape(height, width, 3)
-            write_callback(done - 1, img.cpu())
-    n_iter = max(end_iter - cfg.startiteration, 1)
+        if done == end_iter or done % cfg.imagewritefrequency == 0:
+            if write_callback is not None:
+                img = (Ld_total / done).reshape(height, width, 3)
+                write_callback(done - 1, img.cpu())
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, done, radius,
+                                {"Ld": Ld_total.detach().cpu().numpy()})
+    # a resumed Ld carries iterations [0, end); a fresh one
+    # [startiteration, end)
+    n_iter = max(end_iter - (0 if resumed else cfg.startiteration), 1)
     image = (Ld_total / n_iter).reshape(height, width, 3)
     stats_total["final_radius"] = radius
     return image, stats_total

@@ -1,10 +1,12 @@
 """Declarative scene builder (counterpart of ``bre_tpu/scene/builder.py``).
 
 The slice's subset: homogeneous and grid-density media (one grid per
-scene), matte materials, triangles (with pbrt's ``ss = normalize(dpdu)``
-tangent), quads, boxes, point lights and quad area lights.  Parameter names and the numpy arithmetic match the
-reference, so ``build()`` yields the same values as
-``scene_from_jax(bre_tpu SceneBuilder.build())``.
+scene), matte materials, spheres, triangles (with per-vertex shading
+normals, and pbrt's ``ss = normalize(dpdu)`` tangent from the UVs), quads,
+boxes, point lights and triangle area lights.  Parameter names and the
+numpy arithmetic match the reference, so ``build()`` yields the same values
+as ``scene_from_jax(bre_tpu SceneBuilder.build())``.  What the slice cannot
+render (textured materials, emitting spheres) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ def _rgb(v) -> np.ndarray:
 
 class SceneBuilder:
     def __init__(self) -> None:
+        self._sph: List[dict] = []
         self._tri: List[dict] = []
         self._mat: List[dict] = []
         self._light: List[dict] = []
@@ -38,7 +41,13 @@ class SceneBuilder:
         self.camera_medium = -1
 
     # --- materials (reference src/materials/matte.cpp) ---
-    def matte(self, kd=(0.5, 0.5, 0.5)) -> int:
+    def matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0, kd_tex=-1) -> int:
+        """Lambertian whatever ``sigma`` is, as the reference's matte BSDF
+        is (bre_tpu/materials.py:403, 544)."""
+        if kd_tex >= 0:
+            raise NotImplementedError(
+                "textured materials are not ported (ROADMAP Queue 1 item 5: "
+                "breadth, materials and textures)")
         self._mat.append(dict(mtype=MAT_MATTE, kd=_rgb(kd), kd_tex=-1))
         return len(self._mat) - 1
 
@@ -61,18 +70,45 @@ class SceneBuilder:
         self._grid_medium_index = len(self._med) - 1
         return self._grid_medium_index
 
-    # --- shapes (reference src/shapes/triangle.cpp) ---
-    def triangle(self, p0, p1, p2, material: int = -1, medium_inside: int = -1,
-                 medium_outside: int = -1, _area_light: int = -1) -> int:
-        """One triangle; its tangent is pbrt's dpdu for the default UVs,
-        ``normalize(p1 - p0)`` (triangle.cpp GetUVs / dpdu solve)."""
-        e = _rgb(p1) - _rgb(p0)
-        ln = float(np.linalg.norm(e))
-        tangent = _rgb(e / ln) if ln > 1e-12 else np.zeros(3, np.float32)
-        self._tri.append(dict(p0=_rgb(p0), p1=_rgb(p1), p2=_rgb(p2),
+    # --- shapes (reference src/shapes/{sphere,triangle}.cpp) ---
+    def sphere(self, center=(0, 0, 0), radius=1.0, material: int = -1,
+               medium_inside: int = -1, medium_outside: int = -1) -> int:
+        self._sph.append(dict(center=_rgb(center), radius=float(radius),
                               material=material, mi=medium_inside,
-                              mo=medium_outside, al=_area_light,
-                              tangent=tangent))
+                              mo=medium_outside, al=-1))
+        return len(self._sph) - 1
+
+    def triangle(self, p0, p1, p2, material: int = -1, medium_inside: int = -1,
+                 medium_outside: int = -1, _area_light: int = -1,
+                 tangent=None, n0=None, n1=None, n2=None, uv0=None, uv1=None,
+                 uv2=None) -> int:
+        """One triangle.  ``n0/n1/n2``: optional per-vertex shading normals
+        (None = faceted).  ``tangent`` defaults to pbrt's dpdu, solved from
+        ``uv0/uv1/uv2`` when given (triangle.cpp:149-162) and
+        ``p1 - p0`` for the default UVs; the UVs themselves are not stored
+        (only textures read them)."""
+        if tangent is None:
+            if uv0 is not None:
+                a0, a1, a2 = (np.asarray(u, np.float32)
+                              for u in (uv0, uv1, uv2))
+                duv02, duv12 = a0 - a2, a1 - a2
+                dp02 = _rgb(p0) - _rgb(p2)
+                dp12 = _rgb(p1) - _rgb(p2)
+                det = duv02[0] * duv12[1] - duv02[1] * duv12[0]
+                e = (duv12[1] * dp02 - duv02[1] * dp12) / det \
+                    if abs(det) > 1e-12 else _rgb(p1) - _rgb(p0)
+            else:
+                e = _rgb(p1) - _rgb(p0)
+            ln = float(np.linalg.norm(e))
+            tangent = e / ln if ln > 1e-12 else None
+        z3 = np.zeros(3, np.float32)
+        self._tri.append(dict(
+            p0=_rgb(p0), p1=_rgb(p1), p2=_rgb(p2), material=material,
+            mi=medium_inside, mo=medium_outside, al=_area_light,
+            tangent=_rgb(tangent) if tangent is not None else z3,
+            n0=_rgb(n0) if n0 is not None else z3,
+            n1=_rgb(n1) if n1 is not None else z3,
+            n2=_rgb(n2) if n2 is not None else z3))
         return len(self._tri) - 1
 
     def quad(self, p0, p1, p2, p3, **kw) -> Sequence[int]:
@@ -102,6 +138,13 @@ class SceneBuilder:
                     medium: int = -1) -> int:
         return self._add_light(ltype=LIGHT_POINT, position=_rgb(position),
                                emit=_rgb(intensity), medium=medium)
+
+    def area_light_sphere(self, center, radius, radiance, material: int = -1,
+                          two_sided=False, medium: int = -1,
+                          medium_inside: int = -1) -> int:
+        raise NotImplementedError(
+            "sphere area lights are not ported (ROADMAP Queue 1 item 5: "
+            "breadth, lights)")
 
     def area_light_quad(self, p0, p1, p2, p3, radiance, material: int = -1,
                         two_sided=False, medium: int = -1) -> int:
@@ -137,14 +180,17 @@ class SceneBuilder:
             return torch.as_tensor(np.array(vals, np_dtype).reshape(-1),
                                    dtype=dtype, device=device)
 
-        no_sph = Spheres(f(np.zeros((0, 3))), col([], "r", torch.float32),
-                         *(col([], "x") for _ in range(4)))
+        sph = self._sph
+        spheres = Spheres(stack(sph, "center"),
+                          col(sph, "radius", torch.float32),
+                          *(col(sph, k) for k in ("material", "mi", "mo",
+                                                  "al")))
         tri = self._tri
         triangles = Triangles(
             stack(tri, "p0"), stack(tri, "p1"), stack(tri, "p2"),
             col(tri, "material"), col(tri, "mi"), col(tri, "mo"),
-            col(tri, "al"), stack(tri, "tangent"),
-            *(f(np.zeros((len(tri), 3), np.float32)) for _ in range(3)))
+            col(tri, "al"), stack(tri, "tangent"), stack(tri, "n0"),
+            stack(tri, "n1"), stack(tri, "n2"))
         materials = Materials(col(self._mat, "mtype"), stack(self._mat, "kd"),
                               col(self._mat, "kd_tex"))
         L = self._light
@@ -162,6 +208,9 @@ class SceneBuilder:
                       torch.tensor(self._grid_medium_index, dtype=torch.int64,
                                    device=device))
         pts = []
+        for sp in sph:
+            pts.append(sp["center"] - sp["radius"])
+            pts.append(sp["center"] + sp["radius"])
         for t in tri:
             pts.extend([t["p0"], t["p1"], t["p2"]])
         for li in L:
@@ -174,7 +223,7 @@ class SceneBuilder:
             wmin = np.full(3, -1.0, np.float32)
             wmax = np.full(3, 1.0, np.float32)
         return Scene(
-            spheres=no_sph, triangles=triangles, materials=materials,
+            spheres=spheres, triangles=triangles, materials=materials,
             lights=lights, media=media,
             camera_medium=torch.tensor(self.camera_medium, dtype=torch.int64,
                                        device=device),

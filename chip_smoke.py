@@ -97,9 +97,9 @@ its own failure and nothing falls back to the CPU or a plain version):
   the recompute backward with the geometry attached, and the analytic
   backward kernels with it detached, kernel 6 (the two-pass backward) among
   them:
- 20. the CLI's config 2: examples/cornell_fog.pbrt's scene built as
-     bre_tpu's parser builds it, the config bre_tpu/cli.py builds from the
-     file (256x256, 16 iterations, 65,536 photons, radius 0.15, maxdepth 5,
+ 20. the CLI's config 2: examples/cornell_fog.pbrt read by the port's
+     parser, the config cli.photonbeam_config builds from the file
+     (256x256, 16 iterations, 65,536 photons, radius 0.15, maxdepth 5,
      alpha 0.5, every other field at its default: gather="auto",
      grad_geometry=True, gather_chunk=2048), no cut; counters set to 0
      before and read after: the forward kernel must launch and the packed
@@ -160,12 +160,28 @@ its own failure and nothing falls back to the CPU or a plain version):
      first operand, bit for bit (a0 b0 + a1 b1) + a2 b2 in numpy float32;
      how often the card's sum(-1) differs is logged.
 
+ The CLI (scene input, image output, checkpoint and resume):
+ 29. (a) cli.main on examples/cornell_fog.pbrt in this process, counted:
+     rc 0, the forward kernel launched, the packed route never called, and
+     its PFM read back bit for bit phase 20's image (wall time, s/iter);
+     (b) cli.main on examples/smoke_hetero.pbrt, counted: the dense hetero
+     forward kernel launched, the packed route never, and its image against
+     the same parsed scene rendered on the packed route (phase 20's route
+     tolerances); the host time of parse_file on the 231 KB file;
+     (c) the parsed config 2 rendered to iteration 8 with a checkpoint
+     under chiprun_out/, then the full 16-iteration config resumed from it:
+     8 iterations run, the image bit for bit phase 20's; (d) python -m
+     bre_tpu_torch.cli examples/fog_cube.pbrt --quick in a child process:
+     exit 0 and a finite 64x64 PNG.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
 phase 23 for kernel 6; rows 1 and 3 also count their launches on the
-non-packed route, phases 20 and 23), max abs error (and, for the backward kernels, max |diff| / max|ref|
-per cotangent), time beside its plain version's and its bound, and the
+non-packed route, phases 20 and 23, and rows 1 and 5 their launches by
+the CLI, phase 29 (a) and (b), as launches_cli), max abs error (and, for
+the backward kernels, max |diff| / max|ref| per cotangent), time beside
+its plain version's and its bound, and the
 splits per ray tile and blocks that its wrapper launched on its headline
 sweep (row 1's is the config-2 R/4 sweep, row 3's the spec step's;
 ``beam_blocks`` is the backward's d_beams grid); the last
@@ -174,6 +190,7 @@ line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 without a card.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -190,6 +207,7 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from bre_tpu_torch import cli as CLI  # noqa: E402
 from bre_tpu_torch import materials as MAT  # noqa: E402
 from bre_tpu_torch.accel import beam_gather as BG  # noqa: E402
 from bre_tpu_torch.core import math as CMATH  # noqa: E402
@@ -197,6 +215,7 @@ from bre_tpu_torch.core import transform as tfm  # noqa: E402
 from bre_tpu_torch.integrators import inverse as INV  # noqa: E402
 from bre_tpu_torch.integrators import photonbeam as PB  # noqa: E402
 from bre_tpu_torch.integrators.photon_trace import trace_photon_beams  # noqa: E402
+from bre_tpu_torch.io import image as IMG  # noqa: E402
 from bre_tpu_torch.lights import light_power_distribution  # noqa: E402
 from bre_tpu_torch.ops import cuda_build  # noqa: E402
 from bre_tpu_torch.ops import gather as G  # noqa: E402
@@ -204,9 +223,9 @@ from bre_tpu_torch.ops import gather_bwd as GB  # noqa: E402
 from bre_tpu_torch.parallel import dryrun as DRYRUN  # noqa: E402
 from bre_tpu_torch.parallel import mesh as MESH  # noqa: E402
 from bre_tpu_torch.scene import intersect as ISECT  # noqa: E402
+from bre_tpu_torch.scene import parser as PARSER  # noqa: E402
 from bre_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 from bre_tpu_torch.scene.camera import make_perspective_camera  # noqa: E402
-from bre_tpu_torch.scene.scene import LIGHT_DIFFUSE_AREA, SHAPE_TRIANGLE  # noqa: E402
 
 RTOL, ATOL = 2e-4, 1e-8  # tests/test_pallas_gather.py:47
 BWD_RTOL = 2e-4  # max|d| <= 2e-4 (max|ref| + 1e-9), tests/test_pallas_gather.py:448
@@ -411,15 +430,16 @@ def render(dev, size, photons, iters, **over):
                         cfg)
 
 
-def timed_render(scene, cam, size, cfg):
-    """render_photonbeam with the host clock read after each iteration
-    (each ends in a copy of the image to the host): (image on the host,
-    stats, s per iteration)."""
+def timed_render(scene, cam, size, cfg, checkpoint_path=None):
+    """render_photonbeam with the host clock read at each write point
+    (every iteration at imagewritefrequency 1; each ends in a copy of the
+    image to the host): (image on the host, stats, s per write point)."""
     marks = []
     t0 = time.perf_counter()
     img, stats = PB.render_photonbeam(
         scene, cam, size, size, cfg,
-        write_callback=lambda it, im: marks.append(time.perf_counter()))
+        write_callback=lambda it, im: marks.append(time.perf_counter()),
+        checkpoint_path=checkpoint_path)
     if scene.device.type == "cuda":
         torch.cuda.synchronize()
     return img.float().cpu(), stats, np.diff([t0] + marks).tolist()
@@ -1576,9 +1596,10 @@ def phase_smoke_consistency(dev):
 # The default gather route (phases 20-25): gather_beams_bruteforce
 # ---------------------------------------------------------------------------
 
-# examples/cornell_fog.pbrt's Integrator and Film lines
-PBRT_SIZE, PBRT_PHOTONS, PBRT_ITERS, PBRT_RADIUS = 256, 65_536, 16, 0.15
-PBRT_LOOK = ((0, 1, -3.9), (0, 1, 0), (0, 1, 0))  # its LookAt; fov 40
+# examples/cornell_fog.pbrt, the CLI's config 2 (256x256, 16 iterations of
+# 65,536 photons, radius 0.15): phase 20 reads it with the port's parser
+CORNELL_PBRT = os.path.join(ROOT, "examples", "cornell_fog.pbrt")
+SMOKE_PBRT = os.path.join(ROOT, "examples", "smoke_hetero.pbrt")
 # The two routes sum the same pairs in other orders (Morton-sorted chunks
 # and an AABB cull on the packed route, validity-sorted chunks and no cull
 # here) from the same photon and camera paths: the images differ by float
@@ -1589,64 +1610,22 @@ ROUTE_RTOL, ROUTE_PIXEL_RTOL, ROUTE_PIXEL_SHARE = 1e-4, 1e-3, 0.99
 TWOPASS_PLAIN_CHUNKS = 64
 
 
-def cornell_fog_pbrt(dev):
-    """examples/cornell_fog.pbrt's scene, built call for call as bre_tpu's
-    parser builds it from the file (scene/parser.py:386-395, 501-507,
-    548-655): the fog on the outside of every wall (MediumInterface "" "fog"),
-    the camera in vacuum, five matte walls of two triangles each and the
-    ceiling quad light (L 9 8 6, material none) whose triangles each carry
-    a diffuse area light at their centroid.
-    tests/test_torch_default_route.py checks it against the parser."""
-    b = SceneBuilder()
-    fog = b.homogeneous_medium((0.02,) * 3, (0.25,) * 3, g=0.2)
-
-    def mesh(points, idx, material, emit=None):
-        p = np.asarray(points, np.float32)
-        for k in range(0, len(idx), 3):
-            v0, v1, v2 = (p[i] for i in idx[k:k + 3])
-            light = len(b._light) if emit is not None else -1
-            tri = b.triangle(v0, v1, v2, material=material, medium_inside=-1,
-                             medium_outside=fog, _area_light=light)
-            if emit is not None:
-                b._add_light(ltype=LIGHT_DIFFUSE_AREA,
-                             position=(v0 + v1 + v2) / 3.0,
-                             emit=np.asarray(emit, np.float32),
-                             shape_kind=SHAPE_TRIANGLE, shape_index=tri,
-                             two_sided=0, medium=fog)
-
-    white = b.matte((0.73, 0.73, 0.73))
-    mesh([(-1, 0, -1), (-1, 0, 1), (1, 0, 1), (1, 0, -1)],
-         [0, 1, 2, 0, 2, 3], white)  # floor
-    mesh([(-1, 2, -1), (-1, 2, 1), (1, 2, 1), (1, 2, -1)],
-         [0, 2, 1, 0, 3, 2], white)  # ceiling
-    mesh([(-1, 0, 1), (-1, 2, 1), (1, 2, 1), (1, 0, 1)],
-         [0, 2, 1, 0, 3, 2], white)  # back wall
-    red = b.matte((0.65, 0.05, 0.05))
-    mesh([(-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1)],
-         [0, 1, 2, 0, 2, 3], red)
-    green = b.matte((0.12, 0.45, 0.15))
-    mesh([(1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)],
-         [0, 2, 1, 0, 3, 2], green)
-    mesh([(-0.3, 1.99, -0.3), (0.3, 1.99, -0.3), (0.3, 1.99, 0.3),
-          (-0.3, 1.99, 0.3)], [0, 1, 2, 0, 2, 3], -1, emit=(9, 8, 6))
-    return b.build(device=dev)
+def parse_cornell(dev, size=None):
+    """examples/cornell_fog.pbrt through the port's parser (the camera on
+    ``dev``); with ``size``, its Film resolution set to size x size."""
+    text = open(CORNELL_PBRT).read()
+    if size is not None:
+        text = re.sub(r'"integer ([xy])resolution" \[ \d+ \]',
+                      lambda m: f'"integer {m.group(1)}resolution" [ {size} ]',
+                      text)
+    return PARSER.parse_string(text, include_dir=os.path.dirname(CORNELL_PBRT),
+                               device=dev)
 
 
-def pbrt_camera(dev, size):
-    return make_perspective_camera(tfm.look_at(*PBRT_LOOK), 40.0, size, size,
-                                   device=dev)
-
-
-def cli_cfg(iters, photons, radius=PBRT_RADIUS, **over):
-    """The PhotonBeamConfig bre_tpu/cli.py:103-115 builds from a .pbrt
-    file's Integrator line; imagewritefrequency 1 only times each
-    iteration."""
-    kw = dict(iterations=iters, startiteration=0, enditeration=iters,
-              maxdepth=MAXDEPTH, photonsperiteration=photons,
-              imagewritefrequency=1, initialbeamradius=radius, alpha=0.5,
-              rendersurfaces=True, rendermedia=True, kernel="bre")
-    kw.update(over)
-    return PB.PhotonBeamConfig(**kw)
+def cli_cfg(ps, **over):
+    """The PhotonBeamConfig the CLI builds from a parsed scene's Integrator
+    line (cli.photonbeam_config), with ``over`` replaced."""
+    return dataclasses.replace(CLI.photonbeam_config(ps), **over)
 
 
 def routes_agree(img, img_ref, what):
@@ -1706,21 +1685,28 @@ def fwd_route_check(rays, beams, scal, label):
 
 
 def phase_cli_config2(dev):
-    """20. The CLI's config 2 on the default route, all 16 iterations."""
-    scene, cam = cornell_fog_pbrt(dev), pbrt_camera(dev, PBRT_SIZE)
+    """20. The CLI's config 2 on the default route, all 16 iterations:
+    examples/cornell_fog.pbrt read by the port's parser, the config
+    cli.photonbeam_config builds from it (imagewritefrequency 1 only times
+    each iteration).  Returns the image too (phase 29 holds the CLI's
+    against it)."""
+    ps = PARSER.parse_file(CORNELL_PBRT, device=dev)
+    scene, cam, size = ps.build(device=dev), ps.camera, ps.width
+    cfg = cli_cfg(ps, imagewritefrequency=1)
+    iters = cfg.iterations
     reset_launches()
-    img, stats, per_iter = timed_render(scene, cam, PBRT_SIZE,
-                                        cli_cfg(PBRT_ITERS, PBRT_PHOTONS))
+    img, stats, per_iter = timed_render(scene, cam, size, cfg)
     counts, routes = launches(FWD_KERNELS), route_calls()
-    mean = check_image(img, PBRT_SIZE, "CLI config-2 render")
+    mean = check_image(img, size, "CLI config-2 render")
     warm = float(np.mean(per_iter[1:]))
-    log(f"[cli config 2] examples/cornell_fog.pbrt: {PBRT_SIZE}x{PBRT_SIZE}, "
-        f"{PBRT_PHOTONS} photons/iter, {PBRT_ITERS} iters, radius "
-        f"{PBRT_RADIUS}, maxdepth {MAXDEPTH}, alpha 0.5, gather=auto, "
-        f"grad_geometry=True, gather_chunk=2048: s/iter {per_iter} (warm, "
-        f"iterations 2-{PBRT_ITERS}: {warm:.4f}); valid beams/iter "
-        f"{stats['n_beams'] / PBRT_ITERS:.0f}; image mean {mean:.6f}, finite; "
-        f"launches {counts}; route calls {routes}")
+    log(f"[cli config 2] examples/cornell_fog.pbrt: {size}x{size}, "
+        f"{cfg.photonsperiteration} photons/iter, {iters} iters, radius "
+        f"{cfg.initialbeamradius}, maxdepth {cfg.maxdepth}, alpha "
+        f"{cfg.alpha}, gather={cfg.gather}, grad_geometry="
+        f"{cfg.grad_geometry}, gather_chunk={cfg.gather_chunk}: s/iter "
+        f"{per_iter} (warm, iterations 2-{iters}: {warm:.4f}); valid "
+        f"beams/iter {stats['n_beams'] / iters:.0f}; image mean {mean:.6f}, "
+        f"finite; launches {counts}; route calls {routes}")
     if (counts["gather_forward"] <= 0 or routes["gather_beams_packed"] != 0
             or routes["gather_beams_bruteforce"] <= 0):
         raise AssertionError(f"the default config must take the non-packed "
@@ -1735,8 +1721,9 @@ def phase_cli_config2(dev):
               (BG, "gather_forward", _event_timed(BG, "gather_forward",
                                                   sweeps))]
     try:
-        _, st1, it1 = timed_render(scene, cam, PBRT_SIZE, cli_cfg(
-            PBRT_ITERS + 1, PBRT_PHOTONS, startiteration=PBRT_ITERS))
+        _, st1, it1 = timed_render(scene, cam, size, dataclasses.replace(
+            cfg, iterations=iters + 1, startiteration=iters,
+            enditeration=iters + 1))
     finally:
         for module, name, orig in saved:
             setattr(module, name, orig)
@@ -1755,7 +1742,7 @@ def phase_cli_config2(dev):
     breakdown["rest_s"] = (it1[0] - breakdown["trace_s"] - breakdown["compact_s"]
                            - sum(by["_pack_kernel_inputs"])
                            - sum(ms for _, _, ms in kernel) / 1e3)
-    log(f"[cli config 2 breakdown] iteration {PBRT_ITERS + 1}: "
+    log(f"[cli config 2 breakdown] iteration {iters + 1}: "
         f"{it1[0]:.4f} s, valid beams {st1['n_beams']}; trace "
         f"{breakdown['trace_s']:.4f} s, compaction {breakdown['compact_s']:.4f}"
         f" s, packing per call "
@@ -1771,16 +1758,16 @@ def phase_cli_config2(dev):
     del sweeps
     # the same render on the packed route
     img_packed, _, per_packed = timed_render(
-        scene, cam, PBRT_SIZE, cli_cfg(PBRT_ITERS, PBRT_PHOTONS,
-                                       gather="pallas", grad_geometry=False))
+        scene, cam, size, dataclasses.replace(cfg, gather="pallas",
+                                              grad_geometry=False))
     agree = routes_agree(img, img_packed, "CLI config 2, default route vs "
                          "packed route")
     checked = fwd_route_check(rays, beams, scal, f"CLI config-2 largest "
                               f"sweep, {rays.shape[0]} ray tiles")
     return dict(per_iter_s=per_iter, warm_s_per_iter=warm, image_mean=mean,
-                n_beams_per_iter=stats["n_beams"] / PBRT_ITERS,
+                n_beams_per_iter=stats["n_beams"] / iters,
                 launches=counts, route_calls=routes, breakdown=breakdown,
-                packed_per_iter_s=per_packed, routes=agree), checked
+                packed_per_iter_s=per_packed, routes=agree), checked, img
 
 
 def phase_cli_config3(dev, img_packed):
@@ -2050,14 +2037,17 @@ def phase_breadth(dev):
     """25. gather="brute" (forward and a gradient) and rendermedia=False on
     the card against the CPU at 64x64 x 20k photons."""
     size, photons = 64, 20_000
+    one_iter = dict(iterations=1, enditeration=1, photonsperiteration=photons,
+                    imagewritefrequency=1)
     out = {}
     for label, over in (("brute", dict(gather="brute")),
                         ("rendermedia=False", dict(rendermedia=False))):
         imgs = []
         for d in (dev, torch.device("cpu")):
+            ps = parse_cornell(d, size)
             reset_launches()
-            img, _, t = timed_render(cornell_fog_pbrt(d), pbrt_camera(d, size),
-                                     size, cli_cfg(1, photons, **over))
+            img, _, t = timed_render(ps.build(device=d), ps.camera, size,
+                                     cli_cfg(ps, **one_iter, **over))
             imgs.append((check_image(img, size, f"{label} render on {d}"),
                          img, t[0], launches(FWD_KERNELS)))
         (m_gpu, i_gpu, t_gpu, c_gpu), (m_cpu, i_cpu, t_cpu, _) = imgs
@@ -2074,9 +2064,10 @@ def phase_breadth(dev):
                           channel_rel_diff=rel)
     grads = []
     for d in (dev, torch.device("cpu")):
-        scene = cornell_fog_pbrt(d)
-        grads.append(fwd_bwd(scene, pbrt_camera(d, size), size, cli_cfg(
-            1, photons, gather="brute",
+        ps = parse_cornell(d, size)
+        scene = ps.build(device=d)
+        grads.append(fwd_bwd(scene, ps.camera, size, cli_cfg(
+            ps, **one_iter, gather="brute",
             tr_crossings=PB.default_tr_crossings(scene)), 1))
     (l_gpu, g_gpu), (l_cpu, g_cpu) = grads
     check_grads(g_cpu, "CPU brute step")
@@ -2249,6 +2240,141 @@ def phase_dot_order(dev):
     return dict(calls=len(rec), lanes=n_lanes, sum_minus1_differs=n_sum_diff)
 
 
+# ---------------------------------------------------------------------------
+# The CLI (phase 29): scene input, image output and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+
+def cli_run(args, kernels, what):
+    """bre_tpu_torch.cli.main(args) in this process, counted: the counters
+    set to 0 just before and read just after.  (wall s, launches, route
+    calls)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = CLI.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = launches(kernels), route_calls()
+    if rc != 0:
+        raise AssertionError(f"{what}: the CLI returned {rc}")
+    return wall, counts, routes
+
+
+def phase_cli(dev, img_cli2):
+    """29. The CLI: (a) examples/cornell_fog.pbrt through cli.main, its PFM
+    bit for bit phase 20's image; (b) examples/smoke_hetero.pbrt through
+    cli.main, against the same parsed scene on the packed route; (c) the
+    parsed config 2 split at iteration 8 by a checkpoint, the resumed image
+    bit for bit phase 20's; (d) python -m bre_tpu_torch.cli in a child
+    process."""
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    ps2 = PARSER.parse_file(CORNELL_PBRT, device=dev)
+    cfg2 = cli_cfg(ps2)
+    iters = cfg2.iterations
+    # (a) config 2
+    pfm = os.path.join(out_dir, "cornell_fog.pfm")
+    wall, counts, routes = cli_run([CORNELL_PBRT, "-o", pfm, "--quiet"],
+                                   FWD_KERNELS, "CLI config 2")
+    img = torch.from_numpy(IMG.read_pfm(pfm))
+    n_diff = int((img != img_cli2).any(-1).sum())
+    log(f"[cli] (a) python -m bre_tpu_torch.cli examples/cornell_fog.pbrt "
+        f"(in process): wall {wall:.3f} s for {iters} iterations "
+        f"({wall / iters:.4f} s/iter, parse, build and PFM write included); "
+        f"launches {counts}; route calls {routes}; pixels differing from "
+        f"phase 20's image: {n_diff}")
+    if (counts["gather_forward"] <= 0 or routes["gather_beams_packed"]
+            or n_diff):
+        raise AssertionError(f"the CLI's config 2 must launch the forward "
+                             f"kernel, never the packed route, and equal "
+                             f"phase 20's image: {counts}, {routes}, {n_diff} "
+                             f"pixels differ")
+    out["config2"] = dict(wall_s=wall, s_per_iter=wall / iters,
+                          launches=counts, route_calls=routes,
+                          pixels_differing=n_diff)
+    # (b) config 3
+    t0 = time.perf_counter()
+    ps = PARSER.parse_file(SMOKE_PBRT, device=dev)
+    parse_s = time.perf_counter() - t0
+    pfm = os.path.join(out_dir, "smoke_hetero.pfm")
+    wall3, counts3, routes3 = cli_run([SMOKE_PBRT, "-o", pfm, "--quiet"],
+                                      FWD_KERNELS + HET_FWD_KERNELS,
+                                      "CLI config 3")
+    cfg3 = CLI.photonbeam_config(ps)
+    img3 = torch.from_numpy(IMG.read_pfm(pfm))
+    check_image(img3, ps.width, "CLI config-3 render")
+    log(f"[cli] (b) examples/smoke_hetero.pbrt ({os.path.getsize(SMOKE_PBRT)} "
+        f"bytes): parse_file {parse_s:.4f} s on the host; the CLI (in "
+        f"process) wall {wall3:.3f} s for {cfg3.iterations} iterations "
+        f"({wall3 / cfg3.iterations:.4f} s/iter); launches {counts3}; route "
+        f"calls {routes3}")
+    if counts3["gather_forward_het"] <= 0 or routes3["gather_beams_packed"]:
+        raise AssertionError(f"the CLI's config 3 must launch the hetero "
+                             f"forward kernel and never the packed route: "
+                             f"{counts3}, {routes3}")
+    img_packed, _, per_packed = timed_render(
+        ps.build(device=dev), ps.camera, ps.width, dataclasses.replace(
+            cfg3, gather="pallas", grad_geometry=False, imagewritefrequency=1))
+    agree = routes_agree(img3, img_packed, "CLI config 3 vs the same parsed "
+                         "scene on the packed route")
+    out["config3"] = dict(parse_file_s=parse_s, wall_s=wall3,
+                          s_per_iter=wall3 / cfg3.iterations,
+                          launches=counts3, route_calls=routes3,
+                          packed_per_iter_s=per_packed, routes=agree)
+    # (c) checkpoint and resume
+    scene = ps2.build(device=dev)
+    ck = os.path.join(out_dir, "cornell_fog_checkpoint.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    half = iters // 2
+    _, _, first = timed_render(scene, ps2.camera, ps2.width,
+                               dataclasses.replace(cfg2, enditeration=half,
+                                                   imagewritefrequency=half),
+                               checkpoint_path=ck)
+    resumed, _, rest = timed_render(scene, ps2.camera, ps2.width,
+                                    dataclasses.replace(cfg2,
+                                                        imagewritefrequency=1),
+                                    checkpoint_path=ck)
+    n_diff = int((resumed != img_cli2).any(-1).sum())
+    log(f"[cli] (c) checkpoint at iteration {half}: first run "
+        f"{sum(first):.3f} s, resumed run {len(rest)} iterations "
+        f"{sum(rest):.3f} s; pixels differing from phase 20's image: "
+        f"{n_diff}")
+    if len(rest) != iters - half or n_diff:
+        raise AssertionError(f"the resumed render ran {len(rest)} iterations "
+                             f"and differs from phase 20's at {n_diff} pixels")
+    out["resume"] = dict(first_s=sum(first), resumed_iterations=len(rest),
+                         resumed_s=sum(rest), pixels_differing=n_diff)
+    # (d) the module entry point, in a child process
+    png = os.path.join(out_dir, "fog_cube.png")
+    if os.path.exists(png):
+        os.remove(png)
+    cmd = [sys.executable, "-m", "bre_tpu_torch.cli",
+           os.path.join(ROOT, "examples", "fog_cube.pbrt"), "--quick", "-o",
+           png]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall_d = time.perf_counter() - t0
+    log(f"[cli] (d) {' '.join(cmd[1:])}: rc {proc.returncode}, "
+        f"{wall_d:.2f} s; stdout: {proc.stdout.strip()!r}")
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m bre_tpu_torch.cli failed:\n"
+                             f"{proc.stderr}")
+    png_img = IMG.read_png(png)
+    if png_img.shape != (64, 64, 3) or not np.isfinite(png_img).all():
+        raise AssertionError(f"fog_cube.png: shape {png_img.shape}, finite "
+                             f"{bool(np.isfinite(png_img).all())}")
+    out["module"] = dict(returncode=proc.returncode, wall_s=wall_d,
+                         png_mean=float(png_img.mean()))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cli] phase 29 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2287,7 +2413,7 @@ def main():
     del smoke_sweeps
     report["smoke_trainer"] = phase_smoke_trainer(dev)
     report["smoke_consistency"] = phase_smoke_consistency(dev)
-    report["cli_config2"], route_sweep = phase_cli_config2(dev)
+    report["cli_config2"], route_sweep, img_cli2 = phase_cli_config2(dev)
     report["cli_config3"] = phase_cli_config3(dev, img_smoke)
     del img_smoke
     report["attached_step"], captured = phase_attached_step(dev)
@@ -2300,6 +2426,7 @@ def main():
     torch.cuda.empty_cache()  # the ranks of phase 27 share the card
     report["ranks"] = phase_ranks(report["card"])
     report["dot_order"] = phase_dot_order(dev)
+    report["cli"] = phase_cli(dev, img_cli2)
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -2325,6 +2452,14 @@ def main():
             k["launches_non_packed"] = by_route[k["name"]]
         if k["name"] == "gather_forward":
             k["sweeps"]["CLI config-2 largest sweep (non-packed)"] = route_sweep
+        # rows 1 and 5 launched by cli.main: row 1 on config 2 (phase 29
+        # (a)), row 5's dense forward on config 3 (phase 29 (b))
+        if k["name"] == "gather_forward":
+            k["launches_cli"] = report["cli"]["config2"]["launches"][
+                "gather_forward"]
+        if k["name"] == "gather_forward_het":
+            k["launches_cli"] = report["cli"]["config3"]["launches"][
+                "gather_forward_het"]
     report["kernels"] = kernels
     report["command_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2335,7 +2470,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "sweep")
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
-        for key in ("err_over_max_ref", "launches_non_packed", "n_splits",
+        for key in ("err_over_max_ref", "launches_non_packed", "launches_cli",
+                    "n_splits",
                     "blocks", "beam_blocks"):
             if key in kk:
                 row[key] = kk[key]

@@ -1,8 +1,9 @@
 """bre_tpu_torch's default route vs bre_tpu: every reference
 PhotonBeamConfig in the repo constructs in the port field for field;
-chip_smoke.py's hand-built examples/cornell_fog.pbrt scene equals what
-bre_tpu's parser builds from the file; ``render_photonbeam`` at the
-default config (gather="auto", grad_geometry=True).  The other options of
+the port's parser builds the scene and camera of examples/cornell_fog.pbrt
+(which chip_smoke.py renders as the CLI's config 2) that bre_tpu's parser
+builds, and ``cli.photonbeam_config`` takes its settings from the file;
+``render_photonbeam`` at the default config (gather="auto", grad_geometry=True).  The other options of
 the route: tests/test_torch_default_route_breadth.py; the graft entry
 point, the finite-difference gate and the train step:
 tests/test_torch_graft_entry.py, test_torch_fd_gate.py and
@@ -27,16 +28,17 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from bre_tpu.core import transform as jtfm
 from bre_tpu.integrators import photonbeam as jpb
 from bre_tpu.scene.builder import SceneBuilder as JBuilder
 from bre_tpu.scene.camera import make_perspective_camera as jcam
 from bre_tpu.scene.parser import parse_file
+from bre_tpu_torch import cli as tcli
 from bre_tpu_torch.core import transform as ttfm
 from bre_tpu_torch.integrators import photonbeam as tpb
 from bre_tpu_torch.scene.builder import SceneBuilder as TBuilder
 from bre_tpu_torch.scene.camera import make_perspective_camera as tcam
+from bre_tpu_torch.scene.parser import parse_file as tparse_file
 from bre_tpu_torch.scene.scene import scene_from_jax
 from torch_parity import cornell_fog, to_np
 
@@ -86,10 +88,12 @@ def test_reference_configs_construct(path):
 
 
 def test_cornell_fog_pbrt_scene_matches_parser():
-    ps = parse_file(os.path.join(ROOT, "examples", "cornell_fog.pbrt"))
+    path = os.path.join(ROOT, "examples", "cornell_fog.pbrt")
+    ps = parse_file(path)
     ref = scene_from_jax(ps.build(), device="cpu")
-    mine = chip_smoke.cornell_fog_pbrt(CPU)
-    for part in ("triangles", "materials", "media", "lights"):
+    mine_ps = tparse_file(path, device="cpu")
+    mine = mine_ps.build(device="cpu")
+    for part in ("spheres", "triangles", "materials", "media", "lights"):
         a, b = getattr(mine, part), getattr(ref, part)
         for name in a._fields:
             x, y = getattr(a, name), getattr(b, name)
@@ -97,18 +101,19 @@ def test_cornell_fog_pbrt_scene_matches_parser():
             assert torch.equal(x, y), (part, name)
     for name in ("camera_medium", "world_min", "world_max"):
         assert torch.equal(getattr(mine, name), getattr(ref, name)), name
-    cam = chip_smoke.pbrt_camera(CPU, ps.width)
+    cam = mine_ps.camera
     for name in ("camera_to_world", "raster_to_camera"):
         np.testing.assert_allclose(to_np(getattr(cam, name)),
                                    to_np(getattr(ps.camera, name)), atol=1e-6)
     p = {k: (v[0] if isinstance(v, list) else v)
          for k, v in ps.integrator_params.items()}
-    assert (ps.width, ps.height) == (chip_smoke.PBRT_SIZE,) * 2
-    assert (p["iterations"], p["photonsperiteration"], p["maxdepth"]) == (
-        chip_smoke.PBRT_ITERS, chip_smoke.PBRT_PHOTONS, chip_smoke.MAXDEPTH)
-    assert np.float32(p["initialbeamradius"]) == np.float32(
-        chip_smoke.PBRT_RADIUS)
-
+    assert mine_ps.integrator_params == ps.integrator_params
+    assert (mine_ps.width, mine_ps.height) == (ps.width, ps.height) == (256,) * 2
+    cfg = tcli.photonbeam_config(mine_ps)
+    assert (cfg.iterations, cfg.photonsperiteration, cfg.maxdepth) == (
+        p["iterations"], p["photonsperiteration"], p["maxdepth"])
+    assert np.float32(cfg.initialbeamradius) == np.float32(
+        p["initialbeamradius"])
 
 W = 16
 LOOK = ((0, 0, -2.2), (0, 0, 1), (0, 1, 0))
