@@ -9,7 +9,12 @@ sorted by ``compact_beams``), padded to ``gather_chunk`` and gathered by
 ``_GatherCore``.  ``backend="xla"`` (``gather="brute"``) runs the
 reference's XLA chunk scan as plain torch, forward and backward;
 ``backend="pallas"`` launches the forward kernel of ``ops/gather.py`` on
-the non-packed layout with no block mask.  The backward recomputes each
+the non-packed layout with no block mask.  ``kernel=KERNEL_COMPAT``, the
+reference renderer's own unnormalized conical kernel, always takes the
+chunk scan, on the card too: the reference keeps it dense XLA
+(photonbeam.py:181-182), and the forward kernel computes the normalized
+estimate only (``_pallas_forward`` refuses any other kernel id).  The
+backward recomputes each
 chunk's ``_chunk_contrib`` under autograd (the reference's O(rays x chunk)
 custom VJP), split into pieces of at most ``_REF_BATCH_PAIRS_*`` pairs; with
 the geometry detached (``grad_geometry=False``) and ``PALLAS_BWD_ENABLED``,
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core import transform as tfm
-from ..core.math import dot, length
+from ..core.math import cross, dot, length
 from ..media import gather_medium, grid_density, phase_hg
 from ..ops.gather import (_REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU, BF_B0,
                           BF_B1, BF_PE, BF_PS, BF_RAD, BF_VALID, NB,
@@ -73,7 +78,7 @@ TILE = 256  # camera segments per ray tile
 CHUNK = 256  # beams per packed chunk
 
 KERNEL_BRE = 0  # the normalized 1D-1D beam radiance estimate
-KERNEL_COMPAT = 1  # the reference renderer's conical kernel (not ported)
+KERNEL_COMPAT = 1  # the reference renderer's unnormalized conical kernel
 
 HETERO_NODES = 8  # quadrature nodes per segment in grid media
 POLY_D_DEG = 5  # D(f) = c1 f + ... + c5 f^5
@@ -174,6 +179,105 @@ def _safe_div(cond, num, den):
                        _const(num, 0.0))
 
 
+def closest_points_segments(a0, a1, b0, b1):
+    """The reference renderer's ComputeClosestPoints (photonbeam.cpp:87-186;
+    beam_gather.py:92-149), branchless: closest points of the infinite
+    lines, the camera side clamped to its segment and the beam side
+    reprojected, but the beam-side point itself never clamped (beams
+    contribute from their backward extensions), as the reference does.
+    Returns (pa, pb, valid), valid False for parallel lines unless a
+    segment is a point."""
+    A = a1 - a0
+    B = b1 - b0
+    mag_a = length(A)
+    mag_b = length(B)
+    An = A / torch.clamp_min(mag_a, 1e-30)[..., None]
+    Bn = B / torch.clamp_min(mag_b, 1e-30)[..., None]
+    cr = cross(An, Bn)
+    denom = dot(cr, cr)
+    parallel = denom < 1e-12
+    t = b0 - a0
+    # Determinant(t, Bn, cr) / Determinant(t, An, cr) (photonbeam.cpp:79-85)
+    det_a = dot(t, cross(Bn, cr))
+    det_b = dot(t, cross(An, cr))
+    denom_safe = torch.where(parallel, _const(denom, 1.0), denom)
+    t0 = det_a / denom_safe
+    t1 = det_b / denom_safe
+    pa = a0 + An * t0[..., None]
+    pb = b0 + Bn * t1[..., None]
+    # clamp a to its segment (photonbeam.cpp:169-172)
+    pa = torch.where((t0 < 0.0)[..., None], a0, pa)
+    pa = torch.where((t0 > mag_a)[..., None], a1, pa)
+    # reproject b when a was clamped (:173-177)
+    a_clamped = (t0 < 0.0) | (t0 > mag_a)
+    dot_b = _clip_t(dot(Bn, pa - b0), mag_b)
+    pb = torch.where(a_clamped[..., None], b0 + Bn * dot_b[..., None], pb)
+    # reproject a when b's original t1 is out of range (:178-181), from the
+    # possibly reprojected pb; pb itself stays unclamped
+    b_out = (t1 < 0.0) | (t1 > mag_b)
+    dot_a = _clip_t(dot(An, pb - a0), mag_a)
+    pa = torch.where(b_out[..., None], a0 + An * dot_a[..., None], pa)
+    # degenerate segments (:95-119): point-segment projections
+    a_pt = mag_a < 1e-12
+    b_pt = mag_b < 1e-12
+    d_on_b = _clip_t(dot(Bn, a0 - b0), mag_b)
+    pa = torch.where(a_pt[..., None], a0, pa)
+    pb = torch.where(a_pt[..., None], b0 + Bn * d_on_b[..., None], pb)
+    d_on_a = _clip_t(dot(An, b0 - a0), mag_a)
+    b_only = (b_pt & ~a_pt)[..., None]
+    pb = torch.where(b_only, b0, pb)
+    pa = torch.where(b_only, a0 + An * d_on_a[..., None], pa)
+    valid = ~parallel | a_pt | b_pt
+    return pa, pb, valid
+
+
+def _clip_t(x, hi):
+    """``jnp.clip(x, 0, hi)`` for a tensor ``hi``."""
+    return torch.minimum(torch.maximum(x, _const(x, 0.0)), hi)
+
+
+def _compat_contrib(cb: dict, seg: dict, c_start, c_end, c_rad, c_valid):
+    """The KERNEL_COMPAT pair math (photonbeam.cpp:494-508;
+    beam_gather.py:365-420): ``1e-5 * sqrt(1 - r^2) * power_end`` for pairs
+    within the summed radii, counted only where the camera ray hits the
+    beam's WorldBound box (PhotonBeamBVH::Intersect, photonbeambvh.cpp:
+    685-723).  That box is the reference's: inflated by the beam radius
+    alone, sized from the SIGNED direction (so it collapses on the axes a
+    beam runs down), and hit by pbrt's slab test with the tFar fudge
+    1 + 2 gamma(3).  No power_scale and no camera throughput."""
+    a0 = seg["a0"][:, None]  # (R, 1, 3)
+    a1 = seg["a1"][:, None]
+    pa, pb, cp_valid = closest_points_segments(a0, a1, c_start, c_end)
+    dist = length(pa - pb)  # (R, C)
+    r = dist / _max(seg["cam_radius"] + c_rad, 1e-30)
+    in_range = ((r < 1.0) & cp_valid).to(torch.float32) * c_valid
+    blen = length(c_end - c_start)  # (1, C)
+    bdirn = (c_end - c_start) / _max(blen, 1e-30)[..., None]
+    half = 0.5 * torch.abs(
+        bdirn * blen[..., None]
+        + 2.0 * c_rad[..., None] * torch.sqrt(_max(1.0 - bdirn * bdirn, 0.0)))
+    center = 0.5 * (c_start + c_end)
+    bmin = center - half
+    bmax = center + half
+    d_r = seg["dir"][:, None]
+    axis_ok = d_r.abs() > 1e-12
+    inv = 1.0 / torch.where(axis_ok, d_r, _const(d_r, 1.0))
+    tA = (bmin - a0) * inv
+    tB = (bmax - a0) * inv
+    t_lo = torch.where(axis_ok, torch.minimum(tA, tB), _const(tA, -1e30))
+    t_hi = torch.where(axis_ok,
+                       torch.maximum(tA, tB) * (1.0 + 2.0 * 1.7881393e-7),
+                       _const(tA, 1e30))
+    inside = (a0 >= bmin) & (a0 <= bmax)
+    t0 = t_lo.amax(-1)
+    t1 = t_hi.amin(-1)
+    aabb_hit = ((t0 <= t1) & (t0 < seg["len"][:, None]) & (t1 > 0.0)
+                & (axis_ok | inside).all(-1))
+    in_range = in_range * aabb_hit.to(torch.float32)
+    w = 1e-5 * torch.sqrt(_max(1.0 - r * r, 0.0))
+    return ((w[..., None] * cb["power_end"][None]) * in_range[..., None]).sum(1)
+
+
 def closest_points_segments_exact(a0, a1, b0, b1):
     """True segment-segment closest points (Ericson, RTCD 5.1.9),
     branchless and differentiable (beam_gather.py:150-174).  Returns (pa,
@@ -235,13 +339,11 @@ def _chunk_contrib(cb: dict, seg: dict, kernel: int, power_scale: float,
                    grad_extras: bool = True) -> torch.Tensor:
     """(R, 3) contribution of one beam chunk ``cb`` (C-sized tensors and the
     float validity) to the R camera segments of ``seg``
-    (beam_gather.py:340-467, the KERNEL_BRE branch).  ``grad_geometry``
-    False detaches the closest-point geometry, ``grad_extras`` False the
-    blur radii and the HG g, where the reference stop-gradients them."""
-    if kernel != KERNEL_BRE:
-        raise NotImplementedError(
-            'kernel="compat" is not ported (ROADMAP Queue 1 item 6: compat '
-            "path and golden gates)")
+    (beam_gather.py:340-467): the normalized estimate, or with
+    ``KERNEL_COMPAT`` the reference renderer's conical kernel
+    (``_compat_contrib``).  ``grad_geometry`` False detaches the
+    closest-point geometry, ``grad_extras`` False the blur radii and the
+    HG g, where the reference stop-gradients them."""
     keep = lambda x: x  # noqa: E731
     sg = keep if grad_geometry else torch.Tensor.detach
     sx = keep if grad_extras else torch.Tensor.detach
@@ -251,6 +353,8 @@ def _chunk_contrib(cb: dict, seg: dict, kernel: int, power_scale: float,
     c_pe = cb["power_end"][None]
     c_rad = sx(cb["radius"])[None]  # (1, C)
     c_valid = cb["valid_f"][None]
+    if kernel == KERNEL_COMPAT:
+        return _compat_contrib(cb, seg, c_start, c_end, c_rad, c_valid)
     a0 = sg(seg["a0"])[:, None]  # (R, 1, 3)
     a1 = sg(seg["a1"])[:, None]
     pa, pb, cp_valid = closest_points_segments_exact(a0, a1, c_start, c_end)
@@ -425,7 +529,14 @@ def _pack_kernel_inputs(cfg: _Cfg, pb: dict, seg: dict):
 def _pallas_forward(cfg: _Cfg, pb: dict, seg: dict):
     """The forward kernel (row 1 of Queue 2) on the non-packed layout with
     no block mask: every block before ``n_valid`` is swept, as the
-    reference's ``_pallas_forward`` (beam_gather.py:573-600).  (R, 3)."""
+    reference's ``_pallas_forward`` (beam_gather.py:573-600).  (R, 3).
+    The kernel computes the normalized estimate only: any other kernel id
+    raises, so the compat kernel can never reach it."""
+    if cfg.kernel != KERNEL_BRE:
+        raise ValueError(
+            f"the forward kernel computes the normalized estimate "
+            f"(KERNEL_BRE) only, not kernel id {cfg.kernel}; KERNEL_COMPAT "
+            "takes the chunk scan")
     rays_packed, beams_packed, scalars = _pack_kernel_inputs(cfg, pb, seg)
     out = gather_forward(rays_packed, beams_packed, scalars)
     R = seg["a0"].shape[0]

@@ -4,11 +4,12 @@
 pbrt's src/main/pbrt.cpp:74-162: flags --outfile, --quick, --quiet,
 --nthreads (accepted for compatibility), --cat (the reformatted scene on
 stdout) and --toply (the same, with large triangle meshes written to .ply
-files; scene/cat.py), and --device (where the render runs: "cuda" unless
-the caller asks for the CPU).  The flow is pbrtInit -> ParseFile -> render
--> write (api.cpp:1361-1417).  The photon-beam integrator is the one the
-port renders; the reference's other integrators print that they are not
-ported and return 1.
+files; scene/cat.py), --device (where the render runs: "cuda" unless the
+caller asks for the CPU) and --kernel (the photon-beam estimator: "bre",
+or "compat" for the reference renderer's own).  The flow is pbrtInit ->
+ParseFile -> render -> write (api.cpp:1361-1417).  The photon-beam
+integrator is the one the port renders; the reference's other integrators
+print that they are not ported and return 1.
 """
 
 from __future__ import annotations
@@ -94,8 +95,9 @@ def main(argv=None) -> int:
                     help="accepted for pbrt compatibility (no effect)")
     ap.add_argument("--kernel", default=None, choices=["bre", "compat"],
                     help="photonbeam estimator kernel: 'bre' (physically "
-                         "normalized, default) or 'compat' (the reference's "
-                         "unnormalized 1e-5 kernel; not ported)")
+                         "normalized, default) or 'compat' (the reference "
+                         "renderer's unnormalized 1e-5 kernel and splitting "
+                         "photon walk, for image matching)")
     ap.add_argument("--cat", action="store_true",
                     help="print reformatted scene to stdout and exit (pbrt --cat)")
     ap.add_argument("--toply", action="store_true",

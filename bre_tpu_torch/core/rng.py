@@ -19,7 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 __all__ = ["PCG32State", "pcg32_init", "pcg32_next_u32", "pcg32_next_f32",
-           "ONE_MINUS_EPSILON"]
+           "pcg32_advance", "ONE_MINUS_EPSILON"]
 
 
 def _as_i64(v: int) -> int:
@@ -81,3 +81,24 @@ def pcg32_next_f32(s: PCG32State) -> Tuple[PCG32State, torch.Tensor]:
     s, u = _pcg32_step(s)
     f = u.to(torch.float32) * _TWO_M32
     return s, torch.clamp_max(f, ONE_MINUS_EPSILON)
+
+
+def pcg32_advance(s: PCG32State, delta: int) -> PCG32State:
+    """Every stream moved on by ``delta`` draws at once (pbrt rng.h
+    ``Advance``): state' = M^delta state + inc (M^delta - 1)/(M - 1) mod
+    2^64.  The two factors do not depend on the stream, so they are
+    computed once on the host, the second by pbrt's square-and-multiply
+    with a unit increment (the result is linear in inc)."""
+    delta = int(delta)
+    if delta <= 0:
+        return s
+    mult, plus = 1, 0
+    cur_mult, cur_plus = _PCG32_MULT % (1 << 64), 1
+    while delta > 0:
+        if delta & 1:
+            mult = (mult * cur_mult) % (1 << 64)
+            plus = (plus * cur_mult + cur_plus) % (1 << 64)
+        cur_plus = ((cur_mult + 1) * cur_plus) % (1 << 64)
+        cur_mult = (cur_mult * cur_mult) % (1 << 64)
+        delta >>= 1
+    return PCG32State(s.state * _as_i64(mult) + s.inc * _as_i64(plus), s.inc)

@@ -1,6 +1,6 @@
 """Shared integrator pieces: next-event estimation and segment transmittance
-(counterpart of ``bre_tpu/integrators/common.py:30-206``; pbrt
-integrator.cpp:54-160, scene.cpp:63-92)."""
+(counterpart of ``bre_tpu/integrators/common.py``; pbrt
+integrator.cpp:54-215, scene.cpp:63-92)."""
 
 from __future__ import annotations
 
@@ -9,11 +9,11 @@ import torch
 from ..core.math import absdot, dot, offset_ray_origin
 from ..core.rng import PCG32State
 from ..core.samplers import stream_1d
-from ..lights import sample_li
-from ..materials import eval_bsdf
-from ..media import gather_medium, hg_p
+from ..lights import area_light_emitted, light_shape_area, sample_li
+from ..materials import MODE_RADIANCE, eval_bsdf, sample_bsdf
+from ..media import gather_medium, hg_p, hg_sample_p
 from ..scene.intersect import intersect, intersect_p
-from ..scene.scene import Scene
+from ..scene.scene import LIGHT_DIFFUSE_AREA, Scene
 from .photon_trace import _segment_tr
 
 
@@ -66,10 +66,13 @@ def segment_transmittance_walk(scene: Scene, med_idx, o, d, t_end,
 
 
 def sample_one_light(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
-                     med_idx, is_surface, tangent=None, tr_crossings: int = 0):
+                     med_idx, is_surface, tangent=None, tr_crossings: int = 0,
+                     mis: bool = False):
     """UniformSampleOneLight (integrator.cpp:54-83): pick one light
-    uniformly, divide by its pick probability; the light-sampling term of
-    EstimateDirect with media transmittance.  Returns (rng, L (R,3))."""
+    uniformly, divide by its pick probability; EstimateDirect's
+    light-sampling term with media transmittance, and with ``mis`` its
+    scatter-sampled term too (two more draws).  ``rng`` is a bare PCG32
+    state or a sampler stream.  Returns (rng, L (R,3))."""
     R = p.shape[0]
     n_lights = scene.n_lights
     if n_lights == 0:
@@ -79,21 +82,67 @@ def sample_one_light(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
                                 n_lights - 1)
     rng, ua = stream_1d(rng)
     rng, ub = stream_1d(rng)
+    u_scatter = None
+    if mis:
+        rng, sa = stream_1d(rng)
+        rng, sb = stream_1d(rng)
+        u_scatter = torch.stack([sa, sb], -1)
     contrib = _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx,
-                       is_surface, torch.stack([ua, ub], -1),
-                       tr_crossings=tr_crossings)
+                       is_surface, torch.stack([ua, ub], -1), tangent=tangent,
+                       tr_crossings=tr_crossings, mis=mis,
+                       u_scatter=u_scatter)
     return rng, contrib * float(n_lights)
 
 
+def sample_all_lights(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
+                      med_idx, is_surface, tangent=None,
+                      tr_crossings: int = 0, mis: bool = False):
+    """UniformSampleAllLights (integrator.cpp:54-83, strategy "all";
+    common.py:261-294): EstimateDirect against every light, one sample
+    each, summed in light order.  Returns (rng, L (R,3))."""
+    R = p.shape[0]
+    total = torch.zeros((R, 3), dtype=torch.float32, device=p.device)
+    for li in range(scene.n_lights):
+        rng, ua = stream_1d(rng)
+        rng, ub = stream_1d(rng)
+        u_scatter = None
+        if mis:
+            rng, sa = stream_1d(rng)
+            rng, sb = stream_1d(rng)
+            u_scatter = torch.stack([sa, sb], -1)
+        total = total + _nee_one(
+            scene, torch.full((R,), li, dtype=torch.int64, device=p.device),
+            p, n, wo, mat_idx, med_idx, is_surface, torch.stack([ua, ub], -1),
+            tangent=tangent, tr_crossings=tr_crossings, mis=mis,
+            u_scatter=u_scatter)
+    return rng, total
+
+
+def _power_heuristic(fp, gp):
+    """PowerHeuristic(1, fp, 1, gp) (sampling.cpp:66-70, beta = 2)."""
+    f2 = fp * fp
+    return torch.where(fp > 0, f2 / torch.clamp_min(f2 + gp * gp, 1e-30),
+                       torch.zeros_like(fp))
+
+
 def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
-             tr_crossings: int = 0):
-    """EstimateDirect's light-sampling term for one light per lane
-    (integrator.cpp:85-160, without the pick-probability factor)."""
+             tangent=None, tr_crossings: int = 0, mis: bool = False,
+             u_scatter=None):
+    """EstimateDirect for one light per lane (integrator.cpp:85-215,
+    without the pick-probability factor; common.py:154-258).  The
+    light-sampling term; with ``mis`` it is weighted by the power heuristic
+    against the BSDF or phase pdf for area lights, and the scatter-sampled
+    term is added: a direction from the BSDF (non-specular) or the phase
+    function, traced to the light's shape.  The port's lights are point and
+    triangle-area lights (``check_slice``), so the reference's escaped-ray
+    term for infinite lights is absent.  ``u_scatter`` (R,2): the
+    scatter-direction sample, needed with ``mis``."""
     ls = sample_li(scene, light_idx, p, u2)
-    f_surf, _ = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi)
+    f_surf, pdf_surf = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi)
     f_surf = f_surf * absdot(ls.wi, n)[:, None]
     _, _, g_here, _, _ = gather_medium(scene.media, med_idx)
-    f_med = hg_p(wo, ls.wi, g_here)[:, None].expand(-1, 3)
+    phase_l = hg_p(wo, ls.wi, g_here)
+    f_med = phase_l[:, None].expand(-1, 3)
     f = torch.where(is_surface[:, None], f_surf, f_med)
 
     o_shadow = torch.where(is_surface[:, None],
@@ -105,4 +154,42 @@ def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
     ok = ~occluded & (ls.pdf > 1e-12)
     contrib = f * ls.Li * tr / torch.where(ok, ls.pdf,
                                            torch.ones_like(ls.pdf))[:, None]
-    return torch.where(ok[:, None], contrib, torch.zeros_like(contrib))
+    contrib = torch.where(ok[:, None], contrib, torch.zeros_like(contrib))
+    if not mis:
+        return contrib
+
+    one = torch.ones_like(ls.pdf)
+    li = torch.clamp(light_idx, 0, max(scene.n_lights - 1, 0))
+    area_l = scene.lights.ltype[li] == LIGHT_DIFFUSE_AREA  # the non-delta
+    # light half: weight 1 for delta lights (integrator.cpp:100)
+    pdf_scatter_at_wl = torch.where(is_surface, pdf_surf, phase_l)
+    w_l = torch.where(area_l, _power_heuristic(ls.pdf, pdf_scatter_at_wl), one)
+    contrib = contrib * w_l[:, None]
+
+    # scatter-sampled half: the BSDF on surfaces, the phase function in media
+    bs = sample_bsdf(scene.materials, mat_idx, n, wo, u_scatter,
+                     mode=MODE_RADIANCE, tangent=tangent)
+    wi_ph, pdf_ph = hg_sample_p(wo, g_here, u_scatter)
+    surf3 = is_surface[:, None]
+    ws = torch.where(surf3, bs.wi, wi_ph)
+    f_ws = torch.where(surf3, bs.f * absdot(bs.wi, n)[:, None],
+                       hg_p(wo, wi_ph, g_here)[:, None].expand(-1, 3))
+    pdf_ws = torch.where(is_surface, bs.pdf, pdf_ph)
+    live = area_l & (pdf_ws > 1e-12) & torch.where(
+        is_surface, bs.valid & ~bs.specular, torch.ones_like(is_surface))
+    o2 = torch.where(surf3, offset_ray_origin(p, n, ws), p)
+    h2 = intersect(scene, o2, ws)
+    # the ray must hit this light's shape (Shape::Pdf(ref, wi),
+    # shape.cpp:66-87: pdf_sa = dist^2 / (|cos| area))
+    hit_light = h2.valid & (h2.area_light == li) & area_l
+    Le2 = area_light_emitted(scene, h2.area_light, h2.n, -ws)
+    cos2 = dot(h2.n, ws).abs()
+    area = light_shape_area(scene, li)
+    pdf_l2 = torch.where(hit_light, (h2.t * h2.t) / torch.clamp_min(
+        cos2 * area, 1e-12), torch.zeros_like(one))
+    t2 = torch.where(h2.valid, h2.t, torch.full_like(h2.t, 1e6)) * (1.0 - 1e-3)
+    tr2 = segment_transmittance_walk(scene, med_idx, o2, ws, t2, tr_crossings)
+    w_s = _power_heuristic(pdf_ws, pdf_l2)
+    contrib2 = f_ws * Le2 * tr2 * (w_s / torch.clamp_min(pdf_ws, 1e-12))[:, None]
+    add = (hit_light & live)[:, None]
+    return contrib + torch.where(add, contrib2, torch.zeros_like(contrib2))

@@ -17,8 +17,16 @@ depth step through ``gather_beams_bruteforce``, with the forward kernel
 The reference's ``lax.scan`` over iterations and over camera depth steps are
 Python loops here, and its ``lax.cond`` ray-budget tiers are Python branches
 on a count read from the device (one host sync per depth step).
-``kernel="compat"`` and ``gather="lbvh"`` raise NotImplementedError naming
-their ROADMAP item.
+
+``kernel="compat"`` is the reference renderer's own estimator, for image
+matching against it: the splitting photon walk
+(``trace_photon_beams_compat``), the unnormalized conical kernel through the
+plain chunk scan of ``gather_beams_bruteforce`` on every device (the
+reference keeps it dense XLA, photonbeam.py:181-182), a gather on every
+intersected segment, in a medium or not, the raw kernel sum added without
+the camera throughput, Russian roulette after boundary hops too, and
+``3 * maxdepth + 2`` camera steps.  ``gather="lbvh"`` raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,10 +37,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..accel.beam_gather import (CHUNK, KERNEL_BRE, TILE, compact_beams,
-                                 gather_beams_bruteforce, gather_beams_packed,
-                                 medium_interval_poly, pack_beams_compact,
-                                 permute_rows, validity_order)
+from ..accel.beam_gather import (CHUNK, KERNEL_BRE, KERNEL_COMPAT, TILE,
+                                 compact_beams, gather_beams_bruteforce,
+                                 gather_beams_packed, medium_interval_poly,
+                                 pack_beams_compact, permute_rows,
+                                 validity_order)
 from ..checkpoint import load_checkpoint, save_checkpoint
 from ..core.math import absdot, dot, offset_ray_origin
 from ..core.rng import pcg32_init, pcg32_next_f32
@@ -43,7 +52,7 @@ from ..scene.camera import Camera, generate_rays, pixel_centers
 from ..scene.intersect import intersect
 from ..scene.scene import Scene, check_slice, world_span
 from .common import default_tr_crossings, sample_one_light, segment_transmittance_det
-from .photon_trace import trace_photon_beams
+from .photon_trace import trace_photon_beams, trace_photon_beams_compat
 
 _U32 = 0xFFFFFFFF
 
@@ -63,13 +72,14 @@ class PhotonBeamConfig:
     alpha: float = 0.5
     rendersurfaces: bool = True
     rendermedia: bool = True
-    kernel: str = "bre"
+    kernel: str = "bre"  # "bre" | "compat"
     # beams per chunk of the non-packed route's chunk loop (its recompute
     # backward holds rays x gather_chunk pairs); the kernels take 256-beam
     # chunks of the same buffer
     gather_chunk: int = 2048
-    # "auto" = "pallas": the kernels (packed with grad_geometry=False);
-    # "brute": the plain chunk scan; "lbvh": not ported
+    # "auto" = "pallas": the kernels (packed with grad_geometry=False), or
+    # for kernel="compat" "brute"; "brute": the plain chunk scan; "lbvh":
+    # not ported
     gather: str = "auto"
     tile: int = 128  # gather="lbvh" only
     max_candidates: int = 4096  # gather="lbvh" only
@@ -87,10 +97,8 @@ class PhotonBeamConfig:
 
 
 def _check_config(cfg: PhotonBeamConfig) -> None:
-    if cfg.kernel != "bre":
-        raise NotImplementedError(
-            'kernel="compat" is not ported (ROADMAP Queue 1: compat path and '
-            "golden gates)")
+    if cfg.kernel not in ("bre", "compat"):
+        raise ValueError(f"unknown kernel {cfg.kernel!r}")
     if cfg.gather == "lbvh":
         raise NotImplementedError(
             'gather="lbvh" is not ported (ROADMAP Queue 1: breadth, '
@@ -125,11 +133,18 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
     # None means 0 here, as in the reference; render_photonbeam resolves it
     # from the scene before the first pass
     tr_crossings = cfg.tr_crossings or 0
-    hetero = scene.media.density.numel() > 1
-    gather = "pallas" if cfg.gather == "auto" else cfg.gather
+    compat = cfg.kernel == "compat"
+    kern = KERNEL_COMPAT if compat else KERNEL_BRE
+    # grid media: the normalized estimate's tables; compat never takes them
+    hetero = scene.media.density.numel() > 1 and not compat
+    if cfg.gather == "auto":
+        gather = "brute" if compat else "pallas"
+    else:
+        gather = cfg.gather
     # the packed route serves the kernels with the geometry detached
     # (photonbeam.py:189-190); everything else takes gather_beams_bruteforce
-    use_packed = gather == "pallas" and not cfg.grad_geometry and cfg.rendermedia
+    use_packed = (gather == "pallas" and not cfg.grad_geometry and not compat
+                  and cfg.rendermedia)
     if use_packed:
         # grid media: the beams' polynomial tables, once per pass, packed
         # beside them (photonbeam.py:196-202)
@@ -161,7 +176,7 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
                 grad_extras=cfg.grad_extras, sparse_cap=cap)
         return gather_beams_bruteforce(
             beams, scene.media, o_, e_, d_, med_, tr_, beam_radius,
-            kernel=KERNEL_BRE, chunk=cfg.gather_chunk,
+            kernel=kern, chunk=cfg.gather_chunk,
             power_scale=power_scale, backend=gather,
             grad_geometry=cfg.grad_geometry, grad_extras=cfg.grad_extras,
             assume_compacted=True, hetero=hetero)
@@ -181,7 +196,11 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
     span = world_span(scene)
     zero3 = torch.zeros((), dtype=torch.float32, device=dev)
 
-    for _depth in range(cfg.maxdepth + 2):
+    # null-boundary hops use no depth (photonbeam.cpp:515-517): compat
+    # budgets two hops per real bounce, since its raw kernel sum does not
+    # decay with the camera throughput (photonbeam.py:479-492)
+    n_cam_steps = 3 * cfg.maxdepth + 2 if compat else cfg.maxdepth + 2
+    for _depth in range(n_cam_steps):
         h = intersect(scene, o, d)
         miss = alive & ~h.valid
         Ld = Ld + torch.where(miss[:, None], beta * escaped_radiance(scene, d),
@@ -191,10 +210,13 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
         p_seg_end = o + t_seg[:, None] * d
         tr_seg = segment_transmittance_det(scene, medium, o, d, t_seg)
 
-        # gather on in-medium segments (photonbeam.cpp:494); rendermedia
-        # False gathers nothing (photonbeam.py:247)
+        # gather on in-medium segments; compat gathers on every
+        # intersected segment, as the reference does (photonbeam.cpp:494);
+        # rendermedia False gathers nothing (photonbeam.py:247)
         if cfg.rendermedia:
-            seg_valid = alive & h.valid & (medium >= 0)
+            seg_valid = alive & h.valid
+            if not compat:
+                seg_valid = seg_valid & (medium >= 0)
             n_valid = int(seg_valid.sum())
             gathered = torch.zeros((R, 3), dtype=torch.float32, device=dev)
             if n_valid > 0:
@@ -215,7 +237,9 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
                     g = gather_rays(lead(o), lead(p_seg_end), lead(d),
                                     medium[take], lead(tr_seg))
                     gathered.index_copy_(0, take, g)
-            Ld = Ld + torch.where(seg_valid[:, None], beta * gathered, zero3)
+            # compat adds the raw kernel sum (photonbeam.cpp:504)
+            add = gathered if compat else beta * gathered
+            Ld = Ld + torch.where(seg_valid[:, None], add, zero3)
 
         beta = beta * tr_seg  # photonbeam.cpp:510
         surf = alive & h.valid
@@ -267,7 +291,10 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
         # Russian roulette (photonbeam.cpp:549-554)
         rng, u_rr = pcg32_next_f32(rng)
         y = luminance(new_beta)
-        do_rr = new_alive & (y < 0.25) & ~is_boundary
+        do_rr = new_alive & (y < 0.25)
+        if not compat:
+            # compat rolls after boundary hops too (photonbeam.cpp:549)
+            do_rr = do_rr & ~is_boundary
         cont_prob = torch.clamp_max(y, 1.0)
         killed = do_rr & (u_rr > cont_prob)
         keep = do_rr & ~killed & (cont_prob > 1e-6)
@@ -326,9 +353,15 @@ def render_photonbeam(scene: Scene, camera: Camera, width: int, height: int,
         # radius is rounded to float32 where it enters the device, as in
         # the reference's f32 schedule array
         rad32 = float(torch.tensor(radius, dtype=torch.float32))
-        beams, tstats = trace_photon_beams(
-            scene, light_distr, it, photons, cfg.maxdepth, rad32,
-            detach_sampling=not cfg.grad_geometry, long_beams=True)
+        if cfg.kernel == "compat":
+            idx = torch.arange(photons, dtype=torch.int64, device=scene.device)
+            beams, tstats = trace_photon_beams_compat(
+                scene, light_distr, (it * photons + idx) & _U32,
+                cfg.maxdepth, rad32)
+        else:
+            beams, tstats = trace_photon_beams(
+                scene, light_distr, it, photons, cfg.maxdepth, rad32,
+                detach_sampling=not cfg.grad_geometry, long_beams=True)
         Ld, cstats = camera_pass(scene, camera, width, height, beams, rad32,
                                  it, cfg, photons_per_iter=photons)
         Ld_total = Ld_total + Ld

@@ -178,6 +178,22 @@ def sample_li(scene: Scene, light_idx, p_ref, u) -> LiSample:
     )
 
 
+def light_shape_area(scene: Scene, light_idx) -> torch.Tensor:
+    """Shape::Area of each lane's area light (triangle.cpp:~310;
+    lights.py:656-674); 1 for lanes whose light has no triangle."""
+    L = scene.lights
+    li = torch.clamp(light_idx, 0, max(scene.n_lights - 1, 0))
+    area = torch.ones(light_idx.shape, dtype=torch.float32,
+                      device=light_idx.device)
+    if scene.n_triangles > 0:
+        tri = scene.triangles
+        ti = torch.clamp(L.shape_index[li], 0, scene.n_triangles - 1)
+        nv = cross(tri.p1[ti] - tri.p0[ti], tri.p2[ti] - tri.p0[ti])
+        area = torch.where(L.shape_kind[li] == SHAPE_TRIANGLE,
+                           0.5 * length(nv), area)
+    return area
+
+
 def escaped_radiance(scene: Scene, d: torch.Tensor) -> torch.Tensor:
     """Sum of Light::Le over infinite lights for escaped rays: point and area
     lights emit nothing along escaped rays (light.h:75 default 0)."""

@@ -1,15 +1,18 @@
 """Participating media: HG phase, homogeneous and grid-density distance
-sampling, homogeneous transmittance (counterpart of ``bre_tpu/media.py``;
-pbrt medium.{h,cpp}, media/homogeneous.cpp:44-77, media/grid.cpp:46-87).
+sampling, transmittance (counterpart of ``bre_tpu/media.py``; pbrt
+medium.{h,cpp}, media/homogeneous.cpp:44-77, media/grid.cpp:46-120).
 
-Grid media track with the reference's early-exit delta tracking: the whole
-batch steps together, two draws per lane per trip, until no lane is live
-(a host loop on ``live.any()``, one sync per trip) or ``max_steps`` trips
-have passed, so every lane's PCG32 stream advances exactly as the
-reference's does.  The loop runs on detached values; the sampled distance's
-gradient is re-attached in closed form outside it.  Ratio-tracking
-``tr_grid`` / ``transmittance`` are not on the photon-beam path (ROADMAP
-Queue 1 item 8, with ``volpath``)."""
+Grid media track in two forms, both with the whole batch stepping together
+and two draws per lane per trip.  The early-exit form (what the photon-beam
+path takes) stops when no lane is live (a host loop on ``live.any()``, one
+sync per trip) or ``max_steps`` trips have passed, so every lane's PCG32
+stream advances exactly as the reference's ``lax.while_loop`` moves it; it
+runs on detached values and re-attaches the sampled distance's gradient in
+closed form.  The fixed-trip form (``early_exit=False``, what volpath
+takes, and ``tr_grid``'s ratio tracking) is the reference's ``lax.scan``
+of ``max_steps`` trips: the same loop, whose streams are then moved on by
+the draws of the trips it skipped (``pcg32_advance``), so they end
+``2 * max_steps`` draws on, as there."""
 
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from .core import transform as tfm
 from .core.math import (INV_4PI, PI, coordinate_system, dot, length,
                         spherical_direction_basis)
-from .core.rng import PCG32State, pcg32_next_f32
+from .core.rng import PCG32State, pcg32_advance, pcg32_next_f32
 from .core.samplers import stream_1d, stream_rng, stream_with_rng
 from .scene.scene import MEDIUM_GRID, Media
 
@@ -231,19 +234,24 @@ def sample_homogeneous(sigma_a, sigma_s, d, t_max, u_channel,
 
 
 def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
-                rng: PCG32State, max_steps: int = 256):
-    """GridDensityMedium::Sample delta tracking (grid.cpp:62-87), the
-    reference's early-exit form (media.py:290-334).  Returns (rng,
-    MediumSample, n_overflow), n_overflow counting lanes still live after
-    ``max_steps`` trips.
+                rng: PCG32State, max_steps: int = 256,
+                early_exit: bool = True):
+    """GridDensityMedium::Sample delta tracking (grid.cpp:62-87).  Returns
+    (rng, MediumSample, n_overflow), n_overflow counting lanes still live
+    after ``max_steps`` trips.
 
     Every trip draws two uniforms for every lane, live or not, until no
-    lane of the batch is live: a lane's stream ends 2 x (batch trips)
-    draws on, as in the reference, so the photon walks stay slot for slot.
-    The loop runs on detached values and records each lane's S = sum of
+    lane of the batch is live.  In the early-exit form (the default,
+    media.py:290-334) a lane's stream then ends 2 x (batch trips) draws
+    on, as in the reference, so the photon walks stay slot for slot.  The
+    loop runs on detached values and records each lane's S = sum of
     -log(1-u1) up to acceptance; the gradient re-attaches outside it as
     t_hit = t0 + S * inv_max_density / sigma_med (acceptance is a discrete
-    event; the density reads feed only it)."""
+    event; the density reads feed only it).  ``early_exit`` False is the
+    reference's fixed-trip scan (media.py:235-289): the streams are moved
+    on by the skipped trips' draws, ``2 * max_steps`` in all, and the hit
+    distance is the t accumulated trip by trip, detached (volpath, its
+    caller, is not differentiated)."""
     sigma_t = (sigma_a + sigma_s)[..., 0]  # spectrally uniform (grid.h)
     om, dm, dlen, t0, t1, hit_box = _grid_ray_setup(media, o, d, t_max)
     # per-medium-unit extinction: t advances in medium units (tr_grid note)
@@ -259,6 +267,7 @@ def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
     t = t0.detach()
     S = torch.zeros_like(t)
     S_hit = torch.zeros_like(t)
+    t_loop_hit = torch.zeros_like(t)
     zero = torch.zeros((), dtype=torch.float32, device=t.device)
     trips = 0
     while trips < max_steps and bool(live.any()):  # one host sync per trip
@@ -272,9 +281,14 @@ def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
         accept = (dens * inv_max_l > u2) & live & ~exited
         sampled = sampled | accept
         S_hit = torch.where(accept, S, S_hit)
+        t_loop_hit = torch.where(accept, t, t_loop_hit)
         live = live & ~exited & ~accept
         trips += 1
-    t_hit = t0 + S_hit * inv_max_density / sigma_med
+    if early_exit:
+        t_hit = t0 + S_hit * inv_max_density / sigma_med
+    else:
+        rng = pcg32_advance(rng, 2 * (max_steps - trips))
+        t_hit = t_loop_hit
     t_hit = torch.where(sampled, t_hit, zero)
     weight = torch.where(
         sampled[..., None],
@@ -286,19 +300,22 @@ def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
 
 
 def sample_medium(media: Media, med_idx, o, d, t_max, rng: PCG32State,
-                  max_steps: int = 256):
+                  max_steps: int = 256, early_exit: bool = True):
     """Medium::Sample over the media table: two draws per lane (channel,
     distance) for the homogeneous sample, then, when the scene has a grid
     medium, the batch-wide grid tracking on the raw streams
-    (``stream_rng``) for every lane.  Vacuum lanes pass through
-    unweighted.  Returns (rng, MediumSample, n_overflow)."""
+    (``stream_rng``) for every lane, in the form ``early_exit`` picks (the
+    reference's default is the fixed-trip form; its photon-beam render
+    asks for the early-exit one, the port's default).  Vacuum lanes pass
+    through unweighted.  Returns (rng, MediumSample, n_overflow)."""
     sigma_a, sigma_s, _, is_grid, in_medium = gather_medium(media, med_idx)
     rng, u1 = stream_1d(rng)
     rng, u2 = stream_1d(rng)
     hs = sample_homogeneous(sigma_a, sigma_s, d, t_max, u1, u2)
     if media.density.numel() > 1:  # the scene has a grid medium
         raw, gs, n_overflow = sample_grid(media, sigma_a, sigma_s, o, d,
-                                          t_max, stream_rng(rng), max_steps)
+                                          t_max, stream_rng(rng), max_steps,
+                                          early_exit=early_exit)
         rng = stream_with_rng(rng, raw)
         sampled = torch.where(is_grid, gs.sampled, hs.sampled) & in_medium
         t = torch.where(is_grid, gs.t, hs.t)
@@ -318,3 +335,60 @@ def tr_homogeneous(sigma_a, sigma_s, d, t_max) -> torch.Tensor:
     sigma_t = sigma_a + sigma_s
     d_len = length(d)
     return torch.exp(-sigma_t * torch.clamp_max(t_max * d_len, _MAX_F)[..., None])
+
+
+def tr_grid(media: Media, sigma_a, sigma_s, o, d, t_max, rng: PCG32State,
+            max_steps: int = 512):
+    """GridDensityMedium::Tr, ratio tracking with Russian roulette
+    (grid.cpp:89-120; media.py:403-443): per trip one draw for the
+    tentative step and one for the roulette, on every lane.  The running
+    product stays differentiable in the density grid; the roulette is a
+    detached decision.  The loop stops computing once no lane is live and
+    moves the streams on by the skipped trips' draws (``2 * max_steps`` in
+    all, as the reference's scan).  Returns (rng, Tr (R,), n_overflow)."""
+    sigma_t = (sigma_a + sigma_s)[..., 0]
+    om, dm, dlen, t0, t1, hit_box = _grid_ray_setup(media, o, d, t_max)
+    # t advances in medium units (dm is normalized) and sigma is per world
+    # unit, so the rate per medium unit is sigma_t / dlen
+    sigma_med = torch.clamp_min(sigma_t / torch.clamp_min(dlen, 1e-30), 1e-30)
+    inv_max_density = 1.0 / torch.clamp_min(media.density.amax(), 1e-30)
+    rr_threshold = 0.1
+    live = hit_box & (sigma_t > 0.0)
+    t = t0
+    tr = torch.ones_like(t0)
+    zero = torch.zeros((), dtype=torch.float32, device=t0.device)
+    trips = 0
+    while trips < max_steps and bool(live.any()):  # one host sync per trip
+        rng, u1 = pcg32_next_f32(rng)
+        t = t - torch.log(1.0 - u1) * inv_max_density / sigma_med
+        exited = t >= t1
+        dens = grid_density(media.density, om + t[..., None] * dm)
+        factor = 1.0 - torch.clamp_min(dens * inv_max_density, 0.0)
+        tr = torch.where(live & ~exited, tr * factor, tr)
+        rng, u2 = pcg32_next_f32(rng)
+        do_rr = live & ~exited & (tr < rr_threshold)
+        q = torch.clamp_min(1.0 - tr, 0.05)
+        killed = do_rr & (u2 < q).detach()
+        tr = torch.where(killed, zero, torch.where(do_rr, tr / (1.0 - q), tr))
+        live = live & ~exited & ~killed
+        trips += 1
+    rng = pcg32_advance(rng, 2 * (max_steps - trips))
+    return rng, tr, live.sum()
+
+
+def transmittance(media: Media, med_idx, o, d, t_max, rng: PCG32State,
+                  max_steps: int = 512):
+    """Medium::Tr over the media table (media.py:446-468): homogeneous
+    analytic, grid lanes by ``tr_grid`` (which draws on every lane when the
+    scene has a grid medium), 1 in vacuum.  Returns (rng, Tr (R,3),
+    n_overflow)."""
+    sigma_a, sigma_s, _, is_grid, in_medium = gather_medium(media, med_idx)
+    tr = tr_homogeneous(sigma_a, sigma_s, d, t_max)
+    if media.density.numel() > 1:
+        rng, tr_g, n_overflow = tr_grid(media, sigma_a, sigma_s, o, d, t_max,
+                                        rng, max_steps)
+        tr = torch.where(is_grid[..., None], tr_g[..., None], tr)
+    else:
+        n_overflow = torch.zeros((), dtype=torch.int64, device=tr.device)
+    return rng, torch.where(in_medium[..., None], tr, torch.ones_like(tr)), \
+        n_overflow

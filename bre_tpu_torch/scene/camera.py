@@ -61,6 +61,17 @@ def generate_rays(camera: Camera,
     return o_w, d_w
 
 
+def generate_rays_weighted(camera: Camera, p_raster: torch.Tensor,
+                           u_lens=None):
+    """``generate_rays`` with per-ray weights (camera.py:459-487): 1 for the
+    pinhole perspective camera, the only one ported (the lens sample is
+    read by the thin lens and the lens systems, ROADMAP Queue 1 item 5).
+    Returns (origins, unit directions, weights (R,))."""
+    o, d = generate_rays(camera, p_raster)
+    return o, d, torch.ones((p_raster.shape[0],), dtype=torch.float32,
+                            device=p_raster.device)
+
+
 def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
     """(H*W, 2) raster positions at pixel centers (x+.5, y+.5), row-major."""
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5

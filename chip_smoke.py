@@ -174,6 +174,23 @@ its own failure and nothing falls back to the CPU or a plain version):
      bre_tpu_torch.cli examples/fog_cube.pbrt --quick in a child process:
      exit 0 and a finite 64x64 PNG.
 
+ The reference-matching path (kernel="compat") and the volpath oracle:
+ 30. (a) BASELINE config 1 at its full size: cli.main on
+     examples/fog_cube.pbrt with --kernel compat (64x64, 8 iterations x
+     10,000 photons, maxdepth 5), counted: rc 0, no kernel launched (the
+     compat kernel is the plain chunk scan, on the card too), the
+     non-packed route called and the packed one never; photon paths
+     exactly 80,000, medium interactions, beams stored and each channel
+     mean within 2% of the C++ reference's (67,452 / 173,641 / 0.0352,
+     0.0311, 0.0271, BASELINE.md); wall time, s/iter and one iteration
+     timed as trace and camera pass; the overflowed walks printed; (b) the
+     golden gates of tests/test_torch_reference_golden.py (fog_golden.pfm
+     at 32x32 x 2 x 2,000, smoke_golden.pfm at 64x64 x 20,000) with their
+     assertions; (c) render_volpath on the fog cube (24x24, maxdepth 8 x
+     384 spp) against the photon-beam render (24 x 12,000 photons) under
+     tests/test_photonbeam_vs_volpath.py's _check tolerances, volpath's
+     s/spp; (d) the same on that file's grid smoke (20x20).
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -2375,6 +2392,161 @@ def phase_cli(dev, img_cli2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reference-matching path and the volpath oracle (phase 30)
+# ---------------------------------------------------------------------------
+
+# BASELINE config 1 (examples/fog_cube.pbrt: 64x64, 8 iterations x 10,000
+# photons, maxdepth 5) and the C++ reference renderer's statistics for it
+# (BASELINE.md, "Round-3: the north-star comparison")
+FOG_CUBE_PBRT = os.path.join(ROOT, "examples", "fog_cube.pbrt")
+REF_CONFIG1 = dict(photon_paths=80_000, n_medium_scatter=67_452,
+                   n_beams=173_641, channel_means=(0.0352, 0.0311, 0.0271))
+CONFIG1_RTOL = 0.02  # medium interactions, beams and each channel mean
+
+
+def _cli_stats(text):
+    """{name: int} of the ``  name: value`` lines cli.main prints."""
+    out = {}
+    for m in re.finditer(r"^  (\w+): (-?\d+)$", text, re.M):
+        out[m.group(1)] = int(m.group(2))
+    return out
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_compat_volpath(dev, card):
+    """30. (a) BASELINE config 1 through cli.main --kernel compat at its
+    full size, counted (no kernel may launch: the compat kernel is the
+    plain chunk scan), its statistics and channel means against the C++
+    reference's, and one iteration timed as trace and camera pass; (b) the
+    two golden gates against the reference's images; (c) and (d) the
+    volpath oracle against the photon-beam render on the fog cube and on
+    the grid smoke (tests/test_photonbeam_vs_volpath.py's scenes, sizes and
+    _check tolerances)."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_reference_golden import fog_gate, smoke_gate
+    from test_torch_volpath_oracle import ORACLES, _check
+    from bre_tpu_torch.integrators.photon_trace import \
+        trace_photon_beams_compat
+    from bre_tpu_torch.integrators.volpath import render_volpath
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    # (a) config 1 through the CLI
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        pfm = os.path.join(tmp, "fog_cube_compat.pfm")
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            (rc, wall) = _timed(lambda: CLI.main(
+                [FOG_CUBE_PBRT, "--kernel", "compat", "-o", pfm]))
+        counts = launches(KERNELS + HET_KERNELS + TWOPASS_KERNELS)
+        routes = route_calls()
+        if rc != 0:
+            raise AssertionError(f"cli --kernel compat returned {rc}: "
+                                 f"{buf.getvalue()}")
+        img = torch.from_numpy(IMG.read_pfm(pfm))
+    stats = _cli_stats(buf.getvalue())
+    check_image(img, 64, "config-1 compat render")
+    means = img.mean((0, 1)).tolist()
+    ps = PARSER.parse_file(FOG_CUBE_PBRT, device=dev)
+    cfg = CLI.photonbeam_config(ps, kernel="compat")
+    iters = cfg.iterations
+    ref = REF_CONFIG1
+    rel = dict(
+        n_medium_scatter=stats["n_medium_scatter"] / ref["n_medium_scatter"]
+        - 1.0,
+        n_beams=stats["n_beams"] / ref["n_beams"] - 1.0,
+        channel_means=[m / r - 1.0 for m, r in zip(means,
+                                                    ref["channel_means"])])
+    log(f"[compat] (a) python -m bre_tpu_torch.cli examples/fog_cube.pbrt "
+        f"--kernel compat (in process), {card}: wall {wall:.3f} s for "
+        f"{iters} iterations ({wall / iters:.4f} s/iter, parse, build and "
+        f"PFM write included); launches {counts}; route calls {routes}")
+    log(f"[compat] (a) photon paths {stats['photon_paths']} (reference "
+        f"{ref['photon_paths']}); medium interactions "
+        f"{stats['n_medium_scatter']} (reference {ref['n_medium_scatter']}, "
+        f"{100 * rel['n_medium_scatter']:+.2f}%); beams stored "
+        f"{stats['n_beams']} (reference {ref['n_beams']}, "
+        f"{100 * rel['n_beams']:+.2f}%); channel means "
+        f"{[round(m, 5) for m in means]} (reference "
+        f"{list(ref['channel_means'])}, "
+        f"{[f'{100 * r:+.2f}%' for r in rel['channel_means']]}); "
+        f"overflowed walks {stats.get('n_overflow_steps')}")
+    bad = (stats["photon_paths"] != ref["photon_paths"]
+           or abs(rel["n_medium_scatter"]) >= CONFIG1_RTOL
+           or abs(rel["n_beams"]) >= CONFIG1_RTOL
+           or any(abs(r) >= CONFIG1_RTOL for r in rel["channel_means"]))
+    if bad or any(counts.values()) or routes["gather_beams_packed"] or \
+            not routes["gather_beams_bruteforce"]:
+        raise AssertionError(
+            f"config 1 compat: statistics {stats}, means {means} against the "
+            f"reference's {ref} (limit {CONFIG1_RTOL}), launches {counts}, "
+            f"route calls {routes}")
+    # one more iteration (the first), timed as trace and camera pass
+    scene = ps.build(device=dev)
+    distr = light_power_distribution(scene)
+    P = cfg.photonsperiteration
+    rad = float(torch.tensor(cfg.initialbeamradius, dtype=torch.float32))
+    (beams, _), t_trace = _timed(lambda: trace_photon_beams_compat(
+        scene, distr, torch.arange(P, device=dev), cfg.maxdepth, rad))
+    _, t_cam = _timed(lambda: PB.camera_pass(
+        scene, ps.camera, ps.width, ps.height, beams, rad, 0, cfg, P))
+    log(f"[compat] (a) iteration 0 again: trace {t_trace:.4f} s, camera pass "
+        f"{t_cam:.4f} s ({card})")
+    out["config1"] = dict(wall_s=wall, s_per_iter=wall / iters,
+                          stats=stats, channel_means=means,
+                          reference=ref, rel_err=rel, launches=counts,
+                          route_calls=routes, trace_s=t_trace,
+                          camera_pass_s=t_cam)
+    # (b) the golden gates
+    (_, st_fog), t_fog = _timed(lambda: fog_gate(dev))
+    (_, st_smoke), t_smoke = _timed(lambda: smoke_gate(dev))
+    log(f"[compat] (b) golden gates on the card pass: fog_golden "
+        f"{t_fog:.3f} s ({st_fog['n_beams']} beams), smoke_golden "
+        f"{t_smoke:.3f} s ({int(st_smoke['n_medium_scatter'])} medium "
+        f"interactions, reference 1497)")
+    out["golden"] = dict(fog_s=t_fog, smoke_s=t_smoke,
+                         smoke_medium_interactions=int(
+                             st_smoke["n_medium_scatter"]))
+    # (c), (d) the volpath oracle
+    for part, name in (("c", "fog_cube"), ("d", "grid_smoke")):
+        make, eye, fov, vcfg, bcfg, tol, wh = ORACLES[name]
+        scene = make(dev)
+        cam = make_perspective_camera(tfm.look_at(eye, (0, 0, 0), (0, 1, 0)),
+                                      fov, wh, wh, device=dev)
+        truth, t_vol = _timed(lambda: render_volpath(scene, cam, wh, wh, vcfg))
+        (est, _), t_bre = _timed(lambda: PB.render_photonbeam(
+            scene, cam, wh, wh, bcfg))
+        truth, est = truth.cpu().numpy(), est.cpu().numpy()
+        if not (np.isfinite(truth).all() and np.isfinite(est).all()):
+            raise AssertionError(f"oracle {name}: non-finite image")
+        res = _check(est, truth, **tol)
+        log(f"[volpath] ({part}) {name} {wh}x{wh}: volpath maxdepth "
+            f"{vcfg.maxdepth} x {vcfg.spp} spp {t_vol:.3f} s "
+            f"({t_vol / vcfg.spp:.5f} s/spp), BRE {bcfg.iterations} x "
+            f"{bcfg.photonsperiteration} photons {t_bre:.3f} s; mean ratio "
+            f"{res['mean_ratio']:.4f} (limit 1 +- {tol['mean_tol']}), "
+            f"region ratios {[round(r, 3) for r in res['region_ratios']]} "
+            f"(limit 1 +- {tol['region_tol']}), correlation "
+            f"{res['corr']:.4f} (limit 0.95) ({card})")
+        out[name] = dict(volpath_s=t_vol, volpath_s_per_spp=t_vol / vcfg.spp,
+                         bre_s=t_bre, **res)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[compat] phase 30 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2427,6 +2599,7 @@ def main():
     report["ranks"] = phase_ranks(report["card"])
     report["dot_order"] = phase_dot_order(dev)
     report["cli"] = phase_cli(dev, img_cli2)
+    report["compat_volpath"] = phase_compat_volpath(dev, report["card"])
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run

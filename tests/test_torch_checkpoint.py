@@ -1,7 +1,8 @@
 """Checkpoint and resume in bre_tpu_torch: the ``.npz`` layout loads across
 the two packages with equal fields, a split port render (2 + 2 iterations,
 ``imagewritefrequency=2``) equals the uninterrupted 4-iteration render bit
-for bit, a render that one package checkpoints after 2 iterations resumes
+for bit (with the normalized kernel and with kernel="compat"), a render
+that one package checkpoints after 2 iterations resumes
 in the other, and an absent checkpoint starts fresh (tests/test_checkpoint.py's
 scene and sizes, on the CPU).  Within the port every comparison is exact:
 the resumed run adds the same float32 iterations in the same order.  Across
@@ -73,6 +74,30 @@ def test_resume_matches_uninterrupted(tmp_path):
     assert torch.equal(resumed, full)
     assert st["final_radius"] == st_full["final_radius"]
     assert tck.load_checkpoint(ck)["iteration"] == 4
+
+
+def test_compat_resume_matches_uninterrupted(tmp_path):
+    """kernel="compat": a render checkpointed after 2 of 4 iterations and
+    resumed equals the uninterrupted render bit for bit."""
+    scene, cam = _scene_cam()
+    cfg = dict(iterations=4, kernel="compat", **BASE)
+    full, st_full = render_photonbeam(scene, cam, WH, WH,
+                                      PhotonBeamConfig(**cfg))
+    ck = tmp_path / "state.npz"
+    render_photonbeam(scene, cam, WH, WH, PhotonBeamConfig(
+        enditeration=2, imagewritefrequency=2, **cfg), checkpoint_path=str(ck))
+    assert tck.load_checkpoint(ck)["iteration"] == 2
+    resumed, st = render_photonbeam(scene, cam, WH, WH,
+                                    PhotonBeamConfig(**cfg),
+                                    checkpoint_path=str(ck))
+    assert full.abs().sum() > 0
+    assert torch.equal(resumed, full)
+    assert st["final_radius"] == st_full["final_radius"]
+    assert st["n_beams"] < st_full["n_beams"]  # 2 iterations traced, not 4
+    # the bre render of the same scene is another image
+    bre, _ = render_photonbeam(scene, cam, WH, WH,
+                               PhotonBeamConfig(iterations=4, **BASE))
+    assert not torch.allclose(bre, full)
 
 
 @pytest.fixture(scope="module")

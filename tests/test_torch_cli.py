@@ -8,7 +8,7 @@ scene (bit for bit) and the same camera (1e-6, as in
 tests/test_torch_parser.py); with a crop window and a film scale both write
 byte-identical .pfm, .exr and .png files; --cat and --toply print the same
 text; the integrators the port lacks return 1 with a message naming their
-ROADMAP item; a missing scene returns 1; --kernel compat raises."""
+ROADMAP item; a missing scene returns 1."""
 
 import dataclasses
 import os
@@ -140,14 +140,6 @@ def test_cli_missing_scene_returns_1(tmp_path, capsys):
     assert tcli.main([missing, "--device", "cpu"]) == 1
     assert tcli.main([missing, "--cat"]) == 1
     assert capsys.readouterr().err.count("scene file not found") == 2
-
-
-def test_cli_kernel_compat_raises(tmp_path):
-    scene = tmp_path / "film.pbrt"
-    scene.write_text(FILM)
-    with pytest.raises(NotImplementedError, match="compat"):
-        tcli.main([str(scene), "--kernel", "compat", "--device", "cpu",
-                   "-o", str(tmp_path / "x.pfm"), "--quiet"])
 
 
 def test_cli_without_card_raises(tmp_path):

@@ -503,3 +503,87 @@ def test_grid_density_gradient_on_card(dev):
         grads.append(torch.autograd.grad(out, dd)[0].cpu())
     assert torch.equal(grads[0], grads[1])
     _close(grads[0], grads[2])
+
+
+def _pixels_close(a, b):
+    """The CPU parity tests' per-pixel check: 99% of the pixels within
+    rtol 1e-3, atol 1e-6 in every channel."""
+    close = np.isclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-6).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_compat_render_on_card_matches_cpu(dev, grid):
+    """kernel="compat" on the card (the plain chunk scan there too: no
+    kernel launches) against the CPU, same seeds: the compat trace's
+    integer statistics, the image mean within 1e-3 and 99% of the pixels
+    within rtol 1e-3."""
+    W = 32
+    cfg = PhotonBeamConfig(iterations=2, maxdepth=4, photonsperiteration=3000,
+                           initialbeamradius=0.2, kernel="compat")
+    make = _smoke if grid else _cornell
+    look = ((0, 0, -3.2), (0, 0, 0)) if grid else ((0, 0, -2.2), (0, 0, 1))
+    n0 = G.gather_forward.launches + G.gather_forward.launches_het
+    out = []
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(tfm.look_at(*look, (0, 1, 0)), 50.0, W,
+                                      W, device=d)
+        img, st = render_photonbeam(make(d), cam, W, W, cfg)
+        out.append((img.cpu(), st))
+    assert G.gather_forward.launches + G.gather_forward.launches_het == n0
+    (img_c, st_c), (img_h, st_h) = out
+    assert bool(torch.isfinite(img_c).all()) and float(img_h.mean()) > 0
+    rel = float((img_c.mean() / img_h.mean() - 1).abs())
+    assert rel < 1e-3, rel
+    _pixels_close(img_c, img_h)
+    for k in ("photon_paths", "n_beams", "n_medium_scatter"):
+        assert abs(st_c[k] - st_h[k]) <= 1e-3 * st_h[k], k
+
+
+def test_golden_gates_on_card(dev):
+    """tests/test_torch_reference_golden.py's two gates, on the card."""
+    from test_torch_reference_golden import fog_gate, smoke_gate
+
+    fog_gate(dev)
+    smoke_gate(dev)
+
+
+def test_volpath_on_card_matches_cpu(dev):
+    """render_volpath on the card against the CPU, same seeds, the grid
+    scene (fixed-trip tracking) and the two-sample MIS: image mean within
+    1e-3 and 99% of the pixels within rtol 1e-3."""
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+
+    W = 16
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -3.2), (0, 0, 0), (0, 1, 0)), 50.0, W, W,
+            device=d)
+        imgs.append(render_volpath(_smoke(d), cam, W, W, VolPathConfig(
+            maxdepth=5, spp=8, nee_mis=True)).cpu())
+    assert bool(torch.isfinite(imgs[0]).all()) and float(imgs[1].mean()) > 0
+    rel = float((imgs[0].mean() / imgs[1].mean() - 1).abs())
+    assert rel < 1e-3, rel
+    _pixels_close(imgs[0], imgs[1])
+
+
+def test_gather_core_refuses_compat_on_card(dev):
+    """The forward kernel computes the normalized estimate only: given
+    KERNEL_COMPAT with the kernel backend, _GatherCore raises before any
+    launch."""
+    R, C = 16, 256
+    rs = np.random.RandomState(0)
+    f = lambda *s: torch.from_numpy(rs.rand(*s).astype(np.float32)).to(dev)  # noqa: E731
+    pb = dict(start=f(C, 3), end=f(C, 3), power_start=f(C, 3),
+              power_end=f(C, 3), radius=f(C), valid_f=torch.ones(C, device=dev))
+    seg = dict(a0=f(R, 3), a1=f(R, 3), dir=f(R, 3), len=f(R), tr_full=f(R, 3),
+               sigma_s=f(R, 3), g=f(R), in_med_f=torch.ones(R, device=dev),
+               cam_radius=torch.tensor(0.1, device=dev),
+               n_valid_beams=torch.tensor(float(C), device=dev))
+    cfg = BG._Cfg(BG.KERNEL_COMPAT, C, 1, 1.0, 0.05, True, True, "pallas")
+    n0 = G.gather_forward.launches
+    with pytest.raises(ValueError, match="KERNEL_BRE"):
+        BG._GatherCore.apply(cfg, tuple(pb), tuple(seg), *pb.values(),
+                             *seg.values())
+    assert G.gather_forward.launches == n0

@@ -50,7 +50,6 @@ def test_render_photonbeam_matches():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(kernel="compat"), "compat"),
     (dict(gather="lbvh"), "lbvh"),
 ])
 def test_unported_options_raise(over, match, tmp_path):
