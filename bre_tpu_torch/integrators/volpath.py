@@ -14,12 +14,14 @@ whatever its width.  Grid media take the fixed-trip delta tracking
 (``sample_medium(early_exit=False)``), as the reference's volpath does.
 
 Ported: ``indirect`` "full" and "specular", ``samplealllights``,
-``nee_mis``, ``maxsampleluminance``, ``tr_crossings``,
-``lightsamplestrategy="uniform"`` and ``sampler="random"``.  The power and
-spatial light pick, the other samplers and ``texture_filter`` raise
-NotImplementedError (ROADMAP Queue 1 item 5), as do scenes the slice does
-not render (``check_slice``: subsurface materials among them, so the
-reference's BSSRDF branch is never needed).
+``nee_mis``, ``maxsampleluminance``, ``tr_crossings``, the light-pick
+strategies "uniform", "power" and "spatial" (``lights.
+spatial_light_distribution``), and every sampler of ``core/samplers``
+(random, stratified, 02sequence, sobol, maxmindist, halton).
+``texture_filter`` raises NotImplementedError (ROADMAP Queue 1 item 5:
+textures), as do scenes the slice does not render (``check_slice``:
+subsurface materials among them, so the reference's BSSRDF branch is never
+needed).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from ..core.rng import pcg32_init
 from ..core.samplers import (make_sample_stream, make_stream_spec, stream_1d,
                              stream_camera_sample)
 from ..core.spectrum import luminance
-from ..lights import area_light_emitted, escaped_radiance
+from ..lights import (area_light_emitted, escaped_radiance,
+                      power_light_distribution, spatial_light_distribution)
 from ..materials import MODE_RADIANCE, sample_bsdf
 from ..media import gather_medium, hg_sample_p, sample_medium
 from ..scene.camera import Camera, generate_rays_weighted, pixel_centers
@@ -58,13 +61,13 @@ class VolPathConfig:
     # "full": path/volpath; "specular": whitted/directlighting semantics
     # (specular continuations only, direct lighting at every hit)
     indirect: str = "full"
-    # film-plane sampler; "random" is ported
+    # the sampler behind every dimension (core/samplers.KINDS)
     sampler: str = "random"
     # ray differentials + EWA image-map filtering: not ported
     texture_filter: bool = False
     # Film "maxsampleluminance": per-sample luminance clamp (film.h:121)
     maxsampleluminance: float = float("inf")
-    # NEE light pick: "uniform" is ported ("power", "spatial" are not)
+    # NEE light pick: "uniform", "power" or "spatial" (lightdistrib.cpp)
     lightsamplestrategy: str = "uniform"
     # NEE against every light (UniformSampleAllLights)
     samplealllights: bool = False
@@ -77,18 +80,27 @@ class VolPathConfig:
 def _check_config(cfg: VolPathConfig) -> None:
     if cfg.indirect not in ("full", "specular"):
         raise ValueError(f"unknown indirect mode {cfg.indirect!r}")
-    if cfg.lightsamplestrategy != "uniform":
-        raise NotImplementedError(
-            f'lightsamplestrategy="{cfg.lightsamplestrategy}" is not ported; '
-            'only "uniform" is (ROADMAP Queue 1 item 5: breadth, '
-            "lightdistrib)")
+    if cfg.lightsamplestrategy not in ("uniform", "power", "spatial"):
+        raise ValueError(
+            f"unknown lightsamplestrategy {cfg.lightsamplestrategy!r}")
     if cfg.texture_filter:
         raise NotImplementedError(
             "texture_filter (ray differentials and EWA filtering) is not "
             "ported (ROADMAP Queue 1 item 5: breadth, textures)")
 
 
-def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig):
+def light_distribution(scene: Scene, strategy: str):
+    """The NEE light-pick table of a strategy (volpath.py:450-470): None
+    for "uniform" (and for a scene without lights)."""
+    if scene.n_lights == 0 or strategy == "uniform":
+        return None
+    if strategy == "spatial":
+        return spatial_light_distribution(scene)
+    return power_light_distribution(scene)
+
+
+def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
+              light_distrib=None):
     """Radiance along a batch of camera rays (volpath.py:205-428).
     Returns (rng, L (R,3))."""
     R = o.shape[0]
@@ -103,7 +115,8 @@ def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig):
                                      mis=cfg.nee_mis, **kw)
         return sample_one_light(scene, rng, p, n, wo, mat_idx, med_idx,
                                 is_surface, tr_crossings=k_tr,
-                                mis=cfg.nee_mis, **kw)
+                                mis=cfg.nee_mis, light_distrib=light_distrib,
+                                **kw)
 
     beta = torch.ones((R, 3), dtype=torch.float32, device=dev)
     medium = scene.camera_medium.expand(R).clone()
@@ -222,6 +235,7 @@ def render_volpath(scene: Scene, camera: Camera, width: int, height: int,
     R = width * height
     pix = pixel_centers(width, height, dev)
     spec = make_stream_spec(cfg.sampler, width, height, cfg.spp)
+    light_distrib = light_distribution(scene, cfg.lightsamplestrategy)
     pix_idx = torch.arange(R, dtype=torch.int64, device=dev)
     per_batch = max(1, min(cfg.spp, SAMPLE_LANES // R))
     acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
@@ -236,7 +250,7 @@ def render_volpath(scene: Scene, camera: Camera, width: int, height: int,
         rng, j2, _time, u_lens = stream_camera_sample(rng)
         o, d, w_cam = generate_rays_weighted(camera, pix.repeat(n, 1) + j2
                                              - 0.5, u_lens)
-        _, L = _li_batch(scene, o, d, rng, cfg)
+        _, L = _li_batch(scene, o, d, rng, cfg, light_distrib)
         if cfg.maxsampleluminance != float("inf"):
             # Film::AddSample's per-sample clamp (film.h:~125)
             y = 0.212671 * L[:, 0] + 0.715160 * L[:, 1] + 0.072169 * L[:, 2]

@@ -191,6 +191,30 @@ its own failure and nothing falls back to the CPU or a plain version):
      tests/test_photonbeam_vs_volpath.py's _check tolerances, volpath's
      s/spp; (d) the same on that file's grid smoke (20x20).
 
+ The photon-mapping integrators and the sampled integrators (no kernel
+ launches on any of them: the reference runs them as XLA code):
+ 31. (a) tests/test_torch_vsppm_golden.py's gates at 32 and 64 iterations
+     (render_vsppm, kernel="compat", on vsppm_golden.pbrt at 32x32, 2,000
+     photons per iteration): the combined medium interactions within 0.5%
+     of the C++ reference's 44,273 and 88,525, channel means within 3%,
+     4x4 region means within 15% and 10%; (b) cli.main on
+     vsppm_golden.pbrt as written (8 iterations) with --kernel compat:
+     16,000 photon paths, the combined interactions within 1.5% of 11,073,
+     medium and surface visible points within 2% of 3,219 and 4,973; (c)
+     vsppm with the physical kernel at config 1's width (fog_cube.pbrt:
+     64x64, 8 x 10,000 photons, maxdepth 5, radius 0.25) against
+     render_volpath on the same scene (random sampler, uniform pick, 64
+     spp): the ratio of means within 0.6-1.6; (d) vsppm at config 2's
+     width (cornell_fog.pbrt: 256x256, 65,536 photons per iteration, radius
+     0.15, maxdepth 5, 4 iterations): warm s/iter, peak memory, a finite
+     image; (e) render_photonmap on tests/test_photonmap.py's fog cube
+     (no surfaces) at 64x64 with PhotonMapConfig()'s defaults: no direct or
+     caustic photons, the ratio of means against volpath (64 spp) within
+     0.5-1.7, s per pass; (f)
+     cli.main on fog_cube.pbrt's text with its Integrator renamed volpath,
+     then directlighting (its halton sampler, 8 spp, the spatial
+     strategy): finite images, volpath's mean within 5% of (c)'s; s/spp.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -2547,6 +2571,189 @@ def phase_compat_volpath(dev, card):
     return out
 
 
+VSPPM_GOLDEN_PBRT = os.path.join(ROOT, "tests", "data", "vsppm_golden.pbrt")
+CORNELL_PBRT = os.path.join(ROOT, "examples", "cornell_fog.pbrt")
+# tests/data/vsppm_golden.pbrt's header: the C++ reference's statistics at
+# 8 iterations
+REF_VSPPM8 = dict(photon_paths=16_000, combined=11_073, vp_medium=3_219,
+                  vp_surface=4_973)
+
+
+def _cli_text_run(text, name, args, what):
+    """cli.main on a scene text written to a temporary file, in this
+    process: (rc, wall s, printed stats, image)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, f"{name}.pbrt")
+        with open(scene, "w") as f:
+            f.write(text)
+        pfm = os.path.join(tmp, f"{name}.pfm")
+        with contextlib.redirect_stdout(buf):
+            rc, wall = _timed(lambda: CLI.main([scene, "-o", pfm] + args))
+        if rc != 0:
+            raise AssertionError(f"{what}: cli.main returned {rc}: "
+                                 f"{buf.getvalue()}")
+        img = IMG.read_pfm(pfm)
+    if not np.isfinite(img).all():
+        raise AssertionError(f"{what}: non-finite image")
+    return wall, _cli_stats(buf.getvalue()), img
+
+
+def phase_photon_mapping(dev, card):
+    """31. The photon-mapping integrators (vsppm, photonmap) and the
+    sampled integrators through the CLI; see the module docstring.  No
+    kernel may launch in the phase."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_vsppm_golden import vsppm_gate
+    from bre_tpu_torch.integrators.photonmap import (PhotonMapConfig,
+                                                     render_photonmap,
+                                                     shoot_photons)
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+    from bre_tpu_torch.integrators.vsppm import VSPPMConfig, render_vsppm
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    every = KERNELS + HET_KERNELS + TWOPASS_KERNELS
+    reset_launches()
+    # (a) the golden gates at 32 and 64 iterations
+    for iters in (32, 64):
+        (_, st, rel), t = _timed(lambda: vsppm_gate(dev, iters))
+        log(f"[vsppm] (a) golden gate {iters} iterations passes: {t:.3f} s "
+            f"({t / iters:.4f} s/iter), combined medium interactions "
+            f"{st['medium_interactions'] + st['vp_medium']} "
+            f"({100 * rel['combined']:+.3f}%), channel means "
+            f"{[f'{100 * r:+.2f}%' for r in rel['means']]}, region max "
+            f"{rel['region_max']:.4f}, overflow {st['splat_overflow']} "
+            f"({card})")
+        out[f"golden{iters}"] = dict(s=t, s_per_iter=t / iters, stats=st,
+                                     rel=rel)
+    # (b) the CLI on the golden scene as written
+    with open(VSPPM_GOLDEN_PBRT) as f:
+        text = f.read()
+    wall, st, img = _cli_text_run(text, "vsppm_golden", ["--kernel", "compat"],
+                                  "vsppm golden scene")
+    ref = REF_VSPPM8
+    comb = st["medium_interactions"] + st["vp_medium"]
+    rel = dict(combined=comb / ref["combined"] - 1.0,
+               vp_medium=st["vp_medium"] / ref["vp_medium"] - 1.0,
+               vp_surface=st["vp_surface"] / ref["vp_surface"] - 1.0)
+    log(f"[vsppm] (b) cli.main vsppm_golden.pbrt --kernel compat: {wall:.3f} "
+        f"s wall, {wall / 8:.4f} s/iter; paths {st['photon_paths']}, combined "
+        f"{comb} ({100 * rel['combined']:+.3f}%), medium VPs "
+        f"{st['vp_medium']} ({100 * rel['vp_medium']:+.2f}%), surface VPs "
+        f"{st['vp_surface']} ({100 * rel['vp_surface']:+.2f}%) ({card})")
+    if (st["photon_paths"] != ref["photon_paths"] or img.shape != (32, 32, 3)
+            or abs(rel["combined"]) >= 0.015 or abs(rel["vp_medium"]) >= 0.02
+            or abs(rel["vp_surface"]) >= 0.02):
+        raise AssertionError(f"vsppm CLI statistics {st} against {ref}")
+    out["cli_golden"] = dict(wall_s=wall, s_per_iter=wall / 8, stats=st,
+                             rel=rel)
+    # (c) physical at config 1's width, against volpath
+    ps = PARSER.parse_file(FOG_CUBE_PBRT, device=dev)
+    fog = ps.build(device=dev)
+    W = ps.width
+    cfg = VSPPMConfig(iterations=8, maxdepth=5, photonsperiteration=10_000,
+                      radius=0.25)
+    (img_v, st), t_v = _timed(lambda: render_vsppm(fog, ps.camera, W, W, cfg))
+    truth, t_t = _timed(lambda: render_volpath(fog, ps.camera, W, W,
+                                               VolPathConfig(spp=64)))
+    img_v, truth = img_v.cpu().numpy(), truth.cpu().numpy()
+    ratio = float(img_v.mean() / truth.mean())
+    log(f"[vsppm] (c) config 1 physical, 64x64 x 8 x 10,000: {t_v:.3f} s "
+        f"({t_v / 8:.4f} s/iter), overflow {st['splat_overflow']}, medium "
+        f"VPs {st['vp_medium']}, surface VPs {st['vp_surface']}; volpath 64 "
+        f"spp {t_t:.3f} s; ratio of means {ratio:.4f} (limit 0.6-1.6) "
+        f"({card})")
+    if not (np.isfinite(img_v).all() and 0.6 < ratio < 1.6):
+        raise AssertionError(f"vsppm physical on config 1: ratio {ratio}")
+    out["config1"] = dict(s=t_v, s_per_iter=t_v / 8, stats=st, ratio=ratio,
+                          volpath_s=t_t)
+    # (d) config 2's width
+    ps2 = PARSER.parse_file(CORNELL_PBRT, device=dev)
+    cornell = ps2.build(device=dev)
+    W2 = ps2.width
+    stamps = []
+    cfg2 = VSPPMConfig(iterations=4, maxdepth=5, photonsperiteration=65_536,
+                       radius=0.15, imagewritefrequency=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    img2, st2 = render_vsppm(cornell, ps2.camera, W2, W2, cfg2,
+                             write_callback=lambda i, im: stamps.append(
+                                 time.perf_counter()))
+    img2 = img2.cpu().numpy()
+    per_iter = np.diff([t0] + stamps)
+    warm = float(per_iter[1:].mean())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"[vsppm] (d) config 2 256x256 x 4 x 65,536 photons: iterations "
+        f"{[round(float(x), 4) for x in per_iter]} s, warm {warm:.4f} s/iter, "
+        f"peak {peak:.3f} GiB, overflow {st2['splat_overflow']}, medium VPs "
+        f"{st2['vp_medium']}, surface VPs {st2['vp_surface']}, mean "
+        f"{float(img2.mean()):.5f} ({card})")
+    if not (np.isfinite(img2).all() and (img2 >= 0).all()
+            and img2.mean() > 0):
+        raise AssertionError("vsppm on config 2: a non-finite or negative "
+                             "image")
+    out["config2"] = dict(iter_s=per_iter.tolist(), warm_s_per_iter=warm,
+                          peak_gib=peak, stats=st2)
+    # (e) photonmap on tests/test_photonmap.py's fog cube (no surfaces)
+    b = SceneBuilder()
+    medium = b.homogeneous_medium((0.05,) * 3, (0.4,) * 3, 0.0)
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=medium,
+          medium_outside=-1)
+    b.point_light((0.0, 0.0, 0.0), (1.0,) * 3, medium=medium)
+    cube = b.build(device=dev)
+    cam = make_perspective_camera(tfm.look_at((0, 0, -3.5), (0, 0, 0),
+                                              (0, 1, 0)), 40.0, W, W,
+                                  device=dev)
+    pcfg = PhotonMapConfig()
+    _, t_shoot = _timed(lambda: shoot_photons(cube, pcfg))
+    (img_p, st_p), t_p = _timed(lambda: render_photonmap(cube, cam, W, W,
+                                                         pcfg))
+    truth_p, t_tp = _timed(lambda: render_volpath(cube, cam, W, W,
+                                                  VolPathConfig(spp=64)))
+    img_p = img_p.cpu().numpy()
+    counts = st_p["photon_counts"]
+    ratio_p = float(img_p.mean() / truth_p.mean())
+    log(f"[photonmap] (e) fog cube 64x64, {pcfg.nphotons} photons, "
+        f"{pcfg.spp} spp, {pcfg.march_steps} march steps: {t_p:.3f} s "
+        f"(shoot {t_shoot:.4f} s, {(t_p - t_shoot) / pcfg.spp:.4f} s per "
+        f"pass), photons {counts}; ratio of means against volpath (64 spp, "
+        f"{t_tp:.3f} s) {ratio_p:.4f} (limit 0.5-1.7) ({card})")
+    if (counts["direct"] or counts["caustic"] or not counts["volume"]
+            or not np.isfinite(img_p).all() or not 0.5 < ratio_p < 1.7):
+        raise AssertionError(f"photonmap: counts {counts}, ratio {ratio_p}")
+    out["photonmap"] = dict(s=t_p, shoot_s=t_shoot,
+                            s_per_pass=(t_p - t_shoot) / pcfg.spp,
+                            counts=counts, ratio=ratio_p)
+    # (f) the sampled integrators through the CLI
+    with open(FOG_CUBE_PBRT) as f:
+        fog_text = f.read()
+    spp = CLI.volpath_config(ps).spp
+    for name in ("volpath", "directlighting"):
+        text = fog_text.replace('Integrator "photonbeam"',
+                                f'Integrator "{name}"')
+        wall, _, img = _cli_text_run(text, name, [], f"cli {name}")
+        rel_v = float(img.mean() / truth.mean() - 1.0)
+        log(f"[volpath] (f) cli.main fog_cube.pbrt as {name} (halton, {spp} "
+            f"spp, spatial): {wall:.3f} s wall, {wall / spp:.4f} s/spp; mean "
+            f"{float(img.mean()):.5f}, against volpath (random, uniform, 64 "
+            f"spp) {100 * rel_v:+.2f}% ({card})")
+        if name == "volpath" and abs(rel_v) >= 0.05:
+            raise AssertionError(f"cli volpath mean off by {rel_v}")
+        out[f"cli_{name}"] = dict(wall_s=wall, s_per_spp=wall / spp,
+                                  rel_mean=rel_v)
+    counts = launches(every)
+    if any(counts.values()):
+        raise AssertionError(f"phase 31 launched kernels: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[vsppm] phase 31 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2600,6 +2807,7 @@ def main():
     report["dot_order"] = phase_dot_order(dev)
     report["cli"] = phase_cli(dev, img_cli2)
     report["compat_volpath"] = phase_compat_volpath(dev, report["card"])
+    report["photon_mapping"] = phase_photon_mapping(dev, report["card"])
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run

@@ -7,8 +7,9 @@ both CLIs hand render_photonbeam the same config field for field, the same
 scene (bit for bit) and the same camera (1e-6, as in
 tests/test_torch_parser.py); with a crop window and a film scale both write
 byte-identical .pfm, .exr and .png files; --cat and --toply print the same
-text; the integrators the port lacks return 1 with a message naming their
-ROADMAP item; a missing scene returns 1."""
+text; vsppm and the volpath family get the same configs and render a
+16x16 scene; the integrators the port lacks (bdpt, mlt) return 1 with a
+message naming their ROADMAP item; a missing scene returns 1."""
 
 import dataclasses
 import os
@@ -17,9 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from pathlib import Path
+
 from bre_tpu import cli as jcli
 from bre_tpu.integrators import photonbeam as jpb
+from bre_tpu.integrators import volpath as jvp
+from bre_tpu.integrators import vsppm as jvs
 from bre_tpu_torch import cli as tcli
+from bre_tpu_torch.io.image import read_image
+from bre_tpu_torch.scene.parser import parse_file as tparse
 from bre_tpu_torch.scene.scene import scene_from_jax
 from test_torch_parser import assert_cameras_equal, assert_scenes_equal
 
@@ -113,10 +120,7 @@ def test_cli_cat_and_toply(path, flag, capsys):
     assert mine == capsys.readouterr().out and "WorldBegin" in mine
 
 
-UNPORTED = {"vsppm": "tests/data/vsppm_golden.pbrt",
-            "bdpt": "tests/data/bdpt_golden.pbrt",
-            "volpath": None, "path": None, "whitted": None,
-            "directlighting": None, "mlt": None}
+UNPORTED = {"bdpt": "tests/data/bdpt_golden.pbrt", "mlt": None}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -133,6 +137,79 @@ def test_cli_unported_integrators_return_1(name, tmp_path, capsys):
     assert (f"error: integrator '{name}' is not ported (ROADMAP Queue 1 "
             "item 4)") in err
     assert not (tmp_path / "x.pfm").exists()
+
+
+# the vsppm golden scene at 16x16 (a fog cube with a point light in it
+# before a matte wall), cut to a few iterations or samples
+SMALL = (Path(ROOT) / "tests" / "data" / "vsppm_golden.pbrt").read_text()
+SMALL = SMALL[SMALL.index("Sampler"):].replace("[ 32 ]", "[ 16 ]")
+INTEGRATOR = {
+    "vsppm": '"vsppm" "integer iterations" [ 2 ] "integer photonsperiteration"'
+             ' [ 400 ] "float radius" [ 0.3 ] "integer maxdepth" [ 3 ]',
+    "volpath": '"volpath" "integer maxdepth" [ 3 ]',
+    "path": '"path" "integer maxdepth" [ 3 ] "string lightsamplestrategy" '
+            '"power"',
+    "whitted": '"whitted" "integer maxdepth" [ 3 ]',
+    "directlighting": '"directlighting" "integer maxdepth" [ 3 ]',
+}
+RENDERERS = {"vsppm": (jvs, "render_vsppm"), "volpath": (jvp, "render_volpath")}
+
+
+def _small_scene(tmp_path, name, sampler='"halton" "integer pixelsamples" 2'):
+    text = SMALL.replace('"halton" "integer pixelsamples" 8', sampler)
+    path = tmp_path / f"{name}.pbrt"
+    path.write_text(f"Integrator {INTEGRATOR[name]}\n{text}")
+    return str(path)
+
+
+@pytest.mark.parametrize("name", sorted(INTEGRATOR))
+def test_cli_hands_sample_integrators_the_same_inputs(name, tmp_path,
+                                                      monkeypatch):
+    """vsppm and the volpath family, --quick and not: both CLIs hand their
+    render the same config field for field, scene and camera (the renders
+    replaced by recorders)."""
+    calls = {}
+    family = "vsppm" if name == "vsppm" else "volpath"
+    mod, fn = RENDERERS[family]
+
+    def fake(key, to_tensor, with_stats):
+        def render(scene, camera, width, height, cfg, *a, **kw):
+            calls[key] = (scene, camera, width, height, cfg)
+            img = _fixed_image(height, width)
+            img = torch.from_numpy(img) if to_tensor else img
+            return (img, {"n": 1}) if with_stats else img
+        return render
+
+    monkeypatch.setattr(mod, fn, fake("ref", False, family == "vsppm"))
+    monkeypatch.setattr(tcli, fn, fake("port", True, family == "vsppm"))
+    path = _small_scene(tmp_path, name, '"sobol" "integer pixelsamples" 64')
+    for quick in ([], ["--quick"]):
+        t_bytes, j_bytes = _run_both([path, "--quiet"] + quick, tmp_path)
+        assert t_bytes == j_bytes
+        scene, cam, w, h, cfg = calls["port"]
+        jscene, jcam, jw, jh, jcfg = calls["ref"]
+        assert (w, h) == (jw, jh) == (16, 16)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert_scenes_equal(scene, scene_from_jax(jscene, device="cpu"))
+        assert_cameras_equal(cam, jcam)
+    if family == "volpath":
+        assert cfg.sampler == "sobol" and cfg.spp == 4
+    assert tcli.vsppm_config(tparse(path, device="cpu"),
+                             kernel="compat").kernel == "compat"
+
+
+@pytest.mark.parametrize("name", sorted(INTEGRATOR))
+def test_cli_renders_sample_integrators(name, tmp_path, capsys):
+    """A real 16x16 render through the port's CLI on the CPU, written as
+    PFM: finite, not negative, lit."""
+    out = tmp_path / f"{name}.pfm"
+    assert tcli.main([_small_scene(tmp_path, name), "--device", "cpu", "-o",
+                      str(out)]) == 0
+    img = read_image(str(out))
+    assert img.shape == (16, 16, 3)
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0
+    if name == "vsppm":
+        assert "vp_medium:" in capsys.readouterr().out
 
 
 def test_cli_missing_scene_returns_1(tmp_path, capsys):

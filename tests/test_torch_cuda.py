@@ -587,3 +587,104 @@ def test_gather_core_refuses_compat_on_card(dev):
         BG._GatherCore.apply(cfg, tuple(pb), tuple(seg), *pb.values(),
                              *seg.values())
     assert G.gather_forward.launches == n0
+
+
+@pytest.mark.parametrize("kernel", ["compat", "physical"])
+def test_vsppm_on_card_matches_cpu(dev, kernel):
+    """render_vsppm on the card against the CPU, the vsppm golden scene at
+    32x32, 2 iterations of 2,000 photons: the statistics within 1e-3, the
+    image mean within 1e-3 and 99% of the pixels within rtol 1e-3 (the
+    CUDA vs CPU bound of the photon-beam renders above)."""
+    from test_torch_vsppm_golden import DATA
+    from bre_tpu_torch.integrators.vsppm import VSPPMConfig, render_vsppm
+    from bre_tpu_torch.scene.parser import parse_file
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        ps = parse_file(str(DATA / "vsppm_golden.pbrt"), device=d)
+        out.append(render_vsppm(ps.build(device=d), ps.camera, 32, 32,
+                                VSPPMConfig(iterations=2, maxdepth=3,
+                                            photonsperiteration=2000,
+                                            radius=0.25, kernel=kernel)))
+    (img_c, st_c), (img_h, st_h) = out
+    img_c = img_c.cpu()
+    assert bool(torch.isfinite(img_c).all()) and float(img_h.mean()) > 0
+    rel = float((img_c.mean() / img_h.mean() - 1).abs())
+    assert rel < 1e-3, rel
+    _pixels_close(img_c, img_h)
+    for k in st_h:
+        assert abs(st_c[k] - st_h[k]) <= 1e-3 * max(st_h[k], 1), k
+
+
+def test_vsppm_golden_gate_on_card(dev):
+    """tests/test_torch_vsppm_golden.py's 32-iteration gate, on the card."""
+    from test_torch_vsppm_golden import vsppm_gate
+
+    vsppm_gate(dev, 32)
+
+
+def test_sample_streams_on_card_match_cpu(dev):
+    """Every sampler kind's camera sample and 40 more dimensions on the
+    card, bit for bit the CPU's (uint32 arithmetic in int64 tensors)."""
+    from bre_tpu_torch.core import samplers as S
+    from bre_tpu_torch.core.rng import pcg32_init
+
+    W, H, R = 9, 5, 45
+    for kind in S.KINDS:
+        vals = []
+        for d in (dev, torch.device("cpu")):
+            pix = torch.arange(R, device=d).repeat(3)
+            samp = torch.tensor([0, 7, 1000], device=d).repeat_interleave(R)
+            s = S.make_sample_stream(S.make_stream_spec(kind, W, H, 16), pix,
+                                     pix % W, pix // W, samp,
+                                     pcg32_init(samp * R + pix))
+            s, film, time, lens = S.stream_camera_sample(s)
+            row = [film, time[:, None], lens]
+            for k in range(40):
+                s, v = (S.stream_2d if k % 2 else S.stream_1d)(s)
+                row.append(v.reshape(3 * R, -1))
+            vals.append(torch.cat(row, 1).cpu())
+        assert torch.equal(vals[0], vals[1]), kind
+
+
+def test_photonmap_and_spatial_volpath_on_card_match_cpu(dev):
+    """render_photonmap (fog cube, 16x16, 4,000 photons) and render_volpath
+    with the halton sampler and the spatial strategy (Cornell fog, 16x16, 4
+    spp) on the card against the CPU: photon counts equal, image means
+    within 1e-3, 99% of the pixels within rtol 1e-3."""
+    from bre_tpu_torch.integrators.photonmap import (PhotonMapConfig,
+                                                     render_photonmap)
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+
+    W = 16
+    pm, vp = [], []
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -3.5), (0, 0, 0), (0, 1, 0)), 40.0, W, W,
+            device=d)
+        b = SceneBuilder()
+        fog = b.homogeneous_medium((0.05,) * 3, (0.4,) * 3, 0.0)
+        b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=fog,
+              medium_outside=-1)
+        b.point_light((0.0, 0.0, 0.0), (1.0,) * 3, medium=fog)
+        img, st = render_photonmap(b.build(device=d), cam, W, W,
+                                   PhotonMapConfig(nphotons=4000, spp=2))
+        pm.append((img.cpu(), st))
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)), 50.0, W, W,
+            device=d)
+        scene = _cornell(d)
+        L = scene.lights  # a second light: a point light in the fog
+        scene = scene._replace(lights=L._replace(**{
+            f: torch.cat([getattr(L, f), v.to(getattr(L, f))]) for f, v in
+            dict(ltype=torch.tensor([0]), position=torch.tensor(
+                [[0.2, -0.4, 1.1]]), emit=torch.tensor([[0.8, 0.9, 1.0]]),
+                shape_kind=torch.tensor([-1]), shape_index=torch.tensor([0]),
+                two_sided=torch.tensor([0]), medium=torch.tensor([0])).items()}))
+        vp.append(render_volpath(scene, cam, W, W, VolPathConfig(
+            spp=4, sampler="halton", lightsamplestrategy="spatial")).cpu())
+    assert pm[0][1] == pm[1][1]
+    for a, b in ((pm[0][0], pm[1][0]), (vp[0], vp[1])):
+        assert bool(torch.isfinite(a).all()) and float(b.mean()) > 0
+        assert float((a.mean() / b.mean() - 1).abs()) < 1e-3
+        _pixels_close(a, b)

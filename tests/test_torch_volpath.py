@@ -295,16 +295,19 @@ def _tiny():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(lightsamplestrategy="power"), "item 5"),
-    (dict(lightsamplestrategy="spatial"), "item 5"),
+    (dict(lightsamplestrategy="bogus"), "lightsamplestrategy"),
+    (dict(lightsamplestrategy="all"), "lightsamplestrategy"),
     (dict(texture_filter=True), "item 5"),
-    (dict(sampler="halton"), "item 5"),
-    (dict(sampler="sobol"), "item 5"),
-    (dict(sampler="stratified"), "item 5"),
+    (dict(sampler="pmj02bn"), "sampler"),
+    (dict(sampler="bogus"), "sampler"),
+    (dict(indirect="bogus"), "indirect"),
 ])
 def test_volpath_out_of_scope_raises(over, match):
+    """Texture filtering is not ported (NotImplementedError, naming ROADMAP
+    Queue 1 item 5); a strategy, sampler or indirect mode the reference
+    does not know raises ValueError instead of falling back."""
     scene, cam = _tiny()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         tvp.render_volpath(scene, cam, 4, 4, tvp.VolPathConfig(spp=1, **over))
 
 
