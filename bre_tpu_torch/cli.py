@@ -9,9 +9,8 @@ caller asks for the CPU) and --kernel (the photon-beam estimator: "bre",
 or "compat" for the reference renderer's own).  The flow is pbrtInit ->
 ParseFile -> render -> write (api.cpp:1361-1417).  The port renders the
 integrators photonbeam, vsppm (``--kernel compat`` takes the reference
-renderer's quirks, else the physical kernel), and volpath, path, whitted
-and directlighting; bdpt and mlt print that they are not ported and
-return 1.
+renderer's quirks, else the physical kernel), volpath, path, whitted,
+directlighting, bdpt and mlt: every integrator bre_tpu/cli.py renders.
 """
 
 from __future__ import annotations
@@ -25,6 +24,8 @@ from typing import Optional
 import numpy as np
 
 from .core.samplers import KINDS
+from .integrators.bdpt import BDPTConfig, render_bdpt
+from .integrators.mlt import MLTConfig, render_mlt
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam
 from .integrators.volpath import VolPathConfig, render_volpath
 from .integrators.vsppm import VSPPMConfig, render_vsppm
@@ -32,8 +33,6 @@ from .io.image import write_image
 from .scene.cat import cat_scene
 from .scene.parser import ParsedScene, parse_file
 
-# integrators bre_tpu/cli.py renders that the port does not
-_NOT_PORTED = ("bdpt", "mlt")
 _VOLPATH_FAMILY = ("volpath", "path", "whitted", "directlighting")
 
 
@@ -93,6 +92,14 @@ def vsppm_config(ps: ParsedScene, quick: bool = False,
     )
 
 
+def _pixelsamples(ps: ParsedScene) -> int:
+    """The Sampler's pixelsamples, 16 where the file gives none."""
+    v = ps.sampler_params.get("pixelsamples")
+    if isinstance(v, (int, float, list)):
+        return int(v[0] if isinstance(v, list) else v)
+    return 16
+
+
 def volpath_config(ps: ParsedScene, quick: bool = False) -> VolPathConfig:
     """The VolPathConfig of a volpath, path, whitted or directlighting
     Integrator line, as bre_tpu/cli.py:129-156 builds it: the Sampler's
@@ -104,10 +111,7 @@ def volpath_config(ps: ParsedScene, quick: bool = False) -> VolPathConfig:
     p = ps.integrator_params
     geti, _ = _getters(p)
     name = ps.integrator_name
-    spp = 16
-    if isinstance(ps.sampler_params.get("pixelsamples"), (int, float, list)):
-        v = ps.sampler_params["pixelsamples"]
-        spp = int(v[0] if isinstance(v, list) else v)
+    spp = _pixelsamples(ps)
     return VolPathConfig(
         maxdepth=geti("maxdepth", 5), spp=max(1, spp // (16 if quick else 1)),
         sampler=ps.sampler_name if ps.sampler_name in KINDS else "random",
@@ -118,6 +122,32 @@ def volpath_config(ps: ParsedScene, quick: bool = False) -> VolPathConfig:
         else "full",
         samplealllights=(name == "directlighting" and str(
             p.get("strategy", "all")).strip('"') == "all"),
+    )
+
+
+def bdpt_config(ps: ParsedScene, quick: bool = False) -> BDPTConfig:
+    """The BDPTConfig of a bdpt Integrator line, as bre_tpu/cli.py:157-166
+    builds it: maxdepth, and pixelsamples (16 by default; ``quick`` divides
+    it by 16).  The sampler stays "random", whatever the file's Sampler,
+    as there."""
+    geti, _ = _getters(ps.integrator_params)
+    return BDPTConfig(maxdepth=geti("maxdepth", 5),
+                      spp=max(1, _pixelsamples(ps) // (16 if quick else 1)))
+
+
+def mlt_config(ps: ParsedScene, quick: bool = False) -> MLTConfig:
+    """The MLTConfig of an mlt Integrator line, as bre_tpu/cli.py:167-178
+    builds it; ``quick`` divides bootstrapsamples and mutationsperpixel by
+    16."""
+    geti, getf = _getters(ps.integrator_params)
+    q = 16 if quick else 1
+    return MLTConfig(
+        maxdepth=geti("maxdepth", 5),
+        bootstrapsamples=geti("bootstrapsamples", 4096) // q,
+        chains=geti("chains", 256),
+        mutationsperpixel=max(1, geti("mutationsperpixel", 100) // q),
+        largestepprobability=getf("largestepprobability", 0.3),
+        sigma=getf("sigma", 0.01),
     )
 
 
@@ -199,10 +229,7 @@ def main(argv=None) -> int:
         )
 
     name = ps.integrator_name
-    if name in _NOT_PORTED:
-        print(f"error: integrator '{name}' is not ported (ROADMAP Queue 1 "
-              "item 4)", file=sys.stderr)
-        return 1
+    stats = {}
     if name == "photonbeam":
         cfg = photonbeam_config(ps, quick=args.quick, kernel=args.kernel)
         img, stats = render_photonbeam(scene, ps.camera, ps.width, ps.height,
@@ -213,7 +240,12 @@ def main(argv=None) -> int:
     elif name in _VOLPATH_FAMILY:
         cfg = volpath_config(ps, quick=args.quick)
         img = render_volpath(scene, ps.camera, ps.width, ps.height, cfg)
-        stats = {}
+    elif name == "bdpt":
+        img = render_bdpt(scene, ps.camera, ps.width, ps.height,
+                          bdpt_config(ps, quick=args.quick))
+    elif name == "mlt":
+        img = render_mlt(scene, ps.camera, ps.width, ps.height,
+                         mlt_config(ps, quick=args.quick))
     else:
         print(f"error: integrator '{name}' not supported yet", file=sys.stderr)
         return 1

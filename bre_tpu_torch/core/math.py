@@ -21,8 +21,10 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     always add in that order, and near-parallel beam pairs (``a e - b^2``
     cancelling) turn that last bit into a different closest point: on the
     card the recompute backward then missed the kernels' beam-power
-    cotangents by 1.4e-3 of their max."""
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    cotangents by 1.4e-3 of their max.  The products are one elementwise
+    multiply (the same rounding), so a dot is three kernels."""
+    ab = a * b
+    return ab[..., 0] + ab[..., 1] + ab[..., 2]
 
 
 def absdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,3 +79,30 @@ def offset_ray_origin(p: torch.Tensor, n: torch.Tensor, d: torch.Tensor,
     fixed-epsilon float32 form)."""
     scale = torch.clamp_min(p.abs().amax(-1), 1.0)
     return p + (eps * scale)[..., None] * face_forward(n, d)
+
+
+_PIECE = 256  # entries per partial sum of ordered_index_sum
+
+
+def ordered_index_sum(ids: torch.Tensor, vals: torch.Tensor,
+                      n_rows: int) -> torch.Tensor:
+    """``zeros(n_rows, c).index_add_(0, ids, vals)`` in a fixed order,
+    without atomics, so two runs on a card give the same bits: the ids are
+    sorted stably, the sorted run is cut at every change of id and every
+    ``_PIECE`` entries, each piece is summed (``segment_reduce``), and each
+    row sums its pieces in order.  ids (n,) int64, vals (n, c)."""
+    n = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    cut = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    cut[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    cut[::_PIECE] = True
+    starts = torch.nonzero(cut).reshape(-1)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    pieces = torch.segment_reduce(vals[order], "sum", lengths=ends - starts)
+    rows, counts = torch.unique_consecutive(sorted_ids[starts],
+                                            return_counts=True)
+    out = torch.zeros((n_rows, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    out[rows] = torch.segment_reduce(pieces, "sum", lengths=counts)
+    return out

@@ -184,10 +184,16 @@ def camera_jitter(sampler: str, pixel_idx: torch.Tensor, sample_idx,
                   n_samples: int, rng: PCG32State):
     """2D film jitter of a pixel sampler (samplers.py:434-490): (rng, (R,2)
     in [0,1)).  Two draws of the pixel's stream for every kind; the
-    low-discrepancy kinds scramble per pixel from ``RNG(pixel_idx)``."""
+    low-discrepancy kinds scramble per pixel from ``RNG(pixel_idx)``.
+    ``sample_idx`` is one int for the batch, as in the reference, or an
+    (R,) tensor: each lane's own sample, where several samples' passes
+    walk together."""
     R = pixel_idx.shape[0]
-    idx = torch.full((R,), int(sample_idx) & _MASK32, dtype=torch.int64,
-                     device=pixel_idx.device)
+    if isinstance(sample_idx, torch.Tensor):
+        idx = _u32(sample_idx).to(pixel_idx.device).expand(R)
+    else:
+        idx = torch.full((R,), int(sample_idx) & _MASK32, dtype=torch.int64,
+                         device=pixel_idx.device)
     rng, s0 = pcg32_next_f32(rng)
     rng, s1 = pcg32_next_f32(rng)
     if sampler in ("sobol", "maxmindist", "02sequence"):

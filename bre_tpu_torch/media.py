@@ -22,7 +22,7 @@ import torch
 
 from .core import transform as tfm
 from .core.math import (INV_4PI, PI, coordinate_system, dot, length,
-                        spherical_direction_basis)
+                        ordered_index_sum, spherical_direction_basis)
 from .core.rng import PCG32State, pcg32_advance, pcg32_next_f32
 from .core.samplers import stream_1d, stream_rng, stream_with_rng
 from .scene.scene import MEDIUM_GRID, Media
@@ -92,16 +92,12 @@ def gather_medium(media: Media, med_idx: torch.Tensor):
 
 class _RowGather(torch.autograd.Function):
     """``tab[ids]`` whose backward sums the cotangents of each row in a
-    fixed order, without atomics: the ids are sorted stably, the sorted run
-    is cut at every change of id and every ``PIECE`` entries, each piece is
-    summed (``segment_reduce``), and each row sums its pieces in order.
+    fixed order, without atomics (``core.math.ordered_index_sum``).
     Indexing's own backward (``index_put_`` with accumulate) is
     deterministic too, but on a card it adds each run of equal ids one
     entry after another, and the points that fall outside the grid clamp
     onto a few border rows: runs of millions of entries.  In a config-3
     step that scatter took 56% of the device time (PERF.md, PR 3)."""
-
-    PIECE = 256
 
     @staticmethod
     def forward(ctx, tab, ids):
@@ -113,22 +109,8 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         flat = ids.reshape(-1)
-        n = flat.shape[0]
-        order = torch.argsort(flat, stable=True)
-        sorted_ids = flat[order]
-        cut = torch.ones((n,), dtype=torch.bool, device=flat.device)
-        cut[1:] = sorted_ids[1:] != sorted_ids[:-1]
-        cut[::_RowGather.PIECE] = True
-        starts = torch.nonzero(cut).reshape(-1)
-        ends = torch.cat([starts[1:], starts.new_full((1,), n)])
-        pieces = torch.segment_reduce(grad.reshape(n, -1)[order], "sum",
-                                      lengths=ends - starts)
-        rows, counts = torch.unique_consecutive(sorted_ids[starts],
-                                                return_counts=True)
-        out = torch.zeros((ctx.n_rows, pieces.shape[1]), dtype=grad.dtype,
-                          device=grad.device)
-        out[rows] = torch.segment_reduce(pieces, "sum", lengths=counts)
-        return out, None
+        return ordered_index_sum(flat, grad.reshape(flat.shape[0], -1),
+                                 ctx.n_rows), None
 
 
 def grid_density(density: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -300,17 +282,23 @@ def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
 
 
 def sample_medium(media: Media, med_idx, o, d, t_max, rng: PCG32State,
-                  max_steps: int = 256, early_exit: bool = True):
+                  max_steps: int = 256, early_exit: bool = True, u12=None):
     """Medium::Sample over the media table: two draws per lane (channel,
     distance) for the homogeneous sample, then, when the scene has a grid
     medium, the batch-wide grid tracking on the raw streams
     (``stream_rng``) for every lane, in the form ``early_exit`` picks (the
     reference's default is the fixed-trip form; its photon-beam render
-    asks for the early-exit one, the port's default).  Vacuum lanes pass
-    through unweighted.  Returns (rng, MediumSample, n_overflow)."""
+    asks for the early-exit one, the port's default).  ``u12`` (R,2), where
+    given, replaces the two draws (media.py:348-371: a primary-sample
+    caller's columns); the grid tracking still draws from the streams.
+    Vacuum lanes pass through unweighted.  Returns (rng, MediumSample,
+    n_overflow)."""
     sigma_a, sigma_s, _, is_grid, in_medium = gather_medium(media, med_idx)
-    rng, u1 = stream_1d(rng)
-    rng, u2 = stream_1d(rng)
+    if u12 is None:
+        rng, u1 = stream_1d(rng)
+        rng, u2 = stream_1d(rng)
+    else:
+        u1, u2 = u12[..., 0], u12[..., 1]
     hs = sample_homogeneous(sigma_a, sigma_s, d, t_max, u1, u2)
     if media.density.numel() > 1:  # the scene has a grid medium
         raw, gs, n_overflow = sample_grid(media, sigma_a, sigma_s, o, d,

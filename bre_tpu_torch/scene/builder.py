@@ -3,10 +3,11 @@
 The slice's subset: homogeneous and grid-density media (one grid per
 scene), matte materials, spheres, triangles (with per-vertex shading
 normals, and pbrt's ``ss = normalize(dpdu)`` tangent from the UVs), quads,
-boxes, point lights and triangle area lights.  Parameter names and the
-numpy arithmetic match the reference, so ``build()`` yields the same values
-as ``scene_from_jax(bre_tpu SceneBuilder.build())``.  What the slice cannot
-render (textured materials, emitting spheres) raises NotImplementedError.
+boxes, point lights and diffuse area lights on triangles and spheres.
+Parameter names and the numpy arithmetic match the reference, so
+``build()`` yields the same values as ``scene_from_jax(bre_tpu
+SceneBuilder.build())``.  What the slice cannot render (textured materials)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import numpy as np
 import torch
 
 from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_POINT, MAT_MATTE, MEDIUM_GRID,
-                    MEDIUM_HOMOGENEOUS, SHAPE_TRIANGLE, Lights, Materials,
-                    Media, Scene, Spheres, Triangles, resolve_device)
+                    MEDIUM_HOMOGENEOUS, SHAPE_SPHERE, SHAPE_TRIANGLE, Lights,
+                    Materials, Media, Scene, Spheres, Triangles, resolve_device)
 
 
 def _rgb(v) -> np.ndarray:
@@ -72,10 +73,11 @@ class SceneBuilder:
 
     # --- shapes (reference src/shapes/{sphere,triangle}.cpp) ---
     def sphere(self, center=(0, 0, 0), radius=1.0, material: int = -1,
-               medium_inside: int = -1, medium_outside: int = -1) -> int:
+               medium_inside: int = -1, medium_outside: int = -1,
+               _area_light: int = -1) -> int:
         self._sph.append(dict(center=_rgb(center), radius=float(radius),
                               material=material, mi=medium_inside,
-                              mo=medium_outside, al=-1))
+                              mo=medium_outside, al=_area_light))
         return len(self._sph) - 1
 
     def triangle(self, p0, p1, p2, material: int = -1, medium_inside: int = -1,
@@ -142,9 +144,16 @@ class SceneBuilder:
     def area_light_sphere(self, center, radius, radiance, material: int = -1,
                           two_sided=False, medium: int = -1,
                           medium_inside: int = -1) -> int:
-        raise NotImplementedError(
-            "sphere area lights are not ported (ROADMAP Queue 1 item 5: "
-            "breadth, lights)")
+        """Diffuse area light over a sphere (src/lights/diffuse.cpp);
+        returns the light id."""
+        light_id = len(self._light)
+        sidx = self.sphere(center, radius, material=material,
+                           _area_light=light_id, medium_inside=medium_inside,
+                           medium_outside=medium)
+        return self._add_light(
+            ltype=LIGHT_DIFFUSE_AREA, position=_rgb(center),
+            emit=_rgb(radiance), shape_kind=SHAPE_SPHERE, shape_index=sidx,
+            two_sided=int(two_sided), medium=medium)
 
     def area_light_quad(self, p0, p1, p2, p3, radiance, material: int = -1,
                         two_sided=False, medium: int = -1) -> int:

@@ -15,9 +15,8 @@ Three kinds of input, as the reference treats them and as the port must:
   know either: warn and skip, or fall back (matte, a point light,
   perspective), exactly as the reference does;
 - what the reference builds and the port cannot render (materials other
-  than matte, textures, lights other than point and triangle area lights,
-  emitting spheres, the analytic and subdivision shapes, cameras other
-  than perspective): NotImplementedError naming the ROADMAP Queue 1 item,
+  than matte, textures, lights other than point and diffuse area lights,
+  the analytic and subdivision shapes, cameras other than perspective): NotImplementedError naming the ROADMAP Queue 1 item,
   never a silent skip that would render another scene;
 - everything else: built as the reference builds it.
 """

@@ -4,9 +4,9 @@
 NamedTuples of tensors with integer tags; -1 means "none" (no material,
 vacuum, no area light).  Ids are int64 so they index directly; positions,
 colors and parameters are float32.  Only the fields the ported slice reads
-are carried: matte materials, point and triangle-area lights, homogeneous
-and grid-density media (at most one grid, as the reference's builder
-allows), spheres and triangles swept densely.
+are carried: matte materials, point lights and triangle and sphere area
+lights, homogeneous and grid-density media (at most one grid, as the
+reference's builder allows), spheres and triangles swept densely.
 
 ``scene_from_jax`` turns a ``bre_tpu`` Scene into this one, so tests can feed
 both packages identical inputs; ``check_slice`` raises ``NotImplementedError``
@@ -153,11 +153,12 @@ def check_slice(scene: Scene) -> None:
             "breadth, materials and textures)")
     L = scene.lights
     point = L.ltype == LIGHT_POINT
-    tri_area = (L.ltype == LIGHT_DIFFUSE_AREA) & (L.shape_kind == SHAPE_TRIANGLE)
-    if bool((~(point | tri_area)).any()):
+    area = (L.ltype == LIGHT_DIFFUSE_AREA) & (
+        (L.shape_kind == SHAPE_TRIANGLE) | (L.shape_kind == SHAPE_SPHERE))
+    if bool((~(point | area)).any()):
         raise NotImplementedError(
-            "only point and triangle-area lights are ported (ROADMAP Queue 1: "
-            "breadth, lights)")
+            "only point lights and triangle and sphere area lights are ported "
+            "(ROADMAP Queue 1: breadth, lights)")
     mt = scene.media.mtype
     if bool(((mt != MEDIUM_HOMOGENEOUS) & (mt != MEDIUM_GRID)).any()):
         raise NotImplementedError("unknown medium type tag")

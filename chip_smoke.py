@@ -215,6 +215,25 @@ its own failure and nothing falls back to the CPU or a plain version):
      then directlighting (its halton sampler, 8 spp, the spatial
      strategy): finite images, volpath's mean within 5% of (c)'s; s/spp.
 
+ Bidirectional path tracing, MLT and the spectral mode (no kernel
+ launches: the reference runs them as XLA code):
+ 32. (a) cli.main on tests/data/bdpt_golden.pbrt as written (32x32, 64
+     spp, maxdepth 4): channel means within 1.5% and 4x4 region means
+     within 6% of the C++ reference's bdpt_golden.pfm
+     (tests/test_torch_bdpt_golden.py's gate); wall s and s/spp; (b) the
+     same scene at 256x256 x 16 spp through render_bdpt, twice: the two
+     images bit-identical (the sorted-segment splats), s/spp, lanes per
+     batch, peak memory; (c) tests/test_bdpt.py's fog shell lit by a
+     small sphere light at 64x64, bdpt (16 spp, maxdepth 5) against
+     volpath (64 spp, maxdepth 6): means within 10%; (d) render_mlt on
+     tests/test_mlt.py's lit sphere at 64x64 with the reference's 256
+     chains, 4,096 bootstrap samples and 16 mutations per pixel (maxdepth
+     5): the mean within 0.97 +- 0.06, s per chain step; cli.main on the
+     golden scene's text as mlt with --quick; (e) render_volpath_spectral
+     on tests/test_spectral.py's gray fog at 64x64 x 16 spp (stratified,
+     maxdepth 4): the ratio of means to the RGB render within 2%, the
+     time of each.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -2754,6 +2773,166 @@ def phase_photon_mapping(dev, card):
     return out
 
 
+BDPT_GOLDEN_PBRT = os.path.join(ROOT, "tests", "data", "bdpt_golden.pbrt")
+BDPT_GOLDEN_PFM = os.path.join(ROOT, "tests", "data", "bdpt_golden.pfm")
+# tests/test_mlt.py:27-40: the analytic sphere's equilibrium radiance is 1;
+# maxdepth 5 truncates it to about 0.97, and the Metropolis variance at
+# the reference's budget stays within 0.06
+MLT_MEAN, MLT_ATOL = 0.97, 0.06
+
+
+def _fog_shell(dev):
+    """tests/test_bdpt.py:75-101: a matte shell filled with fog, lit by a
+    small two-sided sphere light inside it; the camera in the fog."""
+    b = SceneBuilder()
+    med = b.homogeneous_medium((0.1,) * 3, (0.6,) * 3, 0.0)
+    m = b.matte((0.5, 0.5, 0.5))
+    b.sphere((0, 0, 0), 1.0, material=m, medium_inside=med)
+    b.area_light_sphere((0.0, 0.4, 0.5), 0.15, (4.0,) * 3, material=m,
+                        two_sided=True, medium=med)
+    b.camera_medium = med
+    return b.build(device=dev)
+
+
+def _lit_sphere(dev):
+    """tests/test_mlt.py:27-40: a matte sphere lit from its center by a
+    point light of intensity pi."""
+    b = SceneBuilder()
+    b.sphere((0, 0, 0), 1.0, material=b.matte((0.5, 0.5, 0.5)))
+    b.point_light((0, 0, 0), (np.pi,) * 3)
+    return b.build(device=dev)
+
+
+def phase_bidirectional(dev, card):
+    """32. Bidirectional path tracing, MLT and the spectral mode; see the
+    module docstring.  No kernel may launch in the phase."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_bdpt_golden import bdpt_gate_check
+    from bre_tpu_torch.integrators import bdpt as BD
+    from bre_tpu_torch.integrators import mlt as ML
+    from bre_tpu_torch.integrators.spectral import render_volpath_spectral
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+    from bre_tpu_torch.lights import light_choice_pmf
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    every = KERNELS + HET_KERNELS + TWOPASS_KERNELS
+    reset_launches()
+    # (a) the golden gate through the CLI, at the file's own settings
+    with open(BDPT_GOLDEN_PBRT) as f:
+        golden_text = f.read()
+    wall, _, img = _cli_text_run(golden_text, "bdpt_golden", [],
+                                 "bdpt golden scene")
+    rel = bdpt_gate_check(img)
+    log(f"[bdpt] (a) cli.main bdpt_golden.pbrt (32x32, 64 spp, maxdepth 4): "
+        f"{wall:.3f} s wall, {wall / 64:.5f} s/spp; channel means "
+        f"{[f'{100 * r:+.2f}%' for r in rel['means']]} (limit 1.5%), region "
+        f"max {100 * rel['region_max']:.2f}% (limit 6%) ({card})")
+    out["golden"] = dict(wall_s=wall, s_per_spp=wall / 64, rel=rel)
+    # (b) the same scene at 256x256 x 16 spp, twice: the same bits
+    W = 256
+    text = golden_text.replace("[ 32 ]", f"[ {W} ]").replace("[ 64 ]", "[ 16 ]")
+    ps = PARSER.parse_string(text, device=dev)
+    assert (ps.width, ps.height) == (W, W)
+    scene = ps.build(device=dev)
+    cfg = BD.BDPTConfig(maxdepth=4, spp=16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [_timed(lambda: BD.render_bdpt(scene, ps.camera, W, W, cfg))
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    (img_b, t_b), (img_b2, t_b2) = runs
+    lanes = min(cfg.spp, BD.SAMPLE_LANES // (W * W)) * W * W
+    same = bool(torch.equal(img_b, img_b2))
+    log(f"[bdpt] (b) {W}x{W} x {cfg.spp} spp (maxdepth 4, "
+        f"{W * W * cfg.spp:,} lanes, {lanes:,} per batch): {t_b:.3f} s, "
+        f"again {t_b2:.3f} s ({t_b2 / cfg.spp:.4f} s/spp), peak {peak:.3f} "
+        f"GiB, mean {float(img_b.mean()):.5f}, two runs bit-identical: "
+        f"{same} ({card})")
+    if not (same and bool(torch.isfinite(img_b).all())):
+        raise AssertionError("bdpt at 256x256: two runs differ or the image "
+                             "is not finite")
+    out["size_256"] = dict(s=[t_b, t_b2], s_per_spp=t_b2 / cfg.spp,
+                           lanes_per_batch=lanes, peak_gib=peak,
+                           mean=float(img_b.mean()))
+    # (c) medium vertices against the volpath oracle
+    W = 64
+    shell = _fog_shell(dev)
+    cam = make_perspective_camera(tfm.look_at((0, 0, 0), (0, 0, 1),
+                                              (0, 1, 0)), 60.0, W, W,
+                                  device=dev)
+    img_c, t_c = _timed(lambda: BD.render_bdpt(
+        shell, cam, W, W, BD.BDPTConfig(maxdepth=5, spp=16)))
+    truth, t_v = _timed(lambda: render_volpath(
+        shell, cam, W, W, VolPathConfig(maxdepth=6, spp=64)))
+    rel_c = float(img_c.mean() / truth.mean() - 1.0)
+    log(f"[bdpt] (c) fog shell, sphere light, 64x64: bdpt 16 spp maxdepth 5 "
+        f"{t_c:.3f} s ({t_c / 16:.4f} s/spp), volpath 64 spp maxdepth 6 "
+        f"{t_v:.3f} s; means {float(img_c.mean()):.5f} / "
+        f"{float(truth.mean()):.5f} ({100 * rel_c:+.2f}%, limit 10%) ({card})")
+    if not (bool(torch.isfinite(img_c).all()) and abs(rel_c) < 0.1):
+        raise AssertionError(f"bdpt against volpath in fog: {rel_c}")
+    out["media"] = dict(s=t_c, s_per_spp=t_c / 16, volpath_s=t_v,
+                        rel_mean=rel_c)
+    # (d) MLT at the reference's chains and bootstrap
+    sphere = _lit_sphere(dev)
+    mcfg = ML.MLTConfig(maxdepth=5, bootstrapsamples=4096, chains=256,
+                        mutationsperpixel=16)
+    _, t_boot = _timed(lambda: ML.bootstrap(sphere, cam, W, W, mcfg,
+                                            light_choice_pmf(sphere)))
+    img_d, t_d = _timed(lambda: ML.render_mlt(sphere, cam, W, W, mcfg))
+    steps = -(-mcfg.mutationsperpixel * W * W // mcfg.chains)
+    per_step = (t_d - t_boot) / steps
+    mean_d = float(img_d.mean())
+    log(f"[mlt] (d) lit sphere 64x64, maxdepth 5, 4,096 bootstrap x 6 "
+        f"depths, 256 chains, 16 mutations per pixel ({steps} steps): "
+        f"{t_d:.3f} s (bootstrap {t_boot:.3f} s, {per_step:.4f} s per chain "
+        f"step); mean {mean_d:.5f} (limit {MLT_MEAN} +- {MLT_ATOL}) ({card})")
+    if not (bool(torch.isfinite(img_d).all())
+            and abs(mean_d - MLT_MEAN) < MLT_ATOL):
+        raise AssertionError(f"mlt on the lit sphere: mean {mean_d}")
+    out["mlt"] = dict(s=t_d, bootstrap_s=t_boot, steps=steps,
+                      s_per_step=per_step, mean=mean_d)
+    text = golden_text.replace('Integrator "bdpt"', 'Integrator "mlt"')
+    wall, _, img = _cli_text_run(text, "mlt_golden", ["--quick"],
+                                 "cli mlt --quick")
+    log(f"[mlt] (d) cli.main on bdpt_golden.pbrt as mlt --quick (256 "
+        f"bootstrap, 256 chains, 6 mutations per pixel): {wall:.3f} s wall, "
+        f"mean {float(img.mean()):.5f} against the bdpt golden's "
+        f"{float(IMG.read_image(BDPT_GOLDEN_PFM).mean()):.5f} "
+        f"({card})")
+    out["cli_mlt"] = dict(wall_s=wall, mean=float(img.mean()))
+    # (e) the spectral mode on tests/test_spectral.py's gray fog
+    b = SceneBuilder()
+    fog = b.homogeneous_medium((0.05,) * 3, (0.4,) * 3, 0.0)
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=fog,
+          medium_outside=-1)
+    b.quad((-3, -3, 3), (-3, 3, 3), (3, 3, 3), (3, -3, 3),
+           material=b.matte((0.5, 0.5, 0.5)))
+    b.point_light((0, 0.3, 0), (1.0, 1.0, 1.0), medium=fog)
+    gray = b.build(device=dev)
+    cam_e = make_perspective_camera(tfm.look_at((0, 0, -3.5), (0, 0, 0),
+                                                (0, 1, 0)), 40.0, W, W,
+                                    device=dev)
+    vcfg = VolPathConfig(maxdepth=4, spp=16, sampler="stratified")
+    rgb, t_rgb = _timed(lambda: render_volpath(gray, cam_e, W, W, vcfg))
+    spec, t_spec = _timed(lambda: render_volpath_spectral(gray, cam_e, W, W,
+                                                          vcfg))
+    ratio = float(spec.mean() / rgb.mean())
+    log(f"[spectral] (e) gray fog 64x64 x 16 spp stratified, maxdepth 4: "
+        f"spectral {t_spec:.3f} s against RGB {t_rgb:.3f} s "
+        f"({t_spec / t_rgb:.1f}x); ratio of means {ratio:.5f} (limit 1 +- "
+        f"0.02) ({card})")
+    if not (bool(torch.isfinite(spec).all()) and abs(ratio - 1.0) < 0.02):
+        raise AssertionError(f"spectral against RGB: ratio {ratio}")
+    out["spectral"] = dict(s=t_spec, rgb_s=t_rgb, ratio=ratio)
+    counts = launches(every)
+    if any(counts.values()):
+        raise AssertionError(f"phase 32 launched kernels: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[bdpt] phase 32 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2808,6 +2987,7 @@ def main():
     report["cli"] = phase_cli(dev, img_cli2)
     report["compat_volpath"] = phase_compat_volpath(dev, report["card"])
     report["photon_mapping"] = phase_photon_mapping(dev, report["card"])
+    report["bidirectional"] = phase_bidirectional(dev, report["card"])
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run

@@ -7,9 +7,9 @@ both CLIs hand render_photonbeam the same config field for field, the same
 scene (bit for bit) and the same camera (1e-6, as in
 tests/test_torch_parser.py); with a crop window and a film scale both write
 byte-identical .pfm, .exr and .png files; --cat and --toply print the same
-text; vsppm and the volpath family get the same configs and render a
-16x16 scene; the integrators the port lacks (bdpt, mlt) return 1 with a
-message naming their ROADMAP item; a missing scene returns 1."""
+text; vsppm, the volpath family, bdpt and mlt get the same configs and
+render a 16x16 scene; an integrator neither CLI renders returns 1, as
+bre_tpu's does; a missing scene returns 1."""
 
 import dataclasses
 import os
@@ -21,6 +21,8 @@ import torch
 from pathlib import Path
 
 from bre_tpu import cli as jcli
+from bre_tpu.integrators import bdpt as jbd
+from bre_tpu.integrators import mlt as jml
 from bre_tpu.integrators import photonbeam as jpb
 from bre_tpu.integrators import volpath as jvp
 from bre_tpu.integrators import vsppm as jvs
@@ -125,18 +127,27 @@ UNPORTED = {"bdpt": "tests/data/bdpt_golden.pbrt", "mlt": None}
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_cli_unported_integrators_return_1(name, tmp_path, capsys):
+    """bdpt and mlt are no longer refused: with --quick the port's CLI
+    renders them on the CPU and writes the image.  What both CLIs still
+    refuse is an integrator neither renders: 1, bre_tpu's message, no
+    image."""
     path = UNPORTED[name]
     if path is None:
         path = tmp_path / "s.pbrt"
         path.write_text(FILM.replace('"photonbeam"', f'"{name}"'))
     else:
         path = os.path.join(ROOT, path)
-    assert tcli.main([str(path), "--device", "cpu", "-o",
-                      str(tmp_path / "x.pfm")]) == 1
-    err = capsys.readouterr().err
-    assert (f"error: integrator '{name}' is not ported (ROADMAP Queue 1 "
-            "item 4)") in err
-    assert not (tmp_path / "x.pfm").exists()
+    assert tcli.main([str(path), "--device", "cpu", "--quick", "--quiet",
+                      "-o", str(tmp_path / "x.pfm")]) == 0
+    assert np.isfinite(read_image(str(tmp_path / "x.pfm"))).all()
+    other = tmp_path / "other.pbrt"
+    other.write_text(FILM.replace('"photonbeam"', f'"{name}_v4"'))
+    for main in (tcli.main, jcli.main):
+        assert main([str(other), "-o", str(tmp_path / "y.pfm")]
+                    + (["--device", "cpu"] if main is tcli.main else [])) == 1
+        err = capsys.readouterr().err
+        assert f"error: integrator '{name}_v4' not supported yet" in err
+    assert not (tmp_path / "y.pfm").exists()
 
 
 # the vsppm golden scene at 16x16 (a fog cube with a point light in it
@@ -151,8 +162,13 @@ INTEGRATOR = {
             '"power"',
     "whitted": '"whitted" "integer maxdepth" [ 3 ]',
     "directlighting": '"directlighting" "integer maxdepth" [ 3 ]',
+    "bdpt": '"bdpt" "integer maxdepth" [ 3 ]',
+    "mlt": '"mlt" "integer maxdepth" [ 3 ] "integer bootstrapsamples" [ 64 ]'
+           ' "integer chains" [ 32 ] "integer mutationsperpixel" [ 3 ]'
+           ' "float largestepprobability" [ 0.4 ] "float sigma" [ 0.02 ]',
 }
-RENDERERS = {"vsppm": (jvs, "render_vsppm"), "volpath": (jvp, "render_volpath")}
+RENDERERS = {"vsppm": (jvs, "render_vsppm"), "volpath": (jvp, "render_volpath"),
+             "bdpt": (jbd, "render_bdpt"), "mlt": (jml, "render_mlt")}
 
 
 def _small_scene(tmp_path, name, sampler='"halton" "integer pixelsamples" 2'):
@@ -165,11 +181,11 @@ def _small_scene(tmp_path, name, sampler='"halton" "integer pixelsamples" 2'):
 @pytest.mark.parametrize("name", sorted(INTEGRATOR))
 def test_cli_hands_sample_integrators_the_same_inputs(name, tmp_path,
                                                       monkeypatch):
-    """vsppm and the volpath family, --quick and not: both CLIs hand their
-    render the same config field for field, scene and camera (the renders
-    replaced by recorders)."""
+    """vsppm, the volpath family, bdpt and mlt, --quick and not: both CLIs
+    hand their render the same config field for field, scene and camera
+    (the renders replaced by recorders)."""
     calls = {}
-    family = "vsppm" if name == "vsppm" else "volpath"
+    family = name if name in RENDERERS else "volpath"
     mod, fn = RENDERERS[family]
 
     def fake(key, to_tensor, with_stats):
@@ -194,6 +210,11 @@ def test_cli_hands_sample_integrators_the_same_inputs(name, tmp_path,
         assert_cameras_equal(cam, jcam)
     if family == "volpath":
         assert cfg.sampler == "sobol" and cfg.spp == 4
+    if family == "bdpt":  # the Sampler's kind is not read, as in bre_tpu
+        assert cfg.sampler == "random" and cfg.spp == 4
+    if family == "mlt":
+        assert (cfg.bootstrapsamples, cfg.chains, cfg.mutationsperpixel) == (
+            4, 32, 1)
     assert tcli.vsppm_config(tparse(path, device="cpu"),
                              kernel="compat").kernel == "compat"
 

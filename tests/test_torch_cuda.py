@@ -688,3 +688,81 @@ def test_photonmap_and_spatial_volpath_on_card_match_cpu(dev):
         assert bool(torch.isfinite(a).all()) and float(b.mean()) > 0
         assert float((a.mean() / b.mean() - 1).abs()) < 1e-3
         _pixels_close(a, b)
+
+
+def _region_means(img):
+    return img.reshape(4, img.shape[0] // 4, 4, img.shape[1] // 4,
+                       3).mean((1, 3))
+
+
+def test_bdpt_and_mlt_on_card_match_cpu(dev, monkeypatch):
+    """render_bdpt (the fog shell lit by a sphere light, 16x16, 4 spp,
+    maxdepth 3) and render_mlt (the sphere lit by a point light, 16x16,
+    maxdepth 3, 256 bootstrap samples, 32 chains, 4 mutations per pixel;
+    and the fog shell at 2 mutations per pixel, whose graph holds the
+    medium vertices) on the card against the CPU, same seeds: the means
+    within 1e-3, the 4x4 region means within rtol 1e-3 (a splat near a
+    pixel edge may land in the neighbouring pixel), 99% of the pixels
+    within rtol 1e-3; two card runs of each give the same bits (the
+    sorted-segment splats), and MLT's CUDA-graph chain steps the bits of
+    its eager steps."""
+    from bre_tpu_torch.integrators import mlt as ML
+    from bre_tpu_torch.integrators.bdpt import BDPTConfig, render_bdpt
+    from bre_tpu_torch.integrators.mlt import MLTConfig, render_mlt
+
+    W = 16
+
+    def fog(d):
+        b = SceneBuilder()
+        med = b.homogeneous_medium((0.1,) * 3, (0.6,) * 3, 0.0)
+        m = b.matte((0.5, 0.5, 0.5))
+        b.sphere((0, 0, 0), 1.0, material=m, medium_inside=med)
+        b.area_light_sphere((0.0, 0.4, 0.5), 0.15, (4.0,) * 3, material=m,
+                            two_sided=True, medium=med)
+        b.camera_medium = med
+        return b.build(device=d)
+
+    def point(d):
+        b = SceneBuilder()
+        b.sphere((0, 0, 0), 1.0, material=b.matte((0.5, 0.5, 0.5)))
+        b.point_light((0, 0, 0), (np.pi,) * 3)
+        return b.build(device=d)
+
+    runs = {"bdpt": (fog, lambda s, c: render_bdpt(
+        s, c, W, W, BDPTConfig(maxdepth=3, spp=4))),
+        "mlt": (point, lambda s, c: render_mlt(
+            s, c, W, W, MLTConfig(maxdepth=3, bootstrapsamples=256,
+                                  chains=32, mutationsperpixel=4))),
+        "mlt_fog": (fog, lambda s, c: render_mlt(
+            s, c, W, W, MLTConfig(maxdepth=3, bootstrapsamples=256,
+                                  chains=32, mutationsperpixel=2)))}
+    cards = {}
+    for name, (build, render) in runs.items():
+        out = []
+        for d in (dev, dev, torch.device("cpu")):
+            cam = make_perspective_camera(tfm.look_at((0, 0, 0), (0, 0, 1),
+                                                      (0, 1, 0)), 60.0, W, W,
+                                          device=d)
+            out.append(render(build(d), cam).cpu())
+        card, again, cpu = out
+        assert torch.equal(card, again), name
+        assert bool(torch.isfinite(card).all()) and float(cpu.mean()) > 0
+        assert float((card.mean() / cpu.mean() - 1).abs()) < 1e-3, name
+        np.testing.assert_allclose(_region_means(card.numpy()),
+                                   _region_means(cpu.numpy()), rtol=1e-3,
+                                   atol=1e-7, err_msg=name)
+        _pixels_close(card, cpu)
+        cards[name] = card
+
+    def eager_steps(scene, camera, w, h, depth, maxdepth, pmf, n_dims):
+        return lambda u, rng: ML._evaluate(scene, camera, w, h, u, depth,
+                                           rng, maxdepth, pmf)
+
+    # the graph replays the eager step's kernels in their order
+    monkeypatch.setattr(ML, "_step_evaluator", eager_steps)
+    cam = make_perspective_camera(tfm.look_at((0, 0, 0), (0, 0, 1),
+                                              (0, 1, 0)), 60.0, W, W,
+                                  device=dev)
+    for name in ("mlt", "mlt_fog"):
+        build, render = runs[name]
+        assert torch.equal(render(build(dev), cam).cpu(), cards[name]), name

@@ -223,6 +223,22 @@ AttributeBegin
 AttributeEnd
 """ + MESH + """WorldEnd
 """,
+    "area light sphere": HEAD + """WorldBegin
+MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [ .05 .05 .05 ] "rgb sigma_s" [ .5 .5 .5 ]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [ 1 1 1 ]
+  Shape "sphere"
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Translate 0.5 1 2
+  AreaLightSource "diffuse" "rgb L" [ 4 3 2 ] "bool twosided" "true"
+  Material "matte" "rgb Kd" [ .2 .3 .4 ]
+  Shape "sphere" "float radius" 0.25
+AttributeEnd
+""" + MESH + """WorldEnd
+""",
     "named materials": HEAD + """WorldBegin
 MakeNamedMaterial "red" "string type" "matte" "rgb Kd" [ .8 .1 .1 ]
 MakeNamedMaterial "plain" "rgb Kd" [ .4 .4 .4 ]
@@ -348,8 +364,6 @@ NOT_PORTED = {
     "texture": 'Texture "checks" "spectrum" "checkerboard"\n',
     **{f"light {lt}": f'LightSource "{lt}"\n' for lt in (
         "distant", "infinite", "spot", "goniometric", "projection")},
-    "area light sphere": ('AttributeBegin\nAreaLightSource "diffuse" '
-                          '"rgb L" [ 1 1 1 ]\nShape "sphere"\nAttributeEnd\n'),
     **{f"shape {s}": f'Shape "{s}"\n' for s in (
         "disk", "cylinder", "cone", "paraboloid", "hyperboloid", "curve",
         "loopsubdiv", "nurbs")},

@@ -102,9 +102,13 @@ def test_unported_content_raises():
     with pytest.raises(NotImplementedError, match="matte"):
         check_slice(scene_from_jax(b.build(), device="cpu"))
     b = JBuilder()
-    b.area_light_sphere((0, 0, 0), 0.5, (1, 1, 1))
+    b.spot_light((0, 0, 0), (0, 0, 1), (1, 1, 1))
     with pytest.raises(NotImplementedError, match="lights"):
         check_slice(scene_from_jax(b.build(), device="cpu"))
+    # sphere area lights are ported
+    b = JBuilder()
+    b.area_light_sphere((0, 0, 0), 0.5, (1, 1, 1))
+    check_slice(scene_from_jax(b.build(), device="cpu"))
     # one grid medium is ported; the scene holds one density brick, so a
     # second grid medium is refused
     b = JBuilder()

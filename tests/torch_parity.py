@@ -14,6 +14,28 @@ def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def pixels_close(a, b, rtol=1e-3, atol=1e-6, frac=0.99):
+    """The parity tests' per-pixel check: ``frac`` of the pixels within
+    rtol, atol in every channel."""
+    close = np.isclose(to_np(a), to_np(b), rtol=rtol, atol=atol).all(-1)
+    assert close.mean() >= frac, close.mean()
+
+
+def region_means(img, n=4):
+    """Means over an n x n grid of regions of an (H, W, 3) image."""
+    img = to_np(img)
+    H, W = img.shape[:2]
+    return img.reshape(n, H // n, n, W // n, 3).mean(axis=(1, 3))
+
+
+def pcg_state(s):
+    """The 64-bit state of a bre_tpu PCG32State (uint32 hi, lo) as the
+    port's int64 bit pattern."""
+    v = (np.asarray(s.state_hi, np.uint64) << np.uint64(32)) | np.asarray(
+        s.state_lo, np.uint64)
+    return v.view(np.int64)
+
+
 SMOKE_W2M = np.array([[0.5, 0, 0, 0.5], [0, 0.5, 0, 0.5],
                       [0, 0, 0.5, 0.5], [0, 0, 0, 1]], np.float32)
 SMOKE_LOOK = ((0, 0, -3.2), (0, 0, 0), (0, 1, 0))
