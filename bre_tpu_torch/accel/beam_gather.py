@@ -754,8 +754,11 @@ def _packed_forward(beams_packed, rays_packed, scalars, block_mask,
                     sparse_cap: int):
     """Run the forward kernel for one packed sweep: the sparse live-block
     kernel when the live blocks fit ``sparse_cap`` (the reference's runtime
-    pick; the live count is read on the host, one sync per sweep in this
-    eager port), the dense masked kernel otherwise (both exact).  Returns
+    pick, a ``lax.cond`` there), the dense masked kernel otherwise (both
+    exact).  The pick reads the live count on the host: the sweep's one
+    host sync in this eager port.  The id lists and the sparse kernels'
+    plans are built on the device (``sparse_block_ids``,
+    ``sparse_ray_plan``, ``sparse_beam_plan``) and sync nothing.  Returns
     ((n_tiles*T, 3), the tile-major block ids of the sparse pick or None)."""
     idx = None
     if sparse_cap > 0 and int((block_mask > 0).sum()) <= sparse_cap:

@@ -70,7 +70,19 @@
 // deterministic sums without atomics.  The sparse d_rays sweep splits each
 // tile's run of listed blocks at the dense sweep's chunk bounds and its
 // d_beams sweep walks the same tiles in the same order, so dense and sparse
-// agree bit for bit.
+// agree bit for bit.  The sparse sweeps read a plan built on the device
+// (ops/gather.py sparse_ray_plan, ops/gather_bwd.py sparse_beam_plan): each
+// entry's chunk or tile, and a launch order with the longest runs and
+// chunks first.  A block's work is its run's length, and in index order the
+// long runs of a sweep's busiest region start late and set the tail:
+// launched largest first, the last wave holds the shortest ones (the
+// modelled tail falls from 1.09 to 1.03 of the ideal on the ray side and
+// from 1.06 to 1.02 on d_beams at the regime sweep of chip_smoke.py phase
+// 33).  Reordering blocks changes no sum.  The sparse d_beams sweep runs
+// at the dense one's 4 resident blocks per SM without the extras.  Staging
+// the next tile into a second buffer during the sweep (one barrier per
+// tile instead of two) timed 0.7-1.0% slower on the H100 and was dropped
+// (PERF.md §6, the sparse tier).
 
 #include "split_sweep.cuh"
 
@@ -312,19 +324,19 @@ __device__ void write_rays(float* __restrict__ d_rays, int tile,
   for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];
 }
 
-// The d_rays sweep of either kernel: this block's ray (tile blockIdx.x)
-// against the positions p = walk.first(lo) ... of its walk, each a staged
-// chunk of `staged` (stage_beams); the partial cotangents go to `partial`.
+// The d_rays sweep of either kernel: ray tile `tile` against the positions
+// p = walk.first(lo) ... of its walk, each a staged chunk of `staged`
+// (stage_beams); the partial cotangents go to (split, tile) of `partial`.
 template <bool EXTRAS, bool HETERO, class Walk, class ChunkOf>
 __device__ __forceinline__ void d_rays_sweep(
     const float* __restrict__ rays, const float* __restrict__ staged,
     const float* __restrict__ scalars, const float* __restrict__ ct,
-    const Walk& walk, int lo, ChunkOf chunk_of, float* __restrict__ partial) {
+    const Walk& walk, int lo, ChunkOf chunk_of, int tile, int split,
+    int n_tiles, float* __restrict__ partial) {
   constexpr int nf = HETERO ? NF_HET : NF;
   constexpr int ndr = HETERO ? NDR_HET : NDR;
   using Stage = ChunkT<HETERO>;
   ring_init<Stage>();
-  const int tile = blockIdx.x;
   const float* tile_rows = rays + static_cast<size_t>(tile) * nf * T;
   const float* ct_rows = ct + static_cast<size_t>(tile) * CT_ROWS * T;
   const Ray r = load_ray(tile_rows, threadIdx.x);
@@ -338,7 +350,7 @@ __device__ __forceinline__ void d_rays_sweep(
       [&](const Stage& s, int) {
         rays_sweep_chunk<EXTRAS>(s, r, rc, inv_min_sin, acc);
       });
-  write_partial<ndr>(partial, acc);
+  write_partial<ndr>(partial, acc, tile, split, n_tiles);
 }
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
@@ -356,24 +368,32 @@ bwd_rays_dense(const float* __restrict__ rays,
       split_range(scalars[3], n_chunks, gridDim.y, blockIdx.y);
   const MaskedChunks walk{mask + blockIdx.x, n_tiles, cr.hi};
   d_rays_sweep<EXTRAS, HETERO>(rays, staged, scalars, ct, walk, cr.lo,
-                               [](int j) { return j; }, partial);
+                               [](int j) { return j; }, blockIdx.x,
+                               blockIdx.y, n_tiles, partial);
 }
 
-// idx: tile-major ids of ops/gather.py sparse_block_ids; run_start
-// (n_splits+1, n_tiles): run_start[s][t] .. run_start[s+1][t] are the
-// entries of tile t whose chunk lies in split s.
+// chunk_of, run_start and order: the tile-major list's plan (ops/gather.py
+// sparse_ray_plan), as for gather_sparse_kernel: one block per (tile,
+// split) run, largest first; an empty run writes zeros.
 template <bool EXTRAS>
 __global__ void __launch_bounds__(T, kBwdMinBlocks<false>)
 bwd_rays_sparse(const float* __restrict__ rays,
                 const float* __restrict__ staged,
-                const float* __restrict__ scalars, const int* __restrict__ idx,
+                const float* __restrict__ scalars,
+                const int* __restrict__ chunk_of,
                 const int* __restrict__ run_start,
-                const float* __restrict__ ct, float* __restrict__ partial,
-                int n_tiles, int n_chunks) {
-  const int* rs = run_start + static_cast<size_t>(blockIdx.y) * n_tiles + blockIdx.x;
-  const ListedChunks walk{idx, n_chunks + 1, rs[n_tiles], scalars[3]};
-  d_rays_sweep<EXTRAS, false>(rays, staged, scalars, ct, walk, rs[0],
-                              [&](int k) { return walk.chunk(k); }, partial);
+                const int* __restrict__ order, const float* __restrict__ ct,
+                float* __restrict__ partial, int n_tiles) {
+  const SparseRun run = sparse_run(order, run_start, n_tiles);
+  if (run.k0 == run.k1) {
+    const float zero[NDR] = {};
+    write_partial<NDR>(partial, zero, run.tile, run.split, n_tiles);
+    return;
+  }
+  const ListedChunks walk{chunk_of, run.k1, scalars[3]};
+  d_rays_sweep<EXTRAS, false>(rays, staged, scalars, ct, walk, run.k0,
+                              [&](int k) { return walk.chunk(k); }, run.tile,
+                              run.split, n_tiles, partial);
 }
 
 // ---- sweep 2: d_beams, one thread per beam -------------------------------
@@ -608,32 +628,35 @@ bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
   write_beams<HETERO>(d_beams, chunk, acc);
 }
 
-// idx: chunk-major ids of ops/gather_bwd.py sparse_block_ids_chunk_major;
-// chunk_start[j] .. chunk_start[j+1] is chunk j's run.  Each listed tile is
-// staged in shared memory by the block itself.
+// The chunk-major list's plan (ops/gather_bwd.py sparse_beam_plan):
+// tile_of, each entry's ray tile (-1 for seed and fill entries);
+// chunk_start[j] .. chunk_start[j+1], chunk j's run; chunk_order, the chunks
+// by listed tiles, largest first, so the longest runs start in the first
+// wave.  Block b folds chunk chunk_order[b]'s tiles in ascending order,
+// each staged in shared memory by the block itself, exactly as
+// bwd_beams_dense folds them, at the dense sweep's resident blocks per SM.
 template <bool EXTRAS>
-__global__ void __launch_bounds__(T, kBwdMinBlocks<false>)
+__global__ void __launch_bounds__(T, kBeamsMinBlocks<EXTRAS, false>)
 bwd_beams_sparse(const float* __restrict__ rays,
                  const float* __restrict__ beams,
                  const float* __restrict__ scalars,
-                 const int* __restrict__ idx,
+                 const int* __restrict__ tile_of,
                  const int* __restrict__ chunk_start,
-                 const float* __restrict__ ct, float* __restrict__ d_beams,
-                 int n_tiles) {
+                 const int* __restrict__ chunk_order,
+                 const float* __restrict__ ct, float* __restrict__ d_beams) {
   __shared__ RayTile s;
-  const int chunk = blockIdx.x;
+  const int chunk = __ldg(chunk_order + blockIdx.x);
   float acc[NBC] = {};
   if (static_cast<float>(chunk * C) < scalars[3]) {
     const Beam bm = load_beam(beams + static_cast<size_t>(chunk) * NB * C,
                               threadIdx.x, scalars[0]);
     const float inv_min_sin = 1.0f / scalars[2];
-    const int n1 = n_tiles + 1;
-    const int k1 = chunk_start[chunk + 1];
-    for (int k = chunk_start[chunk]; k < k1; ++k) {
-      const int sub = __ldg(idx + k) % n1;  // 0 = seed entry
-      if (sub == 0) continue;
-      stage_tile(rays + static_cast<size_t>(sub - 1) * NF * T,
-                 ct + static_cast<size_t>(sub - 1) * CT_ROWS * T, s,
+    const int k1 = __ldg(chunk_start + chunk + 1);
+    for (int k = __ldg(chunk_start + chunk); k < k1; ++k) {
+      const int tile = __ldg(tile_of + k);
+      if (tile < 0) continue;  // the seed entry
+      stage_tile(rays + static_cast<size_t>(tile) * NF * T,
+                 ct + static_cast<size_t>(tile) * CT_ROWS * T, s,
                  threadIdx.x);
       __syncthreads();
       beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
@@ -810,28 +833,29 @@ int launch_dense(const float* rays, const float* beams, const float* scalars,
   return static_cast<int>(cudaGetLastError());
 }
 
-// stage_beams, the d_rays sweep over the (n_tiles, n_splits) grid, reduce_splits,
-// the d_beams sweep over the chunk-major list.
+// stage_beams, the d_rays sweep over the tile-major list's runs,
+// reduce_splits, the d_beams sweep over the chunk-major list.
 template <bool EXTRAS>
 int launch_sparse(const float* rays, const float* beams,
-                  const float* scalars, const float* ct, const int* idx_t,
-                  const int* run_start, const int* idx_c,
-                  const int* chunk_start, float* staged_beams, float* partial,
+                  const float* scalars, const float* ct, const int* chunk_of,
+                  const int* run_start, const int* run_order,
+                  const int* tile_of, const int* chunk_start,
+                  const int* chunk_order, float* staged_beams, float* partial,
                   float* d_rays, float* d_beams, int n_tiles, int n_chunks,
                   int n_splits, cudaStream_t stream) {
   stage_beams<false><<<n_chunks, C, 0, stream>>>(beams, scalars, staged_beams);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem_r = ring_smem_bytes<BeamChunk>();
-  bwd_rays_sparse<EXTRAS><<<dim3(n_tiles, n_splits), T, smem_r, stream>>>(
-      rays, staged_beams, scalars, idx_t, run_start, ct, partial, n_tiles,
-      n_chunks);
+  bwd_rays_sparse<EXTRAS><<<n_tiles * n_splits, T, smem_r, stream>>>(
+      rays, staged_beams, scalars, chunk_of, run_start, run_order, ct,
+      partial, n_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   reduce_splits<<<dim3(n_tiles, NDR), T, 0, stream>>>(
       partial, d_rays, n_splits, n_tiles, NDR, NDR);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_beams_sparse<EXTRAS><<<n_chunks, T, 0, stream>>>(
-      rays, beams, scalars, idx_c, chunk_start, ct, d_beams, n_tiles);
+      rays, beams, scalars, tile_of, chunk_start, chunk_order, ct, d_beams);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -856,20 +880,23 @@ int bre_gather_backward(const float* rays, const float* beams,
            d_beams, n_tiles, n_chunks, n_splits, stream);
 }
 
-// run_start: (n_splits+1, n_tiles) int32 (ops/gather.py split_run_starts);
+// chunk_of, run_start, run_order: the tile-major list's plan
+// (ops/gather.py sparse_ray_plan); tile_of, chunk_start, chunk_order: the
+// chunk-major list's (ops/gather_bwd.py sparse_beam_plan); all int32.
 // staged_beams and partial as above.
 int bre_gather_backward_sparse(const float* rays, const float* beams,
                                const float* scalars, const float* ct,
-                               const int* idx_t, const int* run_start,
-                               const int* idx_c, const int* chunk_start,
+                               const int* chunk_of, const int* run_start,
+                               const int* run_order, const int* tile_of,
+                               const int* chunk_start, const int* chunk_order,
                                float* staged_beams, float* partial,
                                float* d_rays, float* d_beams, int n_tiles,
                                int n_chunks, int n_splits, int want_extras,
                                cudaStream_t stream) {
   auto* f = want_extras ? &launch_sparse<true> : &launch_sparse<false>;
-  return f(rays, beams, scalars, ct, idx_t, run_start, idx_c, chunk_start,
-           staged_beams, partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,
-           stream);
+  return f(rays, beams, scalars, ct, chunk_of, run_start, run_order, tile_of,
+           chunk_start, chunk_order, staged_beams, partial, d_rays, d_beams,
+           n_tiles, n_chunks, n_splits, stream);
 }
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin; a fourth

@@ -57,7 +57,11 @@
 // run to run.  The sparse kernel splits each tile's run of listed blocks at
 // the same chunk bounds (ops/gather.py split_run_starts) and folds the same
 // chunks in the same order, so dense and sparse agree bit for bit on the
-// same live blocks.
+// same live blocks.  It launches one block per (tile, split) run in the
+// order of ops/gather.py sparse_ray_plan, the longest runs first, so that
+// the last wave holds the shortest runs and not a region's long ones
+// (5-6% off the sweep on the H100, PERF.md §6); an empty run writes
+// its zeros without staging.
 
 #include "split_sweep.cuh"
 
@@ -160,21 +164,23 @@ __device__ __forceinline__ void load_ray_all(const float* __restrict__ rays,
 template <bool HETERO>
 constexpr int kFwdMinBlocks = HETERO ? 3 : 4;
 
-// The ray-side sweep of either kernel: this block's ray against the
+// The ray-side sweep of either kernel: ray tile `tile` against the
 // positions p = walk.first(lo) ... of its walk, each a staged chunk of
-// `staged` (stage_beams); the partial sums go to `partial`.
+// `staged` (stage_beams); the partial sums go to (split, tile) of
+// `partial`.
 template <bool HETERO, class Walk, class ChunkOf>
 __device__ __forceinline__ void ray_sweep(const float* __restrict__ rays,
                                           const float* __restrict__ staged,
                                           const float* __restrict__ scalars,
                                           const Walk& walk, int lo,
-                                          ChunkOf chunk_of,
+                                          ChunkOf chunk_of, int tile,
+                                          int split, int n_tiles,
                                           float* __restrict__ partial) {
   using Stage = ChunkT<HETERO>;
   ring_init<Stage>();
   Ray r;
   RayTables rt;
-  load_ray_all<HETERO>(rays, blockIdx.x, r, rt);
+  load_ray_all<HETERO>(rays, tile, r, rt);
   const float inv_min_sin = 1.0f / scalars[2];
   const Stage* chunks = reinterpret_cast<const Stage*>(staged);
   float acc[3] = {0.0f, 0.0f, 0.0f};
@@ -185,7 +191,7 @@ __device__ __forceinline__ void ray_sweep(const float* __restrict__ rays,
       [&](const Stage& s, int) {
         sweep_chunk<HETERO>(s, r, rt, inv_min_sin, acc);
       });
-  write_partial<3>(partial, acc);
+  write_partial<3>(partial, acc, tile, split, n_tiles);
 }
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
@@ -203,26 +209,34 @@ gather_dense_kernel(const float* __restrict__ rays,
       split_range(scalars[3], n_chunks, gridDim.y, blockIdx.y);
   const MaskedChunks walk{mask + blockIdx.x, n_tiles, cr.hi};
   ray_sweep<HETERO>(rays, staged, scalars, walk, cr.lo,
-                    [](int j) { return j; }, partial);
+                    [](int j) { return j; }, blockIdx.x, blockIdx.y, n_tiles,
+                    partial);
 }
 
-// idx: tile-major extended block ids tile*(n_chunks+1) + chunk+1, with a seed
-// entry tile*(n_chunks+1) per tile and fill entries n_tiles*(n_chunks+1)
-// (ops/gather.py sparse_block_ids); run_start (n_splits+1, n_tiles):
-// run_start[s][t] .. run_start[s+1][t] are the entries of tile t whose
-// chunk lies in split s (ops/gather.py split_run_starts).
+// chunk_of: each entry's chunk of the tile-major id list (ops/gather.py
+// sparse_ray_plan, -1 for seed and fill entries); run_start (n_splits+1,
+// n_tiles): run_start[s][t] .. run_start[s+1][t] are the entries of tile t
+// whose chunk lies in split s; order (n_splits * n_tiles): the runs, largest
+// first.  One block per run; an empty run writes zeros and stages nothing.
 template <bool HETERO>
 __global__ void __launch_bounds__(T, kFwdMinBlocks<HETERO>)
 gather_sparse_kernel(const float* __restrict__ rays,
                      const float* __restrict__ staged,
                      const float* __restrict__ scalars,
-                     const int* __restrict__ idx,
+                     const int* __restrict__ chunk_of,
                      const int* __restrict__ run_start,
-                     float* __restrict__ partial, int n_tiles, int n_chunks) {
-  const int* rs = run_start + static_cast<size_t>(blockIdx.y) * n_tiles + blockIdx.x;
-  const ListedChunks walk{idx, n_chunks + 1, rs[n_tiles], scalars[3]};
-  ray_sweep<HETERO>(rays, staged, scalars, walk, rs[0],
-                    [&](int k) { return walk.chunk(k); }, partial);
+                     const int* __restrict__ order,
+                     float* __restrict__ partial, int n_tiles) {
+  const SparseRun run = sparse_run(order, run_start, n_tiles);
+  if (run.k0 == run.k1) {
+    const float zero[3] = {0.0f, 0.0f, 0.0f};
+    write_partial<3>(partial, zero, run.tile, run.split, n_tiles);
+    return;
+  }
+  const ListedChunks walk{chunk_of, run.k1, scalars[3]};
+  ray_sweep<HETERO>(rays, staged, scalars, walk, run.k0,
+                    [&](int k) { return walk.chunk(k); }, run.tile,
+                    run.split, n_tiles, partial);
 }
 
 // stage_beams, one ray-side kernel over the (n_tiles, n_splits) grid, then
@@ -234,8 +248,7 @@ int launch_forward(const float* beams, const float* scalars, float* staged,
   stage_beams<HETERO><<<n_chunks, C, 0, stream>>>(beams, scalars, staged);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = ray_kernel(dim3(n_tiles, n_splits),
-                   ring_smem_bytes<ChunkT<HETERO>>());
+  err = ray_kernel(ring_smem_bytes<ChunkT<HETERO>>());
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_splits<<<dim3(n_tiles, OUT_ROWS), T, 0, stream>>>(
       partial, out, n_splits, n_tiles, 3, OUT_ROWS);
@@ -249,8 +262,9 @@ int forward_dense(const float* rays, const float* beams, const float* scalars,
                   cudaStream_t stream) {
   return launch_forward<HETERO>(
       beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
-      stream, [&](dim3 grid, size_t smem) {
-        gather_dense_kernel<HETERO><<<grid, T, smem, stream>>>(
+      stream, [&](size_t smem) {
+        gather_dense_kernel<HETERO><<<dim3(n_tiles, n_splits), T, smem,
+                                      stream>>>(
             rays, staged, scalars, mask, partial, n_tiles, n_chunks);
         return cudaGetLastError();
       });
@@ -258,14 +272,16 @@ int forward_dense(const float* rays, const float* beams, const float* scalars,
 
 template <bool HETERO>
 int forward_sparse(const float* rays, const float* beams,
-                   const float* scalars, const int* idx, const int* run_start,
-                   float* staged, float* partial, float* out, int n_tiles,
-                   int n_chunks, int n_splits, cudaStream_t stream) {
+                   const float* scalars, const int* chunk_of,
+                   const int* run_start, const int* order, float* staged,
+                   float* partial, float* out, int n_tiles, int n_chunks,
+                   int n_splits, cudaStream_t stream) {
   return launch_forward<HETERO>(
       beams, scalars, staged, partial, out, n_tiles, n_chunks, n_splits,
-      stream, [&](dim3 grid, size_t smem) {
-        gather_sparse_kernel<HETERO><<<grid, T, smem, stream>>>(
-            rays, staged, scalars, idx, run_start, partial, n_tiles, n_chunks);
+      stream, [&](size_t smem) {
+        gather_sparse_kernel<HETERO><<<n_tiles * n_splits, T, smem, stream>>>(
+            rays, staged, scalars, chunk_of, run_start, order, partial,
+            n_tiles);
         return cudaGetLastError();
       });
 }
@@ -293,18 +309,19 @@ int bre_gather_forward(const float* rays, const float* beams,
                                        n_splits, stream);
 }
 
-// run_start: (n_splits+1, n_tiles) int32 (ops/gather.py split_run_starts).
+// chunk_of (list entries), run_start (n_splits+1, n_tiles) and order
+// (n_splits * n_tiles): int32, ops/gather.py sparse_ray_plan.
 int bre_gather_sparse(const float* rays, const float* beams,
-                      const float* scalars, const int* idx,
-                      const int* run_start, float* staged, float* partial,
-                      float* out, int n_tiles, int n_chunks, int n_splits,
-                      int hetero, cudaStream_t stream) {
-  return hetero ? forward_sparse<true>(rays, beams, scalars, idx, run_start,
-                                       staged, partial, out, n_tiles, n_chunks,
-                                       n_splits, stream)
-                : forward_sparse<false>(rays, beams, scalars, idx, run_start,
-                                        staged, partial, out, n_tiles,
-                                        n_chunks, n_splits, stream);
+                      const float* scalars, const int* chunk_of,
+                      const int* run_start, const int* order, float* staged,
+                      float* partial, float* out, int n_tiles, int n_chunks,
+                      int n_splits, int hetero, cudaStream_t stream) {
+  return hetero ? forward_sparse<true>(rays, beams, scalars, chunk_of,
+                                       run_start, order, staged, partial, out,
+                                       n_tiles, n_chunks, n_splits, stream)
+                : forward_sparse<false>(rays, beams, scalars, chunk_of,
+                                        run_start, order, staged, partial, out,
+                                        n_tiles, n_chunks, n_splits, stream);
 }
 
 }  // extern "C"

@@ -129,16 +129,17 @@ struct MaskedChunks {
   __device__ __forceinline__ int end() const { return hi; }
 };
 
-// The entries [k0, k1) of a tile-major compacted id list (ops/gather.py
-// sparse_block_ids: tile*(n_chunks+1) + chunk+1, seed entries ...+0): the
-// positions are list entries, skipping seeds and chunks past n_valid.
+// The entries [k0, k1) of a tile-major compacted id list, read as chunk
+// numbers (ops/gather.py sparse_ray_plan: each entry's chunk, -1 for the
+// seed and fill entries): the positions are list entries, skipping those
+// and chunks past n_valid.
 struct ListedChunks {
-  const int* idx;
-  int n1, k1;
+  const int* chunk_of;
+  int k1;
   float n_valid;
 
   __device__ __forceinline__ int chunk(int k) const {
-    return __ldg(idx + k) % n1 - 1;
+    return __ldg(chunk_of + k);
   }
   __device__ __forceinline__ bool live(int k) const {
     const int j = chunk(k);
@@ -155,6 +156,25 @@ struct ListedChunks {
   }
   __device__ __forceinline__ int end() const { return k1; }
 };
+
+// Block blockIdx.x of a sparse ray-side sweep (ops/gather.py
+// sparse_ray_plan): the (tile, split) run it folds, order[blockIdx.x] =
+// split * n_tiles + tile, and that run's list entries [k0, k1) from
+// run_start (n_splits+1, n_tiles).  The plan orders the runs by listed
+// chunks, largest first, so the longest runs start in the first wave and
+// the empty ones (k0 == k1) come last; the fold of each run, and so every
+// partial sum, is the one the dense kernel's block (tile, split) takes.
+struct SparseRun {
+  int tile, split, k0, k1;
+};
+
+__device__ __forceinline__ SparseRun sparse_run(
+    const int* __restrict__ order, const int* __restrict__ run_start,
+    int n_tiles) {
+  const int id = __ldg(order + blockIdx.x);
+  return {id % n_tiles, id / n_tiles, __ldg(run_start + id),
+          __ldg(run_start + id + n_tiles)};
+}
 
 // Pre-pass: each live chunk's per-beam terms, once per call, into staged
 // (n_chunks, 16|21, C); chunks past n_valid are never read and not written.
@@ -186,13 +206,14 @@ reduce_splits(const float* __restrict__ partial, float* __restrict__ out,
   out[(static_cast<size_t>(tile) * rows_out + row) * T + threadIdx.x] = v;
 }
 
-// Writes one block's partial sums: rows of split blockIdx.y, tile
-// blockIdx.x.
+// Writes one block's partial sums: rows of (split, tile) of partial
+// (n_splits, n_tiles, ROWS, T).
 template <int ROWS>
 __device__ __forceinline__ void write_partial(float* __restrict__ partial,
-                                              const float acc[ROWS]) {
+                                              const float acc[ROWS], int tile,
+                                              int split, int n_tiles) {
   float* o = partial +
-             (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * ROWS * T +
+             (static_cast<size_t>(split) * n_tiles + tile) * ROWS * T +
              threadIdx.x;
 #pragma unroll
   for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];

@@ -107,6 +107,14 @@ def _check_config(cfg: PhotonBeamConfig) -> None:
         raise ValueError(f"unknown gather backend {cfg.gather!r}")
 
 
+def default_sparse_cap(beam_capacity: int, n_rays: int) -> int:
+    """gather="auto"'s cap on a full-film sweep's listed blocks
+    (photonbeam.py:283-294): a quarter of the (chunk x 256-ray tile) block
+    grid, clamped at 2^17 ids."""
+    total_blocks = max(1, beam_capacity // CHUNK) * max(1, n_rays // TILE)
+    return min(total_blocks // 4, 1 << 17)
+
+
 def camera_pass(scene: Scene, camera: Camera, width: int, height: int, beams,
                 beam_radius, iter_idx: int, cfg: PhotonBeamConfig,
                 photons_per_iter: int = 1):
@@ -161,9 +169,7 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
 
     sparse_cap = cfg.gather_sparse_cap
     if cfg.gather == "auto" and use_packed and sparse_cap == 0:
-        n_chunks_est = max(1, beams.capacity // CHUNK)
-        total_blocks = n_chunks_est * max(1, R // TILE)
-        sparse_cap = min(total_blocks // 4, 1 << 17)
+        sparse_cap = default_sparse_cap(beams.capacity, R)
     # compacted-ray budgets: one kernel tile, then R/4 (the reference's
     # off-TPU tiers, photonbeam.py:341-350)
     budgets = sorted({min(TILE, R), max(TILE, R // 4)})

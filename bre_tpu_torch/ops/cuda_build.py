@@ -117,20 +117,21 @@ def load_library() -> ctypes.CDLL:
     # n_splits, hetero, stream
     lib.bre_gather_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bre_gather_forward.restype = i
-    # rays, beams, scalars, idx, run_start, staged, partial, out, n_tiles,
-    # n_chunks, n_splits, hetero, stream
-    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    # rays, beams, scalars, chunk_of, run_start, order, staged, partial,
+    # out, n_tiles, n_chunks, n_splits, hetero, stream
+    lib.bre_gather_sparse.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      p]
     lib.bre_gather_sparse.restype = i
     # rays, beams, scalars, mask, ct, staged_beams, partial, d_rays, d_beams,
     # n_tiles, n_chunks, n_splits, want_extras, hetero, stream
     lib.bre_gather_backward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
                                         i, p]
     lib.bre_gather_backward.restype = i
-    # rays, beams, scalars, ct, idx_t, run_start, idx_c, chunk_start,
-    # staged_beams, partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,
-    # want_extras, stream
+    # rays, beams, scalars, ct, chunk_of, run_start, run_order, tile_of,
+    # chunk_start, chunk_order, staged_beams, partial, d_rays, d_beams,
+    # n_tiles, n_chunks, n_splits, want_extras, stream
     lib.bre_gather_backward_sparse.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               p, p, i, i, i, i, p]
+                                               p, p, p, p, i, i, i, i, p]
     lib.bre_gather_backward_sparse.restype = i
     # rays, beams, scalars, ct, d_rays, d_beams, n_tiles, n_chunks, stream
     lib.bre_gather_backward_twopass.argtypes = [p, p, p, p, p, p, i, i, p]

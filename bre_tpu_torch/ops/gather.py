@@ -35,7 +35,9 @@ launches per instance, in ``<wrapper>.launches`` (homogeneous) and
 The kernels split each ray tile's chunk range across ``split_count`` blocks
 and add the splits' partial sums in a fixed order (``csrc/split_sweep.cuh``);
 ``split_bounds`` and ``split_run_starts`` are that plan in Python, for the
-sparse kernel's list and for the tests.
+sparse kernel's list and for the tests.  ``sparse_block_ids`` and
+``sparse_ray_plan`` build the sparse kernel's list and its launch order
+(the runs largest first) on the device, with no host sync.
 """
 
 from __future__ import annotations
@@ -147,9 +149,25 @@ def pack_beams(pb: dict, chunk: int) -> torch.Tensor:
     return mat.reshape(nb, n_chunks, chunk).permute(1, 0, 2).contiguous()
 
 
+def nonzero_fixed(flat: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """The reference's ``jnp.nonzero(flat, size=size, fill_value=fill)`` on
+    ``flat``'s device, with no host sync: (size,) int32, the positions of
+    the nonzero entries in ascending order, truncated at ``size``, then
+    ``fill``.  One prefix sum counts the nonzero entries up to each
+    position; the k-th of them is the first position whose count reaches
+    k + 1, found by a binary search of the counts, and a search that runs
+    off the end takes ``fill``.  (A scatter of every entry to its rank
+    sends all the zeros to one spare slot, and those stores serialize.)"""
+    count = torch.cumsum(flat != 0, 0, dtype=torch.int32)
+    pos = torch.searchsorted(
+        count, torch.arange(1, size + 1, dtype=torch.int32,
+                            device=flat.device), out_int32=True)
+    return torch.where(pos < flat.numel(), pos, fill)
+
+
 def sparse_block_ids(block_mask: torch.Tensor, cap: int):
     """Compact live (chunk, tile) blocks to extended flat ids, tile-major
-    (the reference's ``jnp.nonzero(size=, fill_value=)``).
+    (the reference's ``jnp.nonzero(size=, fill_value=)``, on the device).
 
     Returns (idx (n_tiles + cap,) int32, n_live () int64): live blocks are
     ``tile*(n_chunks+1) + chunk+1``, each tile's seed entry is
@@ -159,12 +177,9 @@ def sparse_block_ids(block_mask: torch.Tensor, cap: int):
     n_chunks, n_tiles = block_mask.shape
     ext = torch.cat([torch.ones((n_tiles, 1), dtype=block_mask.dtype,
                                 device=block_mask.device), block_mask.T], 1)
-    nz = torch.nonzero(ext.reshape(-1) != 0).reshape(-1)[: n_tiles + cap]
-    idx = torch.full((n_tiles + cap,), n_tiles * (n_chunks + 1),
-                     dtype=torch.int32, device=block_mask.device)
-    idx[: nz.shape[0]] = nz.to(torch.int32)
-    n_live = (block_mask > 0).sum()
-    return idx, n_live
+    idx = nonzero_fixed(ext.reshape(-1), n_tiles + cap,
+                        n_tiles * (n_chunks + 1))
+    return idx, (block_mask > 0).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +418,35 @@ def split_run_starts(idx, n_tiles: int, n_chunks: int, bounds):
         torch.int32).contiguous()
 
 
+def work_order(counts: torch.Tensor) -> torch.Tensor:
+    """int32 indices of ``counts`` from the largest to the smallest, ties in
+    index order: the launch order of the sparse kernels' blocks, so the
+    longest runs start in the first wave (a shorter tail) and the empty
+    ones come last.  Order changes no sum: each block still folds its own
+    run in ascending order."""
+    return torch.argsort(counts, descending=True, stable=True).to(
+        torch.int32)
+
+
+def sparse_ray_plan(idx, scalars, n_tiles: int, n_chunks: int,
+                    n_splits: int):
+    """The ray-side sparse sweeps' plan for a tile-major id list, built on
+    the device with no host sync: (chunk_of, run_start, order), int32.
+    chunk_of (len(idx),): each entry's chunk, -1 for the seed and fill
+    entries; run_start (n_splits + 1, n_tiles): tile t's entries whose
+    chunk lies in split s of the dense kernels' ``split_bounds`` are
+    [run_start[s, t], run_start[s+1, t]); order (n_splits * n_tiles): the
+    runs s * n_tiles + t by their entry counts (``work_order``).  Block b
+    of the kernel folds run order[b] exactly as the dense kernel's block
+    (t, s) folds its chunks, so the two agree bit for bit."""
+    chunk_of = (idx % (n_chunks + 1) - 1).to(torch.int32)  # seeds, fill: -1
+    run_start = split_run_starts(
+        idx, n_tiles, n_chunks, split_bounds(scalars[0, 3], n_chunks,
+                                             n_splits))
+    counts = (run_start[1:] - run_start[:-1]).reshape(-1)
+    return chunk_of, run_start, work_order(counts)
+
+
 def run_starts(idx, n_runs, run_len):
     """Where each of ``n_runs`` runs of a sorted extended id list starts,
     plus its end: run r holds the ids in [r*run_len, (r+1)*run_len)."""
@@ -501,8 +545,9 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
     """Sparse live-block forward (replaces ``pallas_gather_sparse``) over
     ``sparse_block_ids`` ids: returns (n_tiles, 8, T).  CPU tensors take
     ``gather_sparse_ref``; CUDA tensors launch ``gather_sparse_kernel``
-    (its heterogeneous instance for NF_HET rays) with the dense kernel's
-    split, between the same pre-pass and reduction."""
+    (its heterogeneous instance for NF_HET rays) over ``sparse_ray_plan``'s
+    runs, the dense kernel's split launched largest run first, between the
+    same pre-pass and reduction."""
     if rays_packed.device.type == "cpu":
         return gather_sparse_ref(rays_packed, beams_packed, scalars, idx)
     from .cuda_build import check_status, load_library
@@ -511,17 +556,17 @@ def gather_sparse(rays_packed, beams_packed, scalars, idx):
                                               scalars)
     _check_cuda("idx", idx, torch.int32, (idx.shape[0],))
     n_splits = split_count(n_tiles, n_chunks)
-    run_start = split_run_starts(
-        idx, n_tiles, n_chunks, split_bounds(scalars[0, 3], n_chunks, n_splits))
+    chunk_of, run_start, order = sparse_ray_plan(idx, scalars, n_tiles,
+                                                 n_chunks, n_splits)
     lib = load_library()
     staged, partial, out = _forward_buffers(rays_packed, n_tiles, n_chunks,
                                             n_splits, hetero)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        idx.data_ptr(), run_start.data_ptr(), staged.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n_tiles, n_chunks, n_splits,
-        int(hetero), stream)
+        chunk_of.data_ptr(), run_start.data_ptr(), order.data_ptr(),
+        staged.data_ptr(), partial.data_ptr(), out.data_ptr(), n_tiles,
+        n_chunks, n_splits, int(hetero), stream)
     check_status(lib, err, "gather_sparse_kernel")
     count_launch(gather_sparse, (n_tiles, n_splits), hetero)
     return out

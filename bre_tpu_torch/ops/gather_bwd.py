@@ -45,8 +45,8 @@ from .gather import (BF_DP, BF_PE, BF_PS, BF_RAD, BF_SIGT, KERNEL_CHUNK,
                      _REF_BATCH_PAIRS_CPU, beam_power_ref, block_col,
                      block_row, count_launch, hetero_decay_ref,
                      hetero_tables_ref, is_hetero, pair_geometry_ref,
-                     run_starts, split_bounds, split_count,
-                     split_run_starts, staged_beams_buffer)
+                     nonzero_fixed, run_starts, sparse_ray_plan,
+                     split_count, staged_beams_buffer, work_order)
 
 # per-ray cotangent rows of d_rays (pallas_gather_bwd.py:59-70)
 DR_TR = 0  # d tr_full rgb rows 0..2
@@ -86,18 +86,30 @@ _INV_4PI = 0.07957747154594767
 
 def sparse_block_ids_chunk_major(block_mask: torch.Tensor, cap: int):
     """Chunk-major companion of ``sparse_block_ids``
-    (pallas_gather_bwd.py:592-604): live blocks are ``chunk*(n_tiles+1) +
-    tile+1``, each chunk's seed entry is ``chunk*(n_tiles+1)``, fill entries
-    are ``n_chunks*(n_tiles+1)``.  Returns (idx (n_chunks + cap,) int32,
-    n_live () int64)."""
+    (pallas_gather_bwd.py:592-604), on the device: live blocks are
+    ``chunk*(n_tiles+1) + tile+1``, each chunk's seed entry is
+    ``chunk*(n_tiles+1)``, fill entries are ``n_chunks*(n_tiles+1)``.
+    Returns (idx (n_chunks + cap,) int32, n_live () int64)."""
     n_chunks, n_tiles = block_mask.shape
     ext = torch.cat([torch.ones((n_chunks, 1), dtype=block_mask.dtype,
                                 device=block_mask.device), block_mask], 1)
-    nz = torch.nonzero(ext.reshape(-1) != 0).reshape(-1)[: n_chunks + cap]
-    idx = torch.full((n_chunks + cap,), n_chunks * (n_tiles + 1),
-                     dtype=torch.int32, device=block_mask.device)
-    idx[: nz.shape[0]] = nz.to(torch.int32)
+    idx = nonzero_fixed(ext.reshape(-1), n_chunks + cap,
+                        n_chunks * (n_tiles + 1))
     return idx, (block_mask > 0).sum()
+
+
+def sparse_beam_plan(idx, n_chunks: int, n_tiles: int):
+    """The sparse d_beams sweep's plan for a chunk-major id list, built on
+    the device with no host sync: (tile_of, chunk_start, order), int32.
+    tile_of (len(idx),): each entry's ray tile, -1 for the seed and fill
+    entries; chunk_start (n_chunks + 1,): chunk j's entries are
+    [chunk_start[j], chunk_start[j+1]); order (n_chunks,): the chunks by
+    their entry counts (``work_order``).  Block b of the kernel folds chunk
+    order[b]'s tiles in ascending order, as the dense kernel's block does."""
+    tile_of = (idx % (n_tiles + 1) - 1).to(torch.int32)  # seeds, fill: -1
+    chunk_start = run_starts(idx, n_chunks, n_tiles + 1)
+    return tile_of, chunk_start, work_order(chunk_start[1:]
+                                            - chunk_start[:-1])
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +485,9 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     over ``sparse_block_ids`` (d_rays) and ``sparse_block_ids_chunk_major``
     (d_beams) ids: returns (d_rays, d_beams).  CPU tensors take
     ``gather_backward_sparse_ref``; CUDA tensors launch the sparse sweeps of
-    ``csrc/beam_gather_bwd.cu``.  Homogeneous layouts only."""
+    ``csrc/beam_gather_bwd.cu`` over ``sparse_ray_plan``'s runs (d_rays)
+    and ``sparse_beam_plan``'s chunks (d_beams), largest first.
+    Homogeneous layouts only."""
     _reject_hetero(rays_packed, "the sparse backward",
                    "gather_backward_fused with the forward's block mask")
     if rays_packed.device.type == "cpu":
@@ -489,10 +503,10 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     _check_cuda("idx_chunk_major", idx_chunk_major, torch.int32,
                 (idx_chunk_major.shape[0],))
     n_splits = split_count(n_tiles, n_chunks)
-    run_start = split_run_starts(
-        idx_tile_major, n_tiles, n_chunks,
-        split_bounds(scalars[0, 3], n_chunks, n_splits))
-    chunk_start = run_starts(idx_chunk_major, n_chunks, n_tiles + 1)
+    chunk_of, run_start, run_order = sparse_ray_plan(
+        idx_tile_major, scalars, n_tiles, n_chunks, n_splits)
+    tile_of, chunk_start, chunk_order = sparse_beam_plan(
+        idx_chunk_major, n_chunks, n_tiles)
     lib = load_library()
     d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, False)
     staged_beams = staged_beams_buffer(rays_packed, n_chunks, False)
@@ -500,10 +514,10 @@ def gather_backward_sparse(rays_packed, beams_packed, scalars, ct,
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_backward_sparse(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        ct.data_ptr(), idx_tile_major.data_ptr(), run_start.data_ptr(),
-        idx_chunk_major.data_ptr(), chunk_start.data_ptr(),
-        staged_beams.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
-        d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
+        ct.data_ptr(), chunk_of.data_ptr(), run_start.data_ptr(),
+        run_order.data_ptr(), tile_of.data_ptr(), chunk_start.data_ptr(),
+        chunk_order.data_ptr(), staged_beams.data_ptr(), partial.data_ptr(),
+        d_rays.data_ptr(), d_beams.data_ptr(), n_tiles, n_chunks, n_splits,
         int(bool(want_extras)), stream)
     check_status(lib, err, "gather_backward_sparse kernels")
     count_launch(gather_backward_sparse, (n_tiles, n_splits, n_chunks), False)

@@ -234,6 +234,23 @@ its own failure and nothing falls back to the CPU or a plain version):
      maxdepth 4): the ratio of means to the RGB render within 2%, the
      time of each.
 
+ The sparse tier in its regime (rows 2 and 4 where gather="auto" picks them):
+ 33. config 2's full-film sweep (one iteration's camera segments and beams)
+     with its block mask recomputed at the radii of the reference's alpha
+     = 0.5 schedule at iterations 1, 16, 64 and 256 (config 2's own alpha,
+     0.7, beside it): the live share of the block grid at each, and the
+     first of these iterations at which the default cap picks the sparse
+     kernel ("none" if it never does); at the first radius whose sweep is
+     at most a quarter live (bench.py's fog box if config 2's never is),
+     rows 2 and 4 (want_extras both ways, ct from a seed) against rows 1
+     and 3 on the same mask, CUDA events, mean of 3 after a warm-up, beside
+     the bound of the listed blocks, dense and sparse bit for bit, each
+     twice bit for bit; the work per launched block (listed tiles per
+     chunk, listed chunks per run) with the modelled tail of launching in
+     index and in work order; the sparse kernels against their plain
+     versions on the sweep's heaviest and a median ray tile; the sparse and
+     dense backward's kernels one by one under torch.profiler (a child).
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -244,7 +261,9 @@ the backward kernels, max |diff| / max|ref| per cotangent), time beside
 its plain version's and its bound, and the
 splits per ray tile and blocks that its wrapper launched on its headline
 sweep (row 1's is the config-2 R/4 sweep, row 3's the spec step's;
-``beam_blocks`` is the backward's d_beams grid); the last
+``beam_blocks`` is the backward's d_beams grid); rows 2 and 4 also carry
+``regime``, their phase-33 figures (ms, bound, share, the dense row's ms
+on the same mask, the iteration, radius and live share); the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Details go to chiprun_out/chip_smoke.json.  Exits nonzero
 without a card.
@@ -558,20 +577,24 @@ def launched_grid(wrapper):
     return out
 
 
-# the dense backward's launches, in order (csrc/beam_gather_bwd.cu
-# launch_dense)
-BACKWARD_LAUNCHES = ("stage_beams", "bwd_rays_dense", "reduce_splits",
-                     "bwd_beams_dense")
+# each backward wrapper's kernel launches per call, in order
+# (csrc/beam_gather_bwd.cu launch_dense, launch_sparse)
+WRAPPER_LAUNCHES = {
+    "gather_backward_fused": ("stage_beams", "bwd_rays_dense",
+                              "reduce_splits", "bwd_beams_dense"),
+    "gather_backward_sparse": ("stage_beams", "bwd_rays_sparse",
+                               "reduce_splits", "bwd_beams_sparse"),
+}
 PROFILE_REPS = 3
 
 
 def backward_kernel_ms(cases):
-    """{label: {kernel: device ms}}: each launch of the dense backward
-    (BACKWARD_LAUNCHES: the beam pre-pass, the d_rays sweep, the split
-    reduction, the d_beams sweep) on each case (label: gather_backward_fused
-    arguments), the mean of PROFILE_REPS calls, from one torch.profiler
-    session in a child process (``chip_smoke.py --profile-backward FILE``):
-    a process records kernels in its first profiler session only."""
+    """{label: {kernel: device ms}}: each kernel launch of a wrapper
+    (WRAPPER_LAUNCHES; the dense backward's: the beam pre-pass, the d_rays
+    sweep, the split reduction, the d_beams sweep) on each case, the mean
+    of PROFILE_REPS calls, from one torch.profiler run in a child process
+    (``chip_smoke.py --profile-backward FILE``): a process records kernels
+    in its first profiler run only.  A case is (wrapper name, arguments)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "cases.pt")
         torch.save(cases, path)
@@ -579,7 +602,7 @@ def backward_kernel_ms(cases):
             [sys.executable, os.path.abspath(__file__), "--profile-backward",
              path], capture_output=True, text=True, timeout=600)
     if proc.returncode:
-        raise RuntimeError(f"the backward's profile failed:\n{proc.stderr}")
+        raise RuntimeError(f"the kernels' profile failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -587,31 +610,36 @@ def profile_backward(path):
     """The child of backward_kernel_ms: prints its result as one JSON line."""
     from torch.profiler import ProfilerActivity, profile
     cases = torch.load(path)
-    for args in cases.values():  # warm-up
-        GB.gather_backward_fused(*args)
+    for name, args in cases.values():  # warm-up
+        getattr(GB, name)(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for args in cases.values():
+        for name, args in cases.values():
             for _ in range(PROFILE_REPS):
-                GB.gather_backward_fused(*args)
+                getattr(GB, name)(*args)
         torch.cuda.synchronize()
-    pat = re.compile(r"\b(" + "|".join(BACKWARD_LAUNCHES) + r")\b")
+    known = sorted({k for v in WRAPPER_LAUNCHES.values() for k in v})
+    pat = re.compile(r"\b(" + "|".join(known) + r")\b")
     found = sorted(((e.time_range.start, e.time_range.end, m.group(1))
                     for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and (m := pat.search(e.name))))
-    n = len(BACKWARD_LAUNCHES)
+    want = [k for name, _ in cases.values()
+            for k in WRAPPER_LAUNCHES[name] * PROFILE_REPS]
     names = [k for _, _, k in found]
-    if names != list(BACKWARD_LAUNCHES) * (PROFILE_REPS * len(cases)):
-        raise AssertionError(f"the profile holds {len(found)} backward "
-                             f"launches, not {n} per call: {names[:2 * n]}")
-    out, per_case = {}, n * PROFILE_REPS
-    for k, label in enumerate(cases):
-        runs = found[k * per_case:(k + 1) * per_case]
-        out[label] = {name: sum((e - s) / 1e3 for s, e, _ in runs[i::n])
-                      / PROFILE_REPS
-                      for i, name in enumerate(BACKWARD_LAUNCHES)}
+    if names != want:
+        raise AssertionError(f"the profile holds {len(found)} kernel "
+                             f"launches, not the {len(want)} expected: "
+                             f"{names[:8]}")
+    out, pos = {}, 0
+    for label, (name, _) in cases.items():
+        seq = WRAPPER_LAUNCHES[name]
+        n = len(seq)
+        runs = found[pos:pos + n * PROFILE_REPS]
+        pos += n * PROFILE_REPS
+        out[label] = {k: sum((e - s) / 1e3 for s, e, _ in runs[i::n])
+                      / PROFILE_REPS for i, k in enumerate(seq)}
     print(json.dumps(out), flush=True)
 
 
@@ -1234,7 +1262,8 @@ def phase_bwd_parity(bench_sweeps, spec_sweeps):
                 f"blocks, {grid['beam_blocks']} d_beams blocks"
                 + ("" if label == "r4" else "; plain version not run at "
                    "full film (minutes)"))
-        profiled[label] = (*inputs["gather_backward_fused"], extras)
+        profiled[label] = ("gather_backward_fused",
+                           (*inputs["gather_backward_fused"], extras))
     for label, parts in backward_kernel_ms(profiled).items():
         results[names[0]]["sweeps"][f"spec {label} timing"]["kernels_ms"] = parts
         log(f"[bwd kernels] spec {label} sweep, gather_backward_fused, device "
@@ -1537,7 +1566,8 @@ def phase_smoke_bwd_parity(sweeps):
         beams, rays, scal, mask, ct = args[:5]
         extras = args[6]
         ct_p = BG.pack_ct(ct, rays.shape[0])
-        case = profiled[str(n_tiles)] = (rays, beams, scal, ct_p, mask, extras)
+        case = (rays, beams, scal, ct_p, mask, extras)
+        profiled[str(n_tiles)] = ("gather_backward_fused", case)
         ms, _ = cuda_ms(lambda: GB.gather_backward_fused(*case), 3)
         grid = launched_grid(GB.gather_backward_fused)
         in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
@@ -2933,6 +2963,304 @@ def phase_bidirectional(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sparse tier in its regime (phase 33)
+# ---------------------------------------------------------------------------
+
+# The reference's progressive radius r <- r (i + alpha) / (i + 1)
+# (bre_tpu/integrators/photonbeam.py:542) at its default alpha, 0.5, read at
+# these iterations; config 2's own alpha (0.7) beside it.  A sweep is in the
+# sparse regime at or under REGIME_SHARE of its block grid live: the default
+# cap's own bound before its clamp at 2^17 ids (integrators/photonbeam.py).
+REGIME_ALPHA = 0.5
+REGIME_ITERS = (1, 16, 64, 256)
+REGIME_SHARE = 0.25
+REGIME_SEED = 33
+# ray tiles of the regime sweep held against the plain versions: the
+# heaviest and a median one (the whole sweep would take minutes)
+REGIME_PLAIN_TILES = 2
+
+
+def radius_at(r0, alpha, it):
+    """The progressive radius of iteration ``it`` (0 = the first)."""
+    r = r0
+    for i in range(it):
+        r = r * (i + alpha) / (i + 1)
+    return r
+
+
+def capture_full_sweeps(scene, cam, size, cfg):
+    """One iteration on the packed route with the dense kernel only
+    (gather="pallas"), recording each full-film sweep's inputs (rays,
+    beams, scalars, mask)."""
+    rec = []
+    orig = _event_timed(BG, "gather_forward", rec)
+    try:
+        PB.render_photonbeam(scene, cam, size, size, cfg)
+    finally:
+        BG.gather_forward = orig
+    torch.cuda.synchronize()
+    return [a for _, _, _, a in rec if a[0].shape[0] == size * size // BG.TILE]
+
+
+def at_radius(rays, beams, scal, r):
+    """One sweep's beams, scalars and block mask with the beam and camera
+    radius set to r (the valid beams' BF_RAD, scalars[0, 0])."""
+    r = torch.tensor(r, dtype=torch.float32, device=beams.device)
+    b = beams.clone()
+    b[:, G.BF_RAD] = torch.where(b[:, G.BF_VALID] > 0, r, b[:, G.BF_RAD])
+    sc = scal.clone()
+    sc[0, 0] = r
+    a0 = rays[:, G.RF_A0:G.RF_A0 + 3].transpose(1, 2).reshape(-1, 3)
+    a1 = rays[:, G.RF_A1:G.RF_A1 + 3].transpose(1, 2).reshape(-1, 3)
+    return b, sc, BG._block_overlap_mask(b, a0, a1, BG.TILE, r)
+
+
+def modelled_tail(work, slots):
+    """Makespan of blocks of the given work, started in list order on
+    ``slots`` resident block slots (each next block on the first free
+    slot), over the ideal total / slots.  A model of the block scheduler,
+    not a measurement."""
+    import heapq
+    free = [0.0] * slots
+    for w in work:
+        heapq.heappush(free, heapq.heappop(free) + w)
+    return max(free) / max(sum(work) / slots, 1e-30)
+
+
+def regime_work(mask, scal):
+    """The regime mask's work per block of the sparse kernels' launches:
+    listed tiles per chunk (the d_beams sweep, one block per chunk), listed
+    chunks per (tile, split) (the ray-side sweeps), and the modelled tails
+    of launching them in index order or in order of work."""
+    n_chunks, n_tiles = mask.shape
+    live = G._live_chunks(n_chunks, BG.CHUNK, scal[0, 3], mask.device)
+    m = (mask > 0) & live[:, None]
+    per_chunk = m.sum(1).cpu().numpy().astype(np.float64)
+    n_splits = G.split_count(n_tiles, n_chunks)
+    b = G.split_bounds(scal[0, 3], n_chunks, n_splits).cpu().tolist()
+    cm = torch.cat([torch.zeros((1, n_tiles), dtype=torch.int64,
+                                device=mask.device), m.cumsum(0)], 0)
+    per_split = torch.stack([cm[b[s + 1]] - cm[b[s]] for s in
+                             range(n_splits)], 1).reshape(-1)
+    per_split = per_split.cpu().numpy().astype(np.float64)  # tile-major
+    out = dict(n_splits=n_splits,
+               chunks_listed=int((per_chunk > 0).sum()),
+               tiles_per_chunk_max=int(per_chunk.max()),
+               tiles_per_chunk_mean=float(per_chunk[per_chunk > 0].mean()),
+               split_blocks=int(per_split.size),
+               split_blocks_empty=int((per_split == 0).sum()),
+               chunks_per_split_max=int(per_split.max()),
+               chunks_per_split_mean=float(per_split[per_split > 0].mean()))
+    for name, work, slots in (("d_beams", per_chunk, 132 * 3),
+                              ("ray_side", per_split, 132 * 4)):
+        out[f"{name}_tail_index_order"] = modelled_tail(work, slots)
+        out[f"{name}_tail_work_order"] = modelled_tail(
+            np.sort(work)[::-1], slots)
+    return out
+
+
+def regime_point(dev):
+    """Config 2's full-film sweeps at the regime radii: their live shares,
+    the default cap's pick, and the first sweep at or under REGIME_SHARE
+    (config 2's heaviest sweep first; bench.py's fog box where config 2
+    never gets there).  Returns (log dict, (rays, beams, scal, mask) or
+    None, what)."""
+    scenes = (("config 2", cornell_fog(dev), cornell_camera(dev, SIZE), 0.12,
+               PHOTONS),
+              ("fog box", *fog_box(dev, SPEC_WH), 0.1, SPEC_PHOTONS))
+    out = {}
+    for what, scene, cam, r0, photons in scenes:
+        cfg = PB.PhotonBeamConfig(
+            iterations=1, maxdepth=MAXDEPTH, photonsperiteration=photons,
+            initialbeamradius=r0, gather="pallas", grad_geometry=False)
+        sweeps = capture_full_sweeps(scene, cam, SIZE, cfg)
+        n_chunks, n_tiles = sweeps[0][3].shape
+        cap = PB.default_sparse_cap(photons * (MAXDEPTH + 2),
+                                    n_tiles * BG.TILE)
+        rows, first_pick, point = [], None, None
+        for alpha in (REGIME_ALPHA, 0.7):
+            for it in REGIME_ITERS:
+                r = radius_at(r0, alpha, it)
+                lives = []
+                for rays, beams, scal, _ in sweeps:
+                    _, _, mask = at_radius(rays, beams, scal, r)
+                    lives.append(int((mask > 0).sum()))
+                    del mask
+                shares = [n / (n_chunks * n_tiles) for n in lives]
+                picks = [n <= cap for n in lives]
+                rows.append(dict(alpha=alpha, iteration=it, radius=r,
+                                 live_blocks=lives, live_share=shares,
+                                 default_cap_picks_sparse=picks))
+                log(f"[regime] {what}, alpha {alpha}, iteration {it}: radius "
+                    f"{r:.6g}; live share of the {n_chunks} x {n_tiles} "
+                    f"block grid per full-film sweep "
+                    f"{[round(x, 4) for x in shares]}; the default cap "
+                    f"({cap} ids) picks sparse on {sum(picks)} of "
+                    f"{len(picks)}")
+                if alpha == REGIME_ALPHA and any(picks) and first_pick is None:
+                    first_pick = it
+                if (alpha == REGIME_ALPHA and point is None
+                        and min(shares) <= REGIME_SHARE):
+                    k = max((i for i in range(len(lives))
+                             if shares[i] <= REGIME_SHARE),
+                            key=lambda i: lives[i])
+                    point = (it, r, k, shares[k])
+        log(f"[regime] {what}: the default cap first picks the sparse kernel "
+            f"at iteration {first_pick if first_pick is not None else 'none'}"
+            f" of {REGIME_ITERS} (alpha {REGIME_ALPHA})")
+        out[what] = dict(cap=cap, rows=rows, first_sparse_pick=first_pick,
+                         grid=[n_chunks, n_tiles])
+        if point is not None:
+            it, r, k, share = point
+            rays, beams, scal, _ = sweeps[k]
+            beams, scal, mask = at_radius(rays, beams, scal, r)
+            out["point"] = dict(scene=what, iteration=it, radius=r, sweep=k,
+                                live_share=share)
+            return out, (rays, beams, scal, mask), what
+        del sweeps
+    return out, None, None
+
+
+def phase_sparse_regime(dev, kernels):
+    """Phase 33.  Rows 2 and 4 against rows 1 and 3 on one full-film sweep
+    of the sparse regime (its mask at most REGIME_SHARE live): each timed
+    with CUDA events (mean of 3 after a warm-up) beside the bound of the
+    listed blocks; dense and sparse bit for bit; the sparse kernels against
+    their plain versions on REGIME_PLAIN_TILES of its ray tiles.  Adds the
+    regime figures to rows 2 and 4 of ``kernels``."""
+    t0 = time.perf_counter()
+    out, sweep, what = regime_point(dev)
+    if sweep is None:
+        log("[regime] no scene's full-film sweep reaches "
+            f"{REGIME_SHARE:.0%} live by iteration {REGIME_ITERS[-1]}: "
+            "rows 2 and 4 are timed at the cap-at-grid sweeps only")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    rays, beams, scal, mask = sweep
+    n_chunks, n_tiles = mask.shape
+    cap = n_chunks * n_tiles // 4
+    idx_t, n_live = G.sparse_block_ids(mask, cap)
+    idx_c, _ = GB.sparse_block_ids_chunk_major(mask, cap)
+    n_live = int(n_live)
+    work = regime_work(mask, scal)
+    log(f"[regime] {what} sweep at iteration {out['point']['iteration']} "
+        f"(radius {out['point']['radius']:.6g}): {n_live} live blocks of "
+        f"{mask.numel()} ({n_live / mask.numel():.2%}); list cap {cap}; "
+        f"work per launched block {json.dumps(work)}")
+    gen = torch.Generator(device="cpu").manual_seed(REGIME_SEED)
+    ct = torch.rand((n_tiles, GB.NDR, BG.TILE), generator=gen) * 2 - 1
+    ct[:, 3:] = 0.0
+    ct = ct.to(dev)
+    in_range, _ = pairs_in_range(rays, beams, scal, mask)
+    geom = n_live * BG.TILE * BG.CHUNK * GEOM_OPS
+    fwd_bytes = (nbytes(rays, beams, scal)
+                 + n_tiles * G.OUT_ROWS * BG.TILE * 4)
+    bwd_bytes = nbytes(rays, beams, scal, ct) + nbytes(rays[:, :GB.NDR], beams)
+    cases = [(G.gather_forward, None,
+              lambda: G.gather_forward(rays, beams, scal, mask), FWD_IN_OPS,
+              fwd_bytes + nbytes(mask)),
+             (G.gather_sparse, None,
+              lambda: G.gather_sparse(rays, beams, scal, idx_t), FWD_IN_OPS,
+              fwd_bytes + nbytes(idx_t))]
+    for extras in (False, True):
+        ops = BWD_IN_OPS + (BWD_EXTRAS_OPS if extras else 0)
+        cases += [
+            (GB.gather_backward_fused, extras,
+             lambda e=extras: GB.gather_backward_fused(rays, beams, scal, ct,
+                                                       mask, e),
+             ops, bwd_bytes + nbytes(mask)),
+            (GB.gather_backward_sparse, extras,
+             lambda e=extras: GB.gather_backward_sparse(
+                 rays, beams, scal, ct, idx_t, idx_c, e),
+             ops, bwd_bytes + nbytes(idx_t, idx_c))]
+    timed, outs = {}, {}
+    for wrapper, extras, fn, in_ops, n_bytes in cases:
+        name = wrapper.__name__
+        first = fn()
+        again = fn()
+        same = (torch.equal(first, again) if torch.is_tensor(first) else
+                all(torch.equal(a, b) for a, b in zip(first, again)))
+        if not same:
+            raise AssertionError(f"{name} (regime, extras={extras}): two "
+                                 "runs differ")
+        ms, _ = cuda_ms(fn, 3, warm=False)
+        bound_ms, bound_by = bound(geom + in_range * in_ops, n_bytes)
+        key = name if extras is None else f"{name} extras={extras}"
+        timed[key] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                          share=bound_ms / ms,
+                          **launched_grid(wrapper))
+        outs[key] = first
+        log(f"[regime] {key}: {ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of it; launched "
+            f"{json.dumps(launched_grid(wrapper))}; two runs "
+            "bit-identical")
+    pairs = [("gather_forward", "gather_sparse")] + [
+        (f"gather_backward_fused extras={e}",
+         f"gather_backward_sparse extras={e}") for e in (False, True)]
+    for a, b in pairs:
+        oa, ob = outs[a], outs[b]
+        same = (torch.equal(oa, ob) if torch.is_tensor(oa) else
+                all(torch.equal(x, y) for x, y in zip(oa, ob)))
+        if not same:
+            raise AssertionError(f"regime sweep: {a} and {b} differ")
+        log(f"[regime] {a} and {b}: bit for bit; sparse / dense time "
+            f"{timed[b]['ms'] / timed[a]['ms']:.4f}")
+    del outs
+    # the sparse kernels against their plain versions on a few ray tiles
+    per_tile = (mask > 0).sum(0)
+    order = torch.argsort(per_tile, descending=True, stable=True)
+    tiles = torch.stack([order[0], order[n_tiles // 2]])
+    sub_r, sub_m = rays[tiles].contiguous(), mask[:, tiles].contiguous()
+    sub_ct = ct[tiles].contiguous()
+    sub_cap = int((sub_m > 0).sum())
+    s_idx, _ = G.sparse_block_ids(sub_m, sub_cap)
+    s_idc, _ = GB.sparse_block_ids_chunk_major(sub_m, sub_cap)
+    res = G.gather_sparse(sub_r, beams, scal, s_idx)
+    ref = G.gather_sparse_ref(sub_r, beams, scal, s_idx)
+    fwd_err = float((res - ref).abs().max())
+    if not torch.allclose(res, ref, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"gather_sparse disagrees with its plain version "
+                             f"on the regime sweep's tiles ({fwd_err})")
+    errs = {}
+    for extras in (False, True):
+        o = GB.gather_backward_sparse(sub_r, beams, scal, sub_ct, s_idx,
+                                      s_idc, extras)
+        r = GB.gather_backward_sparse_ref(sub_r, beams, scal, sub_ct, s_idx,
+                                          s_idc, extras)
+        errs[f"extras={extras}"] = {k: v[1] for k, v in _bwd_close(
+            o, r, f"gather_backward_sparse (regime tiles, extras={extras})"
+        ).items()}
+    log(f"[regime] on ray tiles {tiles.tolist()} ({sub_cap} live blocks): "
+        f"gather_sparse max abs err {fwd_err:.3e} (allclose rtol {RTOL}); "
+        f"gather_backward_sparse per cotangent max |diff| / max|ref| "
+        f"{json.dumps(errs)}")
+    parts = backward_kernel_ms({
+        "sparse": ("gather_backward_sparse",
+                   (rays, beams, scal, ct, idx_t, idx_c, False)),
+        "dense": ("gather_backward_fused",
+                  (rays, beams, scal, ct, mask, False))})
+    log(f"[regime] device ms per kernel (torch.profiler, mean of "
+        f"{PROFILE_REPS}, want_extras=False): "
+        + json.dumps({k: {n: round(v, 3) for n, v in p.items()}
+                      for k, p in parts.items()}))
+    for k in kernels:
+        key = {"gather_sparse": "gather_sparse",
+               "gather_backward_sparse":
+                   "gather_backward_sparse extras=False"}.get(k["name"])
+        if key:
+            dense = key.replace("sparse", "fused" if "backward" in key
+                                else "forward")
+            k["regime"] = dict(timed[key], dense_ms=timed[dense]["ms"],
+                               **out["point"])
+            k["sweeps"]["regime"] = timed[key]
+    out.update(live_blocks=n_live, pairs_in_range=in_range, work=work,
+               timed=timed, plain_err=dict(fwd=fwd_err, bwd=errs),
+               kernels_ms=parts, seconds=time.perf_counter() - t0)
+    log(f"[regime] phase 33 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -2988,6 +3316,7 @@ def main():
     report["compat_volpath"] = phase_compat_volpath(dev, report["card"])
     report["photon_mapping"] = phase_photon_mapping(dev, report["card"])
     report["bidirectional"] = phase_bidirectional(dev, report["card"])
+    report["sparse_regime"] = phase_sparse_regime(dev, kernels)
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -3032,8 +3361,7 @@ def main():
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
         for key in ("err_over_max_ref", "launches_non_packed", "launches_cli",
-                    "n_splits",
-                    "blocks", "beam_blocks"):
+                    "n_splits", "blocks", "beam_blocks", "regime"):
             if key in kk:
                 row[key] = kk[key]
     print(json.dumps({"kernels": rows}))

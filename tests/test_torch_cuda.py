@@ -154,6 +154,55 @@ def test_split_sweeps_match_plain_versions(dev, het, n_tiles, n_chunks,
         assert all(torch.equal(a, b) for a, b in zip(bwd[0], bsp))
 
 
+@pytest.mark.parametrize("het", [False, True])
+@pytest.mark.parametrize("want_extras", [False, True])
+def test_sparse_kernels_in_the_sparse_regime(dev, het, want_extras):
+    """Rows 2 and 4 on a mask at most a quarter live with a few heavy
+    chunks and tiles (the regime gather="auto" picks them for), their runs
+    launched largest first: against their plain versions, against the
+    dense kernels bit for bit, two runs bit for bit, and the lists, plans
+    and launches without a host sync.  The sparse backward is homogeneous
+    only; ``het`` holds the heterogeneous sparse forward."""
+    n_tiles, n_chunks = 300, 40
+    rays, beams, scal, _ = (_het_inputs if het else _inputs)(
+        dev, n_tiles, n_chunks, seed=11)
+    m = np.random.RandomState(12).rand(n_chunks, n_tiles) < 0.05
+    m[[2, 17, 33]] = True  # heavy chunks
+    m[:, [5, 250]] = True  # heavy tiles
+    mask = torch.from_numpy(m.astype(np.float32)).to(dev)
+    assert float(mask.mean()) <= 0.25
+    ct = torch.from_numpy(np.random.RandomState(13).uniform(
+        -1, 1, (n_tiles, GB.NDR, 256)).astype(np.float32)).to(dev)
+    ct[:, 3:] = 0.0
+    cap = n_chunks * n_tiles // 4
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx_t, _ = G.sparse_block_ids(mask, cap)
+        fwd = [G.gather_sparse(rays, beams, scal, idx_t) for _ in range(2)]
+        if not het:
+            idx_c, _ = GB.sparse_block_ids_chunk_major(mask, cap)
+            bwd = [GB.gather_backward_sparse(rays, beams, scal, ct, idx_t,
+                                             idx_c, want_extras)
+                   for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    n_splits = G.split_count(n_tiles, n_chunks)
+    assert G.gather_sparse.last_grid == (n_tiles, n_splits)
+    torch.testing.assert_close(fwd[0], G.gather_sparse_ref(
+        rays, beams, scal, idx_t), rtol=2e-4, atol=1e-8)
+    assert torch.equal(fwd[0], fwd[1])
+    assert torch.equal(fwd[0], G.gather_forward(rays, beams, scal, mask))
+    if het:
+        return
+    _close_by_cotangent(bwd[0], GB.gather_backward_sparse_ref(
+        rays, beams, scal, ct, idx_t, idx_c, want_extras))
+    dense = GB.gather_backward_fused(rays, beams, scal, ct, mask, want_extras)
+    for a, b, c in zip(bwd[0], bwd[1], dense):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def _cornell(dev):
     b = SceneBuilder()
     fog = b.homogeneous_medium((0.02,) * 3, (0.35,) * 3, g=0.0)
