@@ -17,8 +17,8 @@
 //   - pallas_gather_backward (:775, bodies _bwd_rays_kernel :708 and
 //     _bwd_beams_kernel :741) — the historical two-pass backward of the
 //     non-packed route (PALLAS_BWD_MODE "twopass"), every block of the grid
-//     with the extras on: bre_gather_backward_twopass launches
-//     bwd_rays_twopass and bwd_beams_twopass (design at their definition).
+//     with the extras on: bre_gather_backward_twopass launches the dense
+//     sweeps' two-pass instances (TWOPASS, design below).
 //
 // What it computes: with the geometry held fixed (grad_geometry=False), the
 // analytic cotangents of the forward's per-ray sums, given the output
@@ -65,6 +65,20 @@
 // beam tables (21 KB).  A beam thread of the d_beams sweep holds its beam
 // and tables; the staged ray tile carries ct, sigma_s and the camera tables
 // (32 KB).
+// The two-pass backward runs the same two sweeps in its own form (TWOPASS:
+// the reference's operation order, as ops/gather_bwd.py
+// _twopass_blocks_ref: p_at and tr_cam as two exps, the per-beam partials
+// dp/dps and dp/dpe divided per pair, the extras always on).  It sweeps
+// every block of the grid whatever n_valid says, but a chunk in which no
+// beam has a live start power (ps > 1e-20, load_beam's gate) in any
+// channel adds exact zeros to every sum of both sweeps (p_at, dp/dps and
+// dp/dpe vanish with finite pair weights), so its pre-pass,
+// stage_power_chunks, flags the chunks with a live power and stages those
+// (past n_valid too), and flagged_extent writes 1 + the last flagged chunk.
+// The d_rays splits cut [0, extent) and walk the flagged chunks of every
+// ray tile; a d_beams block of an unflagged chunk writes zeros.  The
+// validity-compacted buffers of both routes end in such chunks (dead
+// powers: the validity is folded into them).  Nothing is read on the host.
 // Both sum each tile's or chunk's partials before adding them, as the plain
 // versions do.  The pair work is paid twice (once per sweep): the price of
 // deterministic sums without atomics.  The sparse d_rays sweep splits each
@@ -316,18 +330,63 @@ __device__ __forceinline__ void rays_sweep_chunk(const BeamChunkHet& s,
   for (int row = DR_SIGS; row < NDR_HET; ++row) acc[row] = add(acc[row], part[row]);
 }
 
-template <int ROWS>
-__device__ void write_rays(float* __restrict__ d_rays, int tile,
-                           const float acc[ROWS]) {
-  float* o = d_rays + static_cast<size_t>(tile) * ROWS * T + threadIdx.x;
+// The two-pass form of rays_sweep_chunk (_bwd_rays_kernel,
+// pallas_gather_bwd.py:708-738): the extras always on, p_at and tr_cam =
+// exp(frac_c log(max(tr, 1e-30))) as two exps, d g and d cam_radius summing
+// each pair's three channel terms first (the reference's (C, T)
+// accumulators); the chunk's sums over beams are turned into cotangents and
+// added to acc, rounded in the plain version's order.
+__device__ __forceinline__ void rays_sweep_chunk_twopass(const BeamChunk& s,
+                                                         const Ray& r,
+                                                         const RayCt& rc,
+                                                         float inv_min_sin,
+                                                         float acc[NDR]) {
+  float sum_a[3] = {0.0f, 0.0f, 0.0f}, sum_af[3] = {0.0f, 0.0f, 0.0f};
+  float sum_g = 0.0f, sum_camr = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < C; ++k) {
+    const float b0[3] = {s.b0[0][k], s.b0[1][k], s.b0[2][k]};
+    const float d2[3] = {s.d2[0][k], s.d2[1][k], s.d2[2][k]};
+    const float inv_w = s.inv_w[k];
+    const PairGeom p = closest_points(r.a0, r.d1, r.a, r.inv_a, b0, d2,
+                                      s.e[k], s.inv_e[k], inv_w);
+    if (!(p.r2 < 1.0f)) continue;  // base = 0 outside the blur width
+    const PairTerms q = pair_terms<true>(cos_theta(r.dir, d2, s.ibl[k]), r.g,
+                                         p.r2, inv_w, inv_min_sin);
+    const float w0 = mul(mul(q.base, q.rho), q.k1);
+    const float wg = mul(mul(q.base, q.k1), q.drho_dg);
+    const float wrad = mul(mul(q.base, q.rho), q.dk1_dw);
+    float g_pair = 0.0f, camr_pair = 0.0f;
 #pragma unroll
-  for (int row = 0; row < ROWS; ++row) o[row * T] = acc[row];
+    for (int ch = 0; ch < 3; ++ch) {
+      const float p_at = mul(s.ps[ch][k], expf(mul(p.tc, s.lp[ch][k])));
+      const float tr_cam = expf(mul(p.sc, r.lt[ch]));
+      const float A = mul(mul(w0, p_at), tr_cam);
+      sum_a[ch] = add(sum_a[ch], A);
+      sum_af[ch] = add(sum_af[ch], mul(A, p.sc));
+      g_pair = add(g_pair, mul(mul(mul(rc.coef[ch], wg), p_at), tr_cam));
+      camr_pair =
+          add(camr_pair, mul(mul(mul(rc.coef[ch], wrad), p_at), tr_cam));
+    }
+    sum_g = add(sum_g, g_pair);
+    sum_camr = add(sum_camr, camr_pair);
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    acc[DR_SIGS + ch] = add(acc[DR_SIGS + ch], mul(rc.ct[ch], sum_a[ch]));
+    acc[DR_TR + ch] =
+        add(acc[DR_TR + ch],
+            mul(mul(rc.coef[ch], sum_af[ch] / rc.trf[ch]), rc.trf_live[ch]));
+  }
+  acc[DR_G] = add(acc[DR_G], sum_g);
+  acc[DR_CAMR] = add(acc[DR_CAMR], sum_camr);
 }
 
 // The d_rays sweep of either kernel: ray tile `tile` against the positions
 // p = walk.first(lo) ... of its walk, each a staged chunk of `staged`
-// (stage_beams); the partial cotangents go to (split, tile) of `partial`.
-template <bool EXTRAS, bool HETERO, class Walk, class ChunkOf>
+// (stage_beams, stage_power_chunks); the partial cotangents go to (split,
+// tile) of `partial`.  TWOPASS: the two-pass form (homogeneous, extras on).
+template <bool EXTRAS, bool HETERO, bool TWOPASS, class Walk, class ChunkOf>
 __device__ __forceinline__ void d_rays_sweep(
     const float* __restrict__ rays, const float* __restrict__ staged,
     const float* __restrict__ scalars, const float* __restrict__ ct,
@@ -348,7 +407,11 @@ __device__ __forceinline__ void d_rays_sweep(
       walk.first(lo), walk.end(), [&](int p) { return walk.next(p); },
       [&](int p) { return chunks + chunk_of(p); },
       [&](const Stage& s, int) {
-        rays_sweep_chunk<EXTRAS>(s, r, rc, inv_min_sin, acc);
+        if constexpr (TWOPASS) {
+          rays_sweep_chunk_twopass(s, r, rc, inv_min_sin, acc);
+        } else {
+          rays_sweep_chunk<EXTRAS>(s, r, rc, inv_min_sin, acc);
+        }
       });
   write_partial<ndr>(partial, acc, tile, split, n_tiles);
 }
@@ -356,20 +419,26 @@ __device__ __forceinline__ void d_rays_sweep(
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin, n_valid.
 // mask: (n_chunks, n_tiles), 0 = skip the block.  ct: (n_tiles, 8, T).
 // Grid (n_tiles, n_splits): block (tile, s) sweeps the live chunks of split
-// s into partial (n_splits, n_tiles, 8|NDR_HET, T).
-template <bool EXTRAS, bool HETERO>
+// s into partial (n_splits, n_tiles, 8|NDR_HET, T).  TWOPASS: mask is the
+// pre-pass's (n_chunks + 1,) flags, one column for every ray tile, and the
+// splits cut [0, extent) (flags[n_chunks]), not the chunks before n_valid.
+template <bool EXTRAS, bool HETERO, bool TWOPASS = false>
 __global__ void __launch_bounds__(T, kBwdMinBlocks<HETERO>)
 bwd_rays_dense(const float* __restrict__ rays,
                const float* __restrict__ staged,
                const float* __restrict__ scalars,
                const float* __restrict__ mask, const float* __restrict__ ct,
                float* __restrict__ partial, int n_tiles, int n_chunks) {
-  const ChunkRange cr =
-      split_range(scalars[3], n_chunks, gridDim.y, blockIdx.y);
-  const MaskedChunks walk{mask + blockIdx.x, n_tiles, cr.hi};
-  d_rays_sweep<EXTRAS, HETERO>(rays, staged, scalars, ct, walk, cr.lo,
-                               [](int j) { return j; }, blockIdx.x,
-                               blockIdx.y, n_tiles, partial);
+  const int n_live = TWOPASS ? static_cast<int>(mask[n_chunks])
+                             : live_chunk_count(scalars[3], n_chunks);
+  const ChunkRange cr = split_range(n_live, gridDim.y, blockIdx.y);
+  const MaskedChunks walk = TWOPASS
+                                ? MaskedChunks{mask, 1, cr.hi}
+                                : MaskedChunks{mask + blockIdx.x, n_tiles, cr.hi};
+  d_rays_sweep<EXTRAS, HETERO, TWOPASS>(rays, staged, scalars, ct, walk,
+                                        cr.lo, [](int j) { return j; },
+                                        blockIdx.x, blockIdx.y, n_tiles,
+                                        partial);
 }
 
 // chunk_of, run_start and order: the tile-major list's plan (ops/gather.py
@@ -391,7 +460,7 @@ bwd_rays_sparse(const float* __restrict__ rays,
     return;
   }
   const ListedChunks walk{chunk_of, run.k1, scalars[3]};
-  d_rays_sweep<EXTRAS, false>(rays, staged, scalars, ct, walk, run.k0,
+  d_rays_sweep<EXTRAS, false, false>(rays, staged, scalars, ct, walk, run.k0,
                               [&](int k) { return walk.chunk(k); }, run.tile,
                               run.split, n_tiles, partial);
 }
@@ -465,6 +534,52 @@ __device__ __forceinline__ void beams_sweep_tile(const RayTile& s,
     acc[3 + ch] = add(acc[3 + ch], mul(sum_pe[ch], bm.pe_live[ch]) / bm.pe_s[ch]);
   }
   acc[6] = add(acc[6], sum_rad);
+}
+
+// The two-pass form of beams_sweep_tile (_bwd_beams_kernel,
+// pallas_gather_bwd.py:741-772): the extras always on, p_at and tr_cam as
+// two exps, dp/dps and dp/dpe divided per pair; the tile's sums over rays
+// are added once (d radius: the three channels' sums, in channel order).
+__device__ __forceinline__ void beams_sweep_tile_twopass(const RayTile& s,
+                                                         const Beam& bm,
+                                                         float inv_min_sin,
+                                                         float acc[NBC]) {
+  float sum_ps[3] = {0.0f, 0.0f, 0.0f}, sum_pe[3] = {0.0f, 0.0f, 0.0f};
+  float sum_rad[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 2
+  for (int i = 0; i < T; ++i) {
+    const float a0[3] = {s.a0[0][i], s.a0[1][i], s.a0[2][i]};
+    const float d1[3] = {s.d1[0][i], s.d1[1][i], s.d1[2][i]};
+    const PairGeom p = closest_points(a0, d1, s.a[i], s.inv_a[i], bm.b0,
+                                      bm.d2, bm.e, bm.inv_e, bm.inv_w);
+    if (!(p.r2 < 1.0f)) continue;
+    const float dir[3] = {s.dir[0][i], s.dir[1][i], s.dir[2][i]};
+    const PairTerms q = pair_terms<true>(cos_theta(dir, bm.d2, bm.ibl),
+                                         s.g[i], p.r2, bm.inv_w, inv_min_sin);
+    const float w0 = mul(mul(q.base, q.rho), q.k1);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const bool ok = bm.ps[ch] > 0.0f;  // 0 exactly where ps is dead
+      const float tr_cam = expf(mul(p.sc, s.lt[ch][i]));
+      const float p_at = mul(bm.ps[ch], expf(mul(p.tc, bm.lp[ch])));
+      const float dp_dps = ok ? mul(p_at, sub(1.0f, p.tc)) / bm.ps_s[ch] : 0.0f;
+      const float dp_dpe =
+          mul(ok ? mul(p_at, p.tc) / bm.pe_s[ch] : 0.0f, bm.pe_live[ch]);
+      const float coef = mul(mul(s.coef[ch][i], w0), tr_cam);
+      sum_ps[ch] = add(sum_ps[ch], mul(coef, dp_dps));
+      sum_pe[ch] = add(sum_pe[ch], mul(coef, dp_dpe));
+      sum_rad[ch] = add(
+          sum_rad[ch],
+          mul(mul(mul(mul(mul(s.coef[ch][i], q.base), q.rho), q.dk1_dw), p_at),
+              tr_cam));
+    }
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    acc[ch] = add(acc[ch], sum_ps[ch]);
+    acc[3 + ch] = add(acc[3 + ch], sum_pe[ch]);
+  }
+  acc[6] = add(acc[6], add(add(sum_rad[0], sum_rad[1]), sum_rad[2]));
 }
 
 // One staged grid-medium ray tile, field-major (33 KB).
@@ -599,8 +714,10 @@ __device__ auto load_beam_any(const float* __restrict__ chunk, int lane,
 // One block per beam chunk: the live ray tiles of its mask row, ascending,
 // each staged in shared memory by the block itself.  (Recomputing a tile's
 // per-ray terms here timed faster on the H100 than copying them in from a
-// pre-pass, through a bulk-copy ring or plain loads.)
-template <bool EXTRAS, bool HETERO>
+// pre-pass, through a bulk-copy ring or plain loads.)  TWOPASS: mask is
+// the pre-pass's flags; a flagged chunk sweeps every ray tile in the
+// two-pass form, an unflagged one writes zeros.
+template <bool EXTRAS, bool HETERO, bool TWOPASS = false>
 __global__ void __launch_bounds__(T, kBeamsMinBlocks<EXTRAS, HETERO>)
 bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
                 const float* __restrict__ scalars,
@@ -611,17 +728,23 @@ bwd_beams_dense(const float* __restrict__ rays, const float* __restrict__ beams,
   const int chunk = blockIdx.x;
   const float* mrow = mask + static_cast<size_t>(chunk) * n_tiles;
   const float inv_min_sin = 1.0f / scalars[2];
-  // chunks past n_valid hold no live beam: zeros
+  // chunks past n_valid (two-pass: unflagged chunks) add nothing: zeros
   float acc[HETERO ? NBC_HET : NBC] = {};
-  if (static_cast<float>(chunk * C) < scalars[3]) {
+  const bool live = TWOPASS ? __ldg(mask + chunk) > 0.0f
+                            : static_cast<float>(chunk * C) < scalars[3];
+  if (live) {
     const auto bm = load_beam_any<HETERO>(
         beams + static_cast<size_t>(chunk) * nb * C, threadIdx.x, scalars[0]);
     for (int i = 0; i < n_tiles; ++i) {
-      if (!(__ldg(mrow + i) > 0.0f)) continue;
+      if (!TWOPASS && !(__ldg(mrow + i) > 0.0f)) continue;
       stage_tile(rays + static_cast<size_t>(i) * nf * T,
                  ct + static_cast<size_t>(i) * CT_ROWS * T, s, threadIdx.x);
       __syncthreads();
-      beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
+      if constexpr (TWOPASS) {
+        beams_sweep_tile_twopass(s, bm, inv_min_sin, acc);
+      } else {
+        beams_sweep_tile<EXTRAS>(s, bm, inv_min_sin, acc);
+      }
       __syncthreads();  // the next tile overwrites s
     }
   }
@@ -666,148 +789,44 @@ bwd_beams_sparse(const float* __restrict__ rays,
   write_beams<false>(d_beams, chunk, acc);
 }
 
-// ---- the two-pass dense backward (Queue 2 row 6) -------------------------
-//
-// pallas_gather_backward (pallas_gather_bwd.py:775; bodies _bwd_rays_kernel
-// :708 and _bwd_beams_kernel :741): the same cotangents with the extras
-// always on, over EVERY block of the (chunk x tile) grid: no block mask and
-// no dead-chunk skip (dead beams carry zero powers and add exact zeros).
-// Per pair it follows the reference's form, not the fused kernels': p_at
-// and tr_cam = exp(frac_c log(max(tr, 1e-30))) are two exps, and the
-// per-beam partials dp/dps, dp/dpe divide per pair.  The channel terms are
-// rounded in the plain version's order (ops/gather_bwd.py
-// _twopass_blocks_ref).
+// ---- the two-pass backward's pre-pass (Queue 2 row 6) ------------------
 
-// d_rays: one block per ray tile, one thread per ray, walking every chunk
-// in ascending order, each staged in shared memory; per chunk the sums over
-// its beams are turned into cotangents and added, as the reference adds each
-// grid step's block sums.  d g and d cam_radius sum each pair's three
-// channel terms first (the reference's (C, T) accumulators).
-__global__ void __launch_bounds__(T)
-bwd_rays_twopass(const float* __restrict__ rays,
-                 const float* __restrict__ beams,
-                 const float* __restrict__ scalars,
-                 const float* __restrict__ ct, float* __restrict__ d_rays,
-                 int n_chunks) {
-  __shared__ BeamChunk s;
-  const int tile = blockIdx.x;
-  const float* tile_rows = rays + static_cast<size_t>(tile) * NF * T;
-  const Ray r = load_ray(tile_rows, threadIdx.x);
-  const RayCt rc = load_ray_ct(
-      tile_rows, ct + static_cast<size_t>(tile) * CT_ROWS * T, threadIdx.x);
-  const float cam_radius = scalars[0];
-  const float inv_min_sin = 1.0f / scalars[2];
-  float acc[NDR] = {};
-  for (int j = 0; j < n_chunks; ++j) {
-    stage_chunk(beams + static_cast<size_t>(j) * NB * C, s, threadIdx.x,
-                cam_radius);
-    __syncthreads();
-    float sum_a[3] = {0.0f, 0.0f, 0.0f}, sum_af[3] = {0.0f, 0.0f, 0.0f};
-    float sum_g = 0.0f, sum_camr = 0.0f;
-#pragma unroll 2
-    for (int k = 0; k < C; ++k) {
-      const float b0[3] = {s.b0[0][k], s.b0[1][k], s.b0[2][k]};
-      const float d2[3] = {s.d2[0][k], s.d2[1][k], s.d2[2][k]};
-      const float inv_w = s.inv_w[k];
-      const PairGeom p = closest_points(r.a0, r.d1, r.a, r.inv_a, b0, d2,
-                                        s.e[k], s.inv_e[k], inv_w);
-      if (!(p.r2 < 1.0f)) continue;  // base = 0 outside the blur width
-      const PairTerms q = pair_terms<true>(cos_theta(r.dir, d2, s.ibl[k]),
-                                           r.g, p.r2, inv_w, inv_min_sin);
-      const float w0 = mul(mul(q.base, q.rho), q.k1);
-      const float wg = mul(mul(q.base, q.k1), q.drho_dg);
-      const float wrad = mul(mul(q.base, q.rho), q.dk1_dw);
-      float g_pair = 0.0f, camr_pair = 0.0f;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const float p_at = mul(s.ps[ch][k], expf(mul(p.tc, s.lp[ch][k])));
-        const float tr_cam = expf(mul(p.sc, r.lt[ch]));
-        const float A = mul(mul(w0, p_at), tr_cam);
-        sum_a[ch] = add(sum_a[ch], A);
-        sum_af[ch] = add(sum_af[ch], mul(A, p.sc));
-        g_pair = add(g_pair, mul(mul(mul(rc.coef[ch], wg), p_at), tr_cam));
-        camr_pair =
-            add(camr_pair, mul(mul(mul(rc.coef[ch], wrad), p_at), tr_cam));
-      }
-      sum_g = add(sum_g, g_pair);
-      sum_camr = add(sum_camr, camr_pair);
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      acc[DR_SIGS + ch] = add(acc[DR_SIGS + ch], mul(rc.ct[ch], sum_a[ch]));
-      acc[DR_TR + ch] =
-          add(acc[DR_TR + ch],
-              mul(mul(rc.coef[ch], sum_af[ch] / rc.trf[ch]), rc.trf_live[ch]));
-    }
-    acc[DR_G] = add(acc[DR_G], sum_g);
-    acc[DR_CAMR] = add(acc[DR_CAMR], sum_camr);
-    __syncthreads();  // the next chunk overwrites s
-  }
-  write_rays<NDR>(d_rays, tile, acc);
+// flags[j] = 1 where some beam of chunk j has a live start power in some
+// channel, else 0; the flagged chunks are staged as stage_beams stages them,
+// whatever n_valid says.
+__global__ void __launch_bounds__(C)
+stage_power_chunks(const float* __restrict__ beams,
+                   const float* __restrict__ scalars,
+                   float* __restrict__ staged, float* __restrict__ flags) {
+  const int j = blockIdx.x;
+  const float* chunk = beams + static_cast<size_t>(j) * NB * C;
+  const float* ps = chunk + BF_PS * C + threadIdx.x;
+  const bool live =
+      __syncthreads_or(ps[0] > 1e-20f || ps[C] > 1e-20f || ps[2 * C] > 1e-20f);
+  if (threadIdx.x == 0) flags[j] = live ? 1.0f : 0.0f;
+  if (live)
+    stage_chunk(chunk, reinterpret_cast<BeamChunk*>(staged)[j], threadIdx.x,
+                scalars[0]);
 }
 
-// d_beams: one block per beam chunk, one thread per beam, walking every ray
-// tile in ascending order, each staged in shared memory; per tile the sums
-// over its rays are added (d radius: the three channels' sums, in channel
-// order, as the reference adds them).
-__global__ void __launch_bounds__(T)
-bwd_beams_twopass(const float* __restrict__ rays,
-                  const float* __restrict__ beams,
-                  const float* __restrict__ scalars,
-                  const float* __restrict__ ct, float* __restrict__ d_beams,
-                  int n_tiles) {
-  __shared__ RayTile s;
-  const int chunk = blockIdx.x;
-  const Beam bm = load_beam(beams + static_cast<size_t>(chunk) * NB * C,
-                            threadIdx.x, scalars[0]);
-  const float inv_min_sin = 1.0f / scalars[2];
-  float acc[NBC] = {};
-  for (int i = 0; i < n_tiles; ++i) {
-    stage_tile(rays + static_cast<size_t>(i) * NF * T,
-               ct + static_cast<size_t>(i) * CT_ROWS * T, s, threadIdx.x);
-    __syncthreads();
-    float sum_ps[3] = {0.0f, 0.0f, 0.0f}, sum_pe[3] = {0.0f, 0.0f, 0.0f};
-    float sum_rad[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 2
-    for (int k = 0; k < T; ++k) {
-      const float a0[3] = {s.a0[0][k], s.a0[1][k], s.a0[2][k]};
-      const float d1[3] = {s.d1[0][k], s.d1[1][k], s.d1[2][k]};
-      const PairGeom p = closest_points(a0, d1, s.a[k], s.inv_a[k], bm.b0,
-                                        bm.d2, bm.e, bm.inv_e, bm.inv_w);
-      if (!(p.r2 < 1.0f)) continue;
-      const float dir[3] = {s.dir[0][k], s.dir[1][k], s.dir[2][k]};
-      const PairTerms q = pair_terms<true>(cos_theta(dir, bm.d2, bm.ibl),
-                                           s.g[k], p.r2, bm.inv_w,
-                                           inv_min_sin);
-      const float w0 = mul(mul(q.base, q.rho), q.k1);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const bool ok = bm.ps[ch] > 0.0f;  // 0 exactly where ps is dead
-        const float tr_cam = expf(mul(p.sc, s.lt[ch][k]));
-        const float p_at = mul(bm.ps[ch], expf(mul(p.tc, bm.lp[ch])));
-        const float dp_dps =
-            ok ? mul(p_at, sub(1.0f, p.tc)) / bm.ps_s[ch] : 0.0f;
-        const float dp_dpe =
-            mul(ok ? mul(p_at, p.tc) / bm.pe_s[ch] : 0.0f, bm.pe_live[ch]);
-        const float coef = mul(mul(s.coef[ch][k], w0), tr_cam);
-        sum_ps[ch] = add(sum_ps[ch], mul(coef, dp_dps));
-        sum_pe[ch] = add(sum_pe[ch], mul(coef, dp_dpe));
-        sum_rad[ch] = add(
-            sum_rad[ch],
-            mul(mul(mul(mul(mul(s.coef[ch][k], q.base), q.rho), q.dk1_dw),
-                    p_at),
-                tr_cam));
-      }
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      acc[ch] = add(acc[ch], sum_ps[ch]);
-      acc[3 + ch] = add(acc[3 + ch], sum_pe[ch]);
-    }
-    acc[6] = add(acc[6], add(add(sum_rad[0], sum_rad[1]), sum_rad[2]));
-    __syncthreads();  // the next tile overwrites s
+// flags[n_chunks] = 1 + the last flagged chunk (0 if none), exact as a float
+// (n_chunks < 2^24: _check_packed's int32 offsets).  One block of
+// kExtentThreads, a maximum over threads: no atomics.
+constexpr int kExtentThreads = 1024;
+
+__global__ void __launch_bounds__(kExtentThreads)
+flagged_extent(float* __restrict__ flags, int n_chunks) {
+  __shared__ int warp_hi[kExtentThreads / 32];
+  int hi = 0;
+  for (int j = threadIdx.x; j < n_chunks; j += kExtentThreads)
+    if (flags[j] > 0.0f) hi = j + 1;
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((threadIdx.x & 31) == 0) warp_hi[threadIdx.x >> 5] = hi;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    hi = __reduce_max_sync(0xffffffffu, warp_hi[threadIdx.x]);
+    if (threadIdx.x == 0) flags[n_chunks] = static_cast<float>(hi);
   }
-  write_beams<false>(d_beams, chunk, acc);
 }
 
 // stage_beams, the d_rays sweep over the (n_tiles, n_splits) grid,
@@ -859,6 +878,31 @@ int launch_sparse(const float* rays, const float* beams,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The two-pass backward: stage_power_chunks, flagged_extent, the d_rays
+// sweep over the flagged chunks on the (n_tiles, n_splits) grid,
+// reduce_splits, the d_beams sweep.
+int launch_twopass(const float* rays, const float* beams, const float* scalars,
+                   const float* ct, float* staged_beams, float* flags,
+                   float* partial, float* d_rays, float* d_beams, int n_tiles,
+                   int n_chunks, int n_splits, cudaStream_t stream) {
+  stage_power_chunks<<<n_chunks, C, 0, stream>>>(beams, scalars, staged_beams,
+                                                 flags);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flagged_extent<<<1, kExtentThreads, 0, stream>>>(flags, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bwd_rays_dense<true, false, true>
+      <<<dim3(n_tiles, n_splits), T, ring_smem_bytes<BeamChunk>(), stream>>>(
+          rays, staged_beams, scalars, flags, ct, partial, n_tiles, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  reduce_splits<<<dim3(n_tiles, NDR), T, 0, stream>>>(
+      partial, d_rays, n_splits, n_tiles, NDR, NDR);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bwd_beams_dense<true, false, true><<<n_chunks, T, 0, stream>>>(
+      rays, beams, scalars, flags, ct, d_beams, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -901,18 +945,17 @@ int bre_gather_backward_sparse(const float* rays, const float* beams,
 
 // scalars: cam_radius, power_scale (folded into sigma_s), min_sin; a fourth
 // entry (n_valid) is not read.  ct: (n_tiles, 8, T); d_rays: (n_tiles, 8,
-// T); d_beams: (n_chunks, NB, C).
+// T); d_beams: (n_chunks, NB, C).  staged_beams (n_chunks, 16, C), flags
+// (n_chunks + 1,) and partial (n_splits, n_tiles, 8, T): scratch.
 int bre_gather_backward_twopass(const float* rays, const float* beams,
                                 const float* scalars, const float* ct,
-                                float* d_rays, float* d_beams, int n_tiles,
-                                int n_chunks, cudaStream_t stream) {
-  bwd_rays_twopass<<<n_tiles, T, 0, stream>>>(rays, beams, scalars, ct,
-                                              d_rays, n_chunks);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_beams_twopass<<<n_chunks, T, 0, stream>>>(rays, beams, scalars, ct,
-                                                d_beams, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+                                float* staged_beams, float* flags,
+                                float* partial, float* d_rays, float* d_beams,
+                                int n_tiles, int n_chunks, int n_splits,
+                                cudaStream_t stream) {
+  return launch_twopass(rays, beams, scalars, ct, staged_beams, flags,
+                        partial, d_rays, d_beams, n_tiles, n_chunks, n_splits,
+                        stream);
 }
 
 }  // extern "C"

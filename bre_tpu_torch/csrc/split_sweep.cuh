@@ -36,16 +36,21 @@ __device__ __forceinline__ int live_chunk_count(float n_valid, int n_chunks) {
   return n >= static_cast<float>(n_chunks) ? n_chunks : static_cast<int>(n);
 }
 
-// The chunks [lo, hi) of split s of n_splits (ops/gather.py split_bounds).
+// The chunks [lo, hi) of split s of n_splits when the first n_live chunks
+// are swept (ops/gather.py split_bounds).
 struct ChunkRange {
   int lo, hi;
 };
 
-__device__ __forceinline__ ChunkRange split_range(float n_valid, int n_chunks,
-                                                  int n_splits, int s) {
-  const int n_live = live_chunk_count(n_valid, n_chunks);
+__device__ __forceinline__ ChunkRange split_range(int n_live, int n_splits,
+                                                  int s) {
   const int k = (n_live + n_splits - 1) / n_splits;
   return {min(s * k, n_live), min((s + 1) * k, n_live)};
+}
+
+__device__ __forceinline__ ChunkRange split_range(float n_valid, int n_chunks,
+                                                  int n_splits, int s) {
+  return split_range(live_chunk_count(n_valid, n_chunks), n_splits, s);
 }
 
 // The two stages of a ring and their barriers, in dynamic shared memory

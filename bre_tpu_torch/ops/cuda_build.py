@@ -133,8 +133,10 @@ def load_library() -> ctypes.CDLL:
     lib.bre_gather_backward_sparse.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                p, p, p, p, i, i, i, i, p]
     lib.bre_gather_backward_sparse.restype = i
-    # rays, beams, scalars, ct, d_rays, d_beams, n_tiles, n_chunks, stream
-    lib.bre_gather_backward_twopass.argtypes = [p, p, p, p, p, p, i, i, p]
+    # rays, beams, scalars, ct, staged_beams, flags, partial, d_rays,
+    # d_beams, n_tiles, n_chunks, n_splits, stream
+    lib.bre_gather_backward_twopass.argtypes = [p, p, p, p, p, p, p, p, p, i,
+                                                i, i, p]
     lib.bre_gather_backward_twopass.restype = i
     _lib = lib
     return lib

@@ -23,9 +23,11 @@ of D and dens.
 ``gather_backward_fused`` (dense, block mask), ``gather_backward_sparse``
 (compacted live blocks, tile-major for d_rays and chunk-major for d_beams)
 and ``gather_backward_twopass`` (the reference's historical two-pass
-``pallas_gather_backward``: every block, no mask, no dead-chunk skip, the
-extras always on) take their plain versions only for CPU tensors; for CUDA
-tensors they launch the kernels of ``csrc/beam_gather_bwd.cu`` or raise.
+``pallas_gather_backward``: every block whatever ``n_valid`` says, no mask,
+the extras always on; its kernels skip the chunks without a live start
+power, ``twopass_chunk_flags``, which add exact zeros) take their plain
+versions only for CPU tensors; for CUDA tensors they launch the kernels of
+``csrc/beam_gather_bwd.cu`` or raise.
 The dense wrapper picks the heterogeneous instance for NF_HET rays; the
 sparse and two-pass backward are homogeneous only, as in the reference,
 which takes the dense one for grid media (beam_gather.py:1147).  Each
@@ -391,6 +393,19 @@ def gather_backward_sparse_ref(rays_packed, beams_packed, scalars, ct,
     return d_rays, d_beams
 
 
+def twopass_chunk_flags(beams_packed):
+    """The two-pass kernels' pre-pass (``stage_power_chunks`` and
+    ``flagged_extent``): (flags (n_chunks,) bool, extent () int64).  A chunk
+    is flagged where some beam has a live start power (ps > 1e-20, the
+    gate of ``_interp_terms_ref``) in some channel; extent is 1 + the last
+    flagged chunk, 0 if none.  Over an unflagged chunk p_at, dp/dps and
+    dp/dpe are 0, so every term of both sweeps is exactly 0."""
+    n_chunks = beams_packed.shape[0]
+    flags = (beams_packed[:, BF_PS:BF_PS + 3] > 1e-20).flatten(1).any(1)
+    pos = torch.arange(1, n_chunks + 1, device=beams_packed.device)
+    return flags, torch.where(flags, pos, 0).max()
+
+
 def gather_backward_twopass_ref(rays_packed, beams_packed, scalars, ct):
     """Plain version of the two-pass dense backward: every block of the
     grid (no mask, no dead-chunk skip; ``n_valid`` is not read), the
@@ -530,8 +545,12 @@ def gather_backward_twopass(rays_packed, beams_packed, scalars, ct):
     8, T), d_beams (n_chunks, NB, C)) over every block, the extras always
     on.  ``scalars`` is the port's (1, 4) row; its ``n_valid`` is not read.
     CPU tensors take ``gather_backward_twopass_ref``; CUDA tensors launch
-    ``bwd_rays_twopass`` and ``bwd_beams_twopass``.  Homogeneous layouts
-    only, as in the reference."""
+    the two-pass instances of the dense sweeps of ``csrc/beam_gather_bwd.cu``
+    after their pre-pass (``stage_power_chunks``, ``flagged_extent``): d_rays
+    over ``split_count`` blocks per ray tile, each walking the flagged
+    chunks of its split of [0, extent), and ``reduce_splits``; d_beams chunk
+    by chunk, zeros for an unflagged chunk.  Homogeneous layouts only, as in
+    the reference."""
     _reject_hetero(rays_packed, "the two-pass backward",
                    "gather_backward_fused")
     if rays_packed.device.type == "cpu":
@@ -542,14 +561,21 @@ def gather_backward_twopass(rays_packed, beams_packed, scalars, ct):
     n_tiles, n_chunks, _ = _check_packed(rays_packed, beams_packed, scalars)
     _check_ct(ct, n_tiles, rays_packed.device)
     lib = load_library()
+    n_splits = split_count(n_tiles, n_chunks)
     d_rays, d_beams = _outputs(rays_packed, n_tiles, n_chunks, False)
+    staged_beams = staged_beams_buffer(rays_packed, n_chunks, False)
+    flags = torch.empty((n_chunks + 1,), dtype=torch.float32,
+                        device=rays_packed.device)  # flags, then the extent
+    partial = _partial(rays_packed, n_splits, n_tiles, False)
     stream = torch.cuda.current_stream(rays_packed.device).cuda_stream
     err = lib.bre_gather_backward_twopass(
         rays_packed.data_ptr(), beams_packed.data_ptr(), scalars.data_ptr(),
-        ct.data_ptr(), d_rays.data_ptr(), d_beams.data_ptr(), n_tiles,
-        n_chunks, stream)
+        ct.data_ptr(), staged_beams.data_ptr(), flags.data_ptr(),
+        partial.data_ptr(), d_rays.data_ptr(), d_beams.data_ptr(), n_tiles,
+        n_chunks, n_splits, stream)
     check_status(lib, err, "gather_backward_twopass kernels")
-    count_launch(gather_backward_twopass, (n_tiles, 1, n_chunks), False)
+    count_launch(gather_backward_twopass, (n_tiles, n_splits, n_chunks),
+                 False)
     return d_rays, d_beams
 
 

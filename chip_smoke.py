@@ -426,7 +426,7 @@ def _demangle(mangled):
                 for b in re.findall(r"Lb([01])E", m.group(2))]
         name = f"{m.group(1)}<{', '.join(args)}>"
     else:
-        plain = re.search(r"(bwd_rays_twopass|bwd_beams_twopass|"
+        plain = re.search(r"(stage_power_chunks|flagged_extent|"
                           r"reduce_splits)", mangled)
         if not plain:
             return mangled
@@ -578,12 +578,15 @@ def launched_grid(wrapper):
 
 
 # each backward wrapper's kernel launches per call, in order
-# (csrc/beam_gather_bwd.cu launch_dense, launch_sparse)
+# (csrc/beam_gather_bwd.cu launch_dense, launch_sparse, launch_twopass)
 WRAPPER_LAUNCHES = {
     "gather_backward_fused": ("stage_beams", "bwd_rays_dense",
                               "reduce_splits", "bwd_beams_dense"),
     "gather_backward_sparse": ("stage_beams", "bwd_rays_sparse",
                                "reduce_splits", "bwd_beams_sparse"),
+    "gather_backward_twopass": ("stage_power_chunks", "flagged_extent",
+                                "bwd_rays_dense", "reduce_splits",
+                                "bwd_beams_dense"),
 }
 PROFILE_REPS = 3
 
@@ -1696,7 +1699,9 @@ SMOKE_PBRT = os.path.join(ROOT, "examples", "smoke_hetero.pbrt")
 # rounding only.  Channel means within 1e-4 relative; 99% of the pixels
 # within rtol 1e-3 (atol 1e-6 for the darkest).
 ROUTE_RTOL, ROUTE_PIXEL_RTOL, ROUTE_PIXEL_SHARE = 1e-4, 1e-3, 0.99
-# chunks of phase 24's R/4 sweep held against the plain version
+# chunks of phase 24's R/4 sweep held against the plain version: those
+# around the end of the flagged chunks (twopass_chunk_flags' extent), so the
+# slice holds both flagged chunks and the dead tail the kernels skip
 TWOPASS_PLAIN_CHUNKS = 64
 
 
@@ -2042,15 +2047,23 @@ def phase_analytic_bwd(captured):
     ms, _ = cuda_ms(lambda: GB.gather_backward_twopass(rays, beams, scal, ct),
                     3)
     grid = launched_grid(GB.gather_backward_twopass)
+    ones = torch.ones((beams.shape[0], rays.shape[0]), device=rays.device)
+    fused_ms, _ = cuda_ms(lambda: GB.gather_backward_fused(
+        rays, beams, scal, ct, ones, True), 3)
     bnd = twopass_bound(rays, beams, scal, ct)
     log(f"[twopass parity] phase 22's first in-medium gather ({rays.shape[0]} "
-        f"ray tiles x {beams.shape[0]} chunks): per cotangent max |diff| / "
+        f"ray tiles x {beams.shape[0]} chunks, {bnd['flagged_chunks']} with a "
+        f"live power): per cotangent max |diff| / "
         f"max|ref| " + json.dumps({k: float(f"{v:.3e}") for k, (_, v) in
                                    errs6.items()})
-        + f"; two runs bit-identical {identical}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
+        + f"; two runs bit-identical {identical}; kernel {ms:.3f} ms "
+        f"({grid['n_splits']} splits per ray tile), plain {plain_ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}; whole grid "
+        f"{bnd['grid_bound_ms']:.3f} ms); gather_backward_fused (all-ones "
+        f"mask, extras on) {fused_ms:.3f} ms")
     if not identical:
         raise AssertionError("gather_backward_twopass is not deterministic")
+    _twopass_zeros(k1, beams, "phase 22's gather")
     name, _, rep, src = TWOPASS_KERNELS[0]
     row = dict(name=name, route="cuda", source=src, replaces=rep,
                max_abs_err=max(e for e, _ in errs6.values()),
@@ -2059,67 +2072,120 @@ def phase_analytic_bwd(captured):
                bound_by=bnd["bound_by"], library_ms=None,
                sweep="phase 22's first in-medium gather",
                **grid,
-               sweeps={"phase 22 gather": dict(ms=ms, plain_ms=plain_ms, **bnd)})
-    return out, row
+               sweeps={"phase 22 gather": dict(ms=ms, plain_ms=plain_ms,
+                                               fused_ms=fused_ms, **bnd)})
+    return out, row, (rays, beams, scal, ct)
+
+
+def _twopass_zeros(d, beams, what):
+    """Kernel 6's d_beams in the chunks without a live start power: exact
+    zeros (the kernels skip those chunks)."""
+    flags, _ = GB.twopass_chunk_flags(beams)
+    if bool((~flags).any()) and float(d[1][~flags].abs().max()) != 0.0:
+        raise AssertionError(f"gather_backward_twopass ({what}): an unflagged "
+                             f"chunk's d_beams are not zero")
 
 
 def twopass_bound(rays, beams, scal, ct):
-    """Kernel 6's bound: every pair of the grid pays the geometry (no mask,
-    no dead-chunk skip), every pair in range of a live beam the backward
-    terms with the extras."""
-    ones = torch.ones((beams.shape[0], rays.shape[0]), device=rays.device)
-    in_range, _ = pairs_in_range(rays, beams, scal, ones)
-    all_pairs = rays.shape[0] * beams.shape[0] * BG.TILE * BG.CHUNK
-    ms, by = bound(all_pairs * GEOM_OPS
-                   + in_range * (BWD_IN_OPS + BWD_EXTRAS_OPS),
-                   nbytes(rays, beams, scal, ct, rays[:, :GB.NDR], beams))
-    return dict(bound_ms=ms, bound_by=by, pairs=all_pairs,
-                pairs_in_range=in_range)
+    """Kernel 6's bound: the least work for its function.  An unflagged
+    chunk (no beam with a live start power, twopass_chunk_flags) adds exact
+    zeros, which a per-beam test shows, so only the pairs of the flagged
+    chunks pay the geometry, and those in range the backward terms with the
+    extras.  ``grid_bound_ms``: the earlier figure, the geometry on every
+    pair of the grid."""
+    n_chunks, n_tiles = beams.shape[0], rays.shape[0]
+    flags, extent = GB.twopass_chunk_flags(beams)
+    flagged = flags[:, None].expand(n_chunks, n_tiles).to(torch.float32)
+    every = scal.clone()
+    every[0, 3] = n_chunks * BG.CHUNK  # the whole grid, not n_valid's chunks
+    in_range, _ = pairs_in_range(rays, beams, every, flagged)
+    n_flagged = int(flags.sum())
+    pairs = n_tiles * n_flagged * BG.TILE * BG.CHUNK
+    all_pairs = n_tiles * n_chunks * BG.TILE * BG.CHUNK
+    in_ops = in_range * (BWD_IN_OPS + BWD_EXTRAS_OPS)
+    n_bytes = nbytes(rays, beams, scal, ct, rays[:, :GB.NDR], beams)
+    ms, by = bound(pairs * GEOM_OPS + in_ops, n_bytes)
+    grid_ms, _ = bound(all_pairs * GEOM_OPS + in_ops, n_bytes)
+    return dict(bound_ms=ms, bound_by=by, grid_bound_ms=grid_ms, pairs=pairs,
+                grid_pairs=all_pairs, pairs_in_range=in_range,
+                flagged_chunks=n_flagged, extent=int(extent))
 
 
-def phase_twopass_timing(spec_sweeps, row):
+def phase_twopass_timing(spec_sweeps, row, gather22):
     """24. Kernel 6 on the spec step's shapes, beside its bound and the
-    fused kernels on the same inputs; its plain version on a slice of the
-    R/4 sweep's chunks."""
+    fused kernels on the same inputs (all-ones mask, extras on); its plain
+    version on a slice of the R/4 sweep's chunks around the end of the
+    flagged ones; both kernels' d_rays and d_beams sweeps apart, on these
+    sweeps and phase 22's gather."""
+    profiled = {"phase 22 gather": ("gather_backward_twopass", gather22)}
+    rays22, beams22, scal22, ct22 = gather22
+    profiled["phase 22 gather, fused"] = ("gather_backward_fused", (
+        rays22, beams22, scal22, ct22,
+        torch.ones((beams22.shape[0], rays22.shape[0]),
+                   device=rays22.device), True))
     for label in ("r4", "full"):
         beams, rays, scal, mask, ct = spec_sweeps[label][:5]
         ct_p = BG.pack_ct(ct, rays.shape[0])
         if label == "r4":
-            sl = beams[:TWOPASS_PLAIN_CHUNKS].contiguous()
+            _, extent = GB.twopass_chunk_flags(beams)
+            lo = max(0, min(int(extent), beams.shape[0])
+                     - TWOPASS_PLAIN_CHUNKS // 2)
+            sl = beams[lo:lo + TWOPASS_PLAIN_CHUNKS].contiguous()
             got = GB.gather_backward_twopass(rays, sl, scal, ct_p)
             torch.cuda.synchronize()
             plain_ms, ref = cuda_ms(lambda: GB.gather_backward_twopass_ref(
                 rays, sl, scal, ct_p), 1, warm=False)
             errs = _bwd_close(got, ref, f"gather_backward_twopass (spec R/4, "
-                              f"{TWOPASS_PLAIN_CHUNKS} chunks)")
+                              f"chunks {lo}-{lo + sl.shape[0] - 1})")
+            _twopass_zeros(got, sl, "spec R/4 slice")
             row["max_abs_err"] = max([row["max_abs_err"]]
                                      + [e for e, _ in errs.values()])
             for k, (_, v) in errs.items():
                 row["err_over_max_ref"][k] = max(row["err_over_max_ref"][k], v)
             row["sweeps"]["spec r4 slice"] = dict(
-                chunks=TWOPASS_PLAIN_CHUNKS, plain_ms=plain_ms,
+                chunks=[lo, lo + sl.shape[0]], plain_ms=plain_ms,
                 err_over_max_ref={k: v for k, (_, v) in errs.items()})
-            log(f"[twopass parity] spec R/4 sweep, first "
-                f"{TWOPASS_PLAIN_CHUNKS} chunks: per cotangent max |diff| / "
+            log(f"[twopass parity] spec R/4 sweep, chunks {lo}-"
+                f"{lo + sl.shape[0] - 1} (the flagged ones end at "
+                f"{int(extent)}): per cotangent max |diff| / "
                 f"max|ref| " + json.dumps({k: float(f"{v:.3e}") for k, (_, v)
                                            in errs.items()})
                 + f"; plain {plain_ms:.3f} ms")
             del ref, got
-        ms, _ = cuda_ms(lambda: GB.gather_backward_twopass(
+        ms, out = cuda_ms(lambda: GB.gather_backward_twopass(
             rays, beams, scal, ct_p), 3)
+        _twopass_zeros(out, beams, f"spec {label}")
+        del out
+        grid = launched_grid(GB.gather_backward_twopass)
         ones = torch.ones_like(mask)
         fused_ms, _ = cuda_ms(lambda: GB.gather_backward_fused(
             rays, beams, scal, ct_p, ones, True), 3)
         bnd = twopass_bound(rays, beams, scal, ct_p)
-        row["sweeps"][f"spec {label}"] = dict(ms=ms, fused_ms=fused_ms, **bnd)
+        row["sweeps"][f"spec {label}"] = dict(ms=ms, fused_ms=fused_ms,
+                                              **grid, **bnd)
         log(f"[twopass timing] spec {label} sweep ({rays.shape[0]} ray tiles x "
-            f"{beams.shape[0]} chunks, {bnd['pairs']} pairs, "
-            f"{bnd['pairs_in_range']} in range of a live beam): "
-            f"gather_backward_twopass {ms:.3f} ms "
-            f"({bnd['pairs'] / ms / 1e6:.1f} Gpairs/s), bound "
-            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); "
+            f"{beams.shape[0]} chunks, {bnd['flagged_chunks']} with a live "
+            f"power, extent {bnd['extent']}; {bnd['pairs']} pairs there, "
+            f"{bnd['pairs_in_range']} in range): gather_backward_twopass "
+            f"{ms:.3f} ms ({bnd['pairs'] / ms / 1e6:.1f} Gpairs/s; "
+            f"{grid['n_splits']} splits x {rays.shape[0]} ray tiles = "
+            f"{grid['blocks']} d_rays blocks), bound {bnd['bound_ms']:.3f} ms "
+            f"({bnd['bound_by']}; whole grid {bnd['grid_bound_ms']:.3f} ms); "
             f"gather_backward_fused (all-ones mask, extras on, dead-chunk "
-            f"skip) {fused_ms:.3f} ms")
+            f"skip) {fused_ms:.3f} ms, twopass / fused "
+            f"{ms / fused_ms:.3f}")
+        profiled[f"spec {label}"] = ("gather_backward_twopass",
+                                     (rays, beams, scal, ct_p))
+        profiled[f"spec {label}, fused"] = ("gather_backward_fused", (
+            rays, beams, scal, ct_p, ones, True))
+    for label, parts in backward_kernel_ms(profiled).items():
+        key = label.replace(", fused", "")
+        sweep = row["sweeps"][key]
+        sweep["fused_kernels_ms" if label.endswith("fused")
+              else "kernels_ms"] = parts
+        log(f"[twopass kernels] {label}: device ms per kernel "
+            f"(torch.profiler, mean of {PROFILE_REPS}): "
+            + json.dumps({k: round(v, 3) for k, v in parts.items()}))
     return row
 
 
@@ -3303,10 +3369,11 @@ def main():
     report["cli_config3"] = phase_cli_config3(dev, img_smoke)
     del img_smoke
     report["attached_step"], captured = phase_attached_step(dev)
-    report["analytic_bwd"], twopass_row = phase_analytic_bwd(captured)
+    report["analytic_bwd"], twopass_row, gather22 = phase_analytic_bwd(
+        captured)
     del captured
-    kernels.append(phase_twopass_timing(spec_sweeps, twopass_row))
-    del spec_sweeps
+    kernels.append(phase_twopass_timing(spec_sweeps, twopass_row, gather22))
+    del spec_sweeps, gather22
     report["breadth"] = phase_breadth(dev)
     report["nccl_world1"] = phase_nccl_world1(dev, report["card"])
     torch.cuda.empty_cache()  # the ranks of phase 27 share the card

@@ -286,25 +286,63 @@ def test_backward_kernels_match_plain_versions(dev, want_extras):
     assert (float(dense[0][:, GB.DR_G:].abs().max()) > 0) == want_extras
 
 
-def test_twopass_kernels_match_plain_version(dev):
-    """Kernel 6 (``gather_backward_twopass``): every block of the grid, the
-    extras always on, per cotangent against its plain version, and twice
-    bit for bit (no atomics)."""
-    rays, beams, scal, _ = _inputs(dev)
+# (n_tiles, n_chunks, chunks whose powers are dead, zero-padded tail from)
+TWOPASS_CASES = {
+    "dead_middle": (4, 40, range(17, 18), None),
+    "dead_tail": (4, 40, range(30, 36), 36),
+    "all_dead": (4, 40, range(0, 40), None),
+    "one_tile": (1, 24, range(9, 11), 20),
+    "many_tiles": (300, 40, range(5, 6), 33),
+}
+
+
+@pytest.mark.parametrize("case", list(TWOPASS_CASES))
+def test_twopass_kernels_match_plain_version(dev, case):
+    """Kernel 6 (``gather_backward_twopass``): every block of the grid
+    whatever n_valid says, the extras always on, per cotangent against its
+    plain version, and twice bit for bit (no atomics), with no host sync.
+    Its d_rays sweep runs ``split_count`` blocks per ray tile; the chunks
+    without a live start power (a dead chunk in the middle, a dead tail of
+    invalid and zero-padded beams, or every chunk) get exact zeros, and the
+    last chunk, past n_valid with live powers, keeps its cotangents."""
+    n_tiles, n_chunks, dead, pad = TWOPASS_CASES[case]
+    rays, beams, scal, _ = _inputs(dev, max(n_tiles, 2), n_chunks, seed=21)
+    rays = rays[:n_tiles].contiguous()
+    beams[list(dead), G.BF_PS:G.BF_PE + 3] = 0.0
+    if pad is not None:
+        beams[pad:] = 0.0
     ct = torch.from_numpy(np.random.RandomState(3).uniform(
-        -1, 1, (rays.shape[0], GB.NDR, 256)).astype(np.float32)).to(dev)
+        -1, 1, (n_tiles, GB.NDR, 256)).astype(np.float32)).to(dev)
     ct[:, 3:] = 0.0
     n0 = GB.gather_backward_twopass.launches
-    out = GB.gather_backward_twopass(rays, beams, scal, ct)
     torch.cuda.synchronize()
-    assert GB.gather_backward_twopass.launches == n0 + 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = GB.gather_backward_twopass(rays, beams, scal, ct)
+        again = GB.gather_backward_twopass(rays, beams, scal, ct)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert GB.gather_backward_twopass.launches == n0 + 2
+    n_splits = G.split_count(n_tiles, n_chunks)
+    assert n_splits > 1
+    assert GB.gather_backward_twopass.last_grid == (n_tiles, n_splits,
+                                                     n_chunks)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
     ref = GB.gather_backward_twopass_ref(rays, beams, scal, ct)
+    flags, _ = GB.twopass_chunk_flags(beams)
+    unflagged = ~flags
+    if case == "all_dead":
+        assert not bool(flags.any())
+        assert all(float(x.abs().max()) == 0.0 for x in out + ref)
+        return
     assert all(float(r.abs().max()) > 0 for r in ref)
     _close_by_cotangent(out, ref)
-    for a, b in zip(out, GB.gather_backward_twopass(rays, beams, scal, ct)):
-        assert torch.equal(a, b)
-    # no dead-chunk skip: the chunk past n_valid has cotangents too
-    assert float(out[1][-1].abs().max()) > 0
+    assert float(out[1][unflagged].abs().max()) == 0.0
+    assert float(ref[1][unflagged].abs().max()) == 0.0
+    if pad is None:  # no dead-chunk skip by n_valid
+        assert float(out[1][-1].abs().max()) > 0
 
 
 def _bruteforce_grad(d, mode, grad_geometry, monkeypatch):

@@ -1,6 +1,9 @@
 """bre_tpu_torch two-pass backward (kernel 6) and the analytic backward of
 the non-packed route vs bre_tpu: ``gather_backward_twopass_ref`` against
-``pallas_gather_backward`` (interpret mode on CPU), and
+``pallas_gather_backward`` (interpret mode on CPU), also on beams packed
+as the route packs them with dead chunks; the kernels' skip of the chunks
+without a live start power (``twopass_chunk_flags``) exact on the plain
+version; and
 ``gather_beams_bruteforce(backend="pallas", grad_geometry=False)`` under
 ``PALLAS_BWD_MODE`` "fused" and "twopass" against the reference's run in
 the same mode, with ``grad_extras`` both ways; the port's two routes
@@ -76,6 +79,138 @@ def test_twopass_wrapper_cpu_and_layouts():
     rays_het = torch.zeros((rays.shape[0], tg.NF_HET, 256))
     with pytest.raises(ValueError, match="homogeneous only"):
         tgb.gather_backward_twopass(rays_het, beams, scal, ct)
+
+
+def _dead_chunk_inputs(seed=4):
+    """3 ray tiles x 7 chunks packed by the non-packed route's own
+    ``_pack_kernel_inputs`` (validity folded into the powers, rays and
+    beams zero-padded to whole tiles and chunks): chunk 2 valid beams whose
+    powers are all 0 (dead in the middle), chunks 5-6 a dead tail (invalid
+    beams, then 186 zero-padded ones), n_valid ending inside chunk 3, so
+    chunk 4's live powers lie past it.  Numpy arrays (rays, beams, scal,
+    ct)."""
+    rs = np.random.RandomState(seed)
+    R, B = 3 * 256 - 40, 6 * 256 + 70
+    a0 = rs.uniform(-1, 1, (R, 3)).astype(np.float32)
+    a1 = rs.uniform(-1, 1, (R, 3)).astype(np.float32)
+    d = a1 - a0
+    ln = np.linalg.norm(d, axis=1)
+    seg = dict(a0=a0, a1=a1, dir=d / ln[:, None], len=ln,
+               tr_full=rs.uniform(0.2, 1.0, (R, 3)),
+               sigma_s=rs.uniform(1.0, 10.0, (R, 3)),
+               g=rs.uniform(-0.6, 0.6, R), in_med_f=np.ones(R))
+    pb = dict(start=rs.uniform(-1, 1, (B, 3)), end=rs.uniform(-1, 1, (B, 3)),
+              power_start=rs.uniform(0.5, 2.0, (B, 3)),
+              radius=np.full(B, 0.15), valid_f=np.ones(B))
+    pb["power_end"] = pb["power_start"] * rs.uniform(0.05, 1.0, (B, 3))
+    pb["power_start"][512:768] = 0.0
+    pb["power_end"][512:768] = 0.0
+    pb["valid_f"][5 * 256:] = 0.0
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32))  # noqa: E731
+    seg = {k: t(v) for k, v in seg.items()}
+    seg.update(cam_radius=t(0.1), n_valid_beams=t(3 * 256 + 100))
+    cfg = tbg._Cfg(tbg.KERNEL_BRE, 256, 7, 1e-2, 0.05, False, True,
+                   "pallas")
+    rays, beams, scal = tbg._pack_kernel_inputs(
+        cfg, {k: t(v) for k, v in pb.items()}, seg)
+    assert rays.shape == (3, tg.NF, 256) and beams.shape == (7, tg.NB, 256)
+    ct = rs.uniform(-1, 1, (3, tgb.NDR, 256)).astype(np.float32)
+    ct[:, 3:] = 0.0
+    return rays.numpy(), beams.numpy(), scal.numpy(), ct
+
+
+DEAD, PAST_N_VALID = (2, 5, 6), 4  # _dead_chunk_inputs' chunks
+
+
+def _flag_layouts():
+    """Beam buffers for the flags: the route's dead chunks, and edits."""
+    beams = _dead_chunk_inputs()[1]
+    out = dict(route=beams)
+    for name in ("all_dead", "none_dead", "last_only", "one_lane"):
+        b = beams.copy()
+        if name == "all_dead":
+            b[:, tg.BF_PS:tg.BF_PS + 3] = 0.0
+        elif name == "none_dead":
+            b[:, tg.BF_PS:tg.BF_PS + 3] = 1.0
+        elif name == "last_only":
+            b[:-1, tg.BF_PS:tg.BF_PS + 3] = 0.0
+            b[-1, tg.BF_PS + 2, 255] = 3.0
+        else:  # one beam of chunk 5 live in one channel; 1e-20 is dead
+            b[5, tg.BF_PS + 1, 17] = 2e-20
+            b[6, tg.BF_PS, :] = 1e-20
+        out[name] = b
+    return out
+
+
+@pytest.mark.parametrize("layout", ["route", "all_dead", "none_dead",
+                                    "last_only", "one_lane"])
+def test_twopass_chunk_flags_match_numpy(layout):
+    """The kernels' pre-pass in plain torch: a chunk is flagged where some
+    beam has ps > 1e-20 in some channel; the extent is 1 + the last
+    flagged chunk (0 if none)."""
+    beams = _flag_layouts()[layout]
+    want = (beams[:, tg.BF_PS:tg.BF_PS + 3] > 1e-20).any(axis=(1, 2))
+    flagged = np.nonzero(want)[0]
+    flags, extent = tgb.twopass_chunk_flags(torch.from_numpy(beams))
+    assert flags.dtype == torch.bool
+    np.testing.assert_array_equal(flags.numpy(), want)
+    assert int(extent) == (int(flagged[-1]) + 1 if flagged.size else 0)
+    if layout == "route":
+        assert list(np.nonzero(~want)[0]) == list(DEAD)
+
+
+@pytest.mark.parametrize("side", ["rays", "beams"])
+def test_twopass_skip_of_unflagged_chunks_is_exact(side):
+    """Dropping the chunks without a live start power from the plain
+    version's block lists changes no bit of d_rays, and those chunks'
+    d_beams are exact zeros; the chunk with live powers past n_valid keeps
+    its cotangents."""
+    rays, beams, scal, ct = (torch.from_numpy(x)
+                             for x in _dead_chunk_inputs())
+    n_tiles, n_chunks = rays.shape[0], beams.shape[0]
+    flags, extent = tgb.twopass_chunk_flags(beams)
+    assert int(extent) == PAST_N_VALID + 1
+    assert PAST_N_VALID * 256 > float(scal[0, 3])
+    grid = torch.ones((n_tiles, n_chunks), dtype=torch.bool)
+    kept = grid & flags[None, :]
+    if side == "beams":
+        grid, kept = grid.T, kept.T  # chunk-major
+    out = []
+    for blocks in (grid, kept):
+        outer, inner = torch.nonzero(blocks, as_tuple=True)
+        tiles, chunks = (outer, inner) if side == "rays" else (inner, outer)
+        out.append(tgb._bwd_ref(rays, beams, scal, ct, tiles, chunks, True,
+                                side, tgb._twopass_blocks_ref))
+    full, skipped = out
+    assert torch.equal(full, skipped)
+    if side == "rays":
+        assert float(full.abs().max()) > 0
+        alone = tgb._bwd_ref(rays, beams, scal, ct,
+                             torch.arange(n_tiles),
+                             torch.full((n_tiles,), PAST_N_VALID), True,
+                             "rays", tgb._twopass_blocks_ref)
+        assert float(alone.abs().max()) > 0
+    else:
+        assert float(full[list(DEAD)].abs().max()) == 0.0
+        assert float(full[PAST_N_VALID].abs().max()) > 0
+        assert torch.equal(full, tgb.gather_backward_twopass_ref(
+            rays, beams, scal, ct)[1])
+
+
+def test_twopass_ref_matches_pallas_on_dead_chunks():
+    """The plain version against the reference's two-pass kernels on the
+    route's packing with dead chunks: per cotangent, zeros in the dead
+    chunks' d_beams in both, cotangents in the chunk past n_valid."""
+    rays, beams, scal, ct = _dead_chunk_inputs()
+    jr, jb = jpb.pallas_gather_backward(
+        *(jnp.asarray(x) for x in (rays, beams, scal[:, :3], ct)), 256, 256)
+    tr, tb = tgb.gather_backward_twopass_ref(
+        *(torch.from_numpy(x) for x in (rays, beams, scal, ct)))
+    _close_by_cotangent((tr, tb), (jr, jb), BWD_RTOL)
+    jb = to_np(jb)
+    assert not jb[list(DEAD)].any() and float(tb[list(DEAD)].abs().max()) == 0
+    assert np.abs(jb[PAST_N_VALID]).max() > 0
+    assert float(tb[PAST_N_VALID].abs().max()) > 0
 
 
 def _setup(B=512, R=256, seed=0):

@@ -46,8 +46,10 @@ from bre_tpu_torch.ops import gather as G  # noqa: E402
 from bre_tpu_torch.ops import gather_bwd as GB  # noqa: E402
 
 
-def load_tree(name, root, tmp):
-    """Import ROOT's ops as package ``ab_<name>`` with its own library."""
+def load_tree(name, root, tmp, show=("sparse",)):
+    """Import ROOT's ops as package ``ab_<name>`` with its own library;
+    prints ptxas's report of the kernels whose names hold a word of
+    ``show``."""
     pkg = os.path.join(tmp, name, f"ab_{name}")
     for part in ("ops", "csrc"):
         shutil.copytree(os.path.join(root, "bre_tpu_torch", part),
@@ -60,7 +62,7 @@ def load_tree(name, root, tmp):
     print(f"[ab] {name}: built {root} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for kernel, use in CS.ptxas_summary(build.build_log or "").items():
-        if "sparse" in kernel:
+        if any(w in kernel for w in show):
             print(f"[ab] {name} ptxas {kernel}: {use}", flush=True)
     return (importlib.import_module(f"ab_{name}.ops.gather"),
             importlib.import_module(f"ab_{name}.ops.gather_bwd"))
