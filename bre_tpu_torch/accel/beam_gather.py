@@ -236,22 +236,22 @@ def _clip_t(x, hi):
     return torch.minimum(torch.maximum(x, _const(x, 0.0)), hi)
 
 
-def _compat_contrib(cb: dict, seg: dict, c_start, c_end, c_rad, c_valid):
-    """The KERNEL_COMPAT pair math (photonbeam.cpp:494-508;
-    beam_gather.py:365-420): ``1e-5 * sqrt(1 - r^2) * power_end`` for pairs
-    within the summed radii, counted only where the camera ray hits the
-    beam's WorldBound box (PhotonBeamBVH::Intersect, photonbeambvh.cpp:
-    685-723).  That box is the reference's: inflated by the beam radius
-    alone, sized from the SIGNED direction (so it collapses on the axes a
-    beam runs down), and hit by pbrt's slab test with the tFar fudge
-    1 + 2 gamma(3).  No power_scale and no camera throughput."""
-    a0 = seg["a0"][:, None]  # (R, 1, 3)
-    a1 = seg["a1"][:, None]
+def _compat_terms(a0, a1, d_r, seg_len, cam_radius, c_start, c_end, c_rad,
+                  c_valid, c_pe):
+    """Per-pair terms of the KERNEL_COMPAT pair math (photonbeam.cpp:
+    494-508; beam_gather.py:365-420), broadcast over camera segments
+    (a0, a1, d_r, seg_len) and beams (c_*): ``1e-5 * sqrt(1 - r^2) *
+    power_end`` for pairs within the summed radii, counted only where the
+    camera ray hits the beam's WorldBound box (PhotonBeamBVH::Intersect,
+    photonbeambvh.cpp:685-723).  That box is the reference's: inflated by
+    the beam radius alone, sized from the SIGNED direction (so it collapses
+    on the axes a beam runs down), and hit by pbrt's slab test with the
+    tFar fudge 1 + 2 gamma(3).  No power_scale and no camera throughput."""
     pa, pb, cp_valid = closest_points_segments(a0, a1, c_start, c_end)
-    dist = length(pa - pb)  # (R, C)
-    r = dist / _max(seg["cam_radius"] + c_rad, 1e-30)
+    dist = length(pa - pb)
+    r = dist / _max(cam_radius + c_rad, 1e-30)
     in_range = ((r < 1.0) & cp_valid).to(torch.float32) * c_valid
-    blen = length(c_end - c_start)  # (1, C)
+    blen = length(c_end - c_start)
     bdirn = (c_end - c_start) / _max(blen, 1e-30)[..., None]
     half = 0.5 * torch.abs(
         bdirn * blen[..., None]
@@ -259,7 +259,6 @@ def _compat_contrib(cb: dict, seg: dict, c_start, c_end, c_rad, c_valid):
     center = 0.5 * (c_start + c_end)
     bmin = center - half
     bmax = center + half
-    d_r = seg["dir"][:, None]
     axis_ok = d_r.abs() > 1e-12
     inv = 1.0 / torch.where(axis_ok, d_r, _const(d_r, 1.0))
     tA = (bmin - a0) * inv
@@ -271,11 +270,42 @@ def _compat_contrib(cb: dict, seg: dict, c_start, c_end, c_rad, c_valid):
     inside = (a0 >= bmin) & (a0 <= bmax)
     t0 = t_lo.amax(-1)
     t1 = t_hi.amin(-1)
-    aabb_hit = ((t0 <= t1) & (t0 < seg["len"][:, None]) & (t1 > 0.0)
+    aabb_hit = ((t0 <= t1) & (t0 < seg_len) & (t1 > 0.0)
                 & (axis_ok | inside).all(-1))
     in_range = in_range * aabb_hit.to(torch.float32)
     w = 1e-5 * torch.sqrt(_max(1.0 - r * r, 0.0))
-    return ((w[..., None] * cb["power_end"][None]) * in_range[..., None]).sum(1)
+    return (w[..., None] * c_pe) * in_range[..., None]
+
+
+# slack of the pair cull's boxes, in world units: far above the float
+# error of the slab test's entry point (a few ulps of coordinates of a few
+# units), far below the beams' radii
+_CULL_SLACK = 1e-3
+
+
+def _compat_contrib(cb: dict, seg: dict, c_start, c_end, c_rad, c_valid):
+    """(R, 3): the sum over a chunk's beams of ``_compat_terms``.  A pair
+    can count only where the camera segment meets the beam's WorldBound
+    box, which lies inside the beam's own box grown by its radius; the
+    pairs whose boxes (grown by ``_CULL_SLACK``) miss, or whose beam is
+    invalid, add an exact +0.  So the terms are computed on the other
+    pairs only, written into the dense (R, C, 3) array of zeros and summed
+    over the chunk as the dense terms would be: the same bits."""
+    a0, a1 = seg["a0"], seg["a1"]  # (R, 3)
+    R, C = a0.shape[0], c_start.shape[1]
+    seg_lo = torch.minimum(a0, a1)[:, None] - _CULL_SLACK
+    seg_hi = torch.maximum(a0, a1)[:, None] + _CULL_SLACK
+    grow = c_rad[..., None] + _CULL_SLACK
+    beam_lo = torch.minimum(c_start, c_end) - grow  # (1, C, 3)
+    beam_hi = torch.maximum(c_start, c_end) + grow
+    live = ((seg_lo <= beam_hi) & (beam_lo <= seg_hi)).all(-1) & (c_valid > 0)
+    ri, ci = live.nonzero(as_tuple=True)
+    terms = torch.zeros((R, C, 3), dtype=torch.float32, device=a0.device)
+    terms[ri, ci] = _compat_terms(
+        a0[ri], a1[ri], seg["dir"][ri], seg["len"][ri], seg["cam_radius"],
+        c_start[0, ci], c_end[0, ci], c_rad[0, ci], c_valid[0, ci],
+        cb["power_end"][ci])
+    return terms.sum(1)
 
 
 def closest_points_segments_exact(a0, a1, b0, b1):

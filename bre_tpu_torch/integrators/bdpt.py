@@ -49,7 +49,8 @@ from ..media import gather_medium, hg_p, hg_sample_p, sample_medium
 from ..scene.camera import (Camera, camera_position, generate_rays, pdf_we,
                             pixel_centers, sample_wi)
 from ..scene.intersect import intersect, intersect_p
-from ..scene.scene import LIGHT_POINT, Scene, check_slice, world_radius
+from ..scene.scene import (LIGHT_POINT, MAT_GLASS, MAT_MIRROR, Scene,
+                           check_slice, world_radius)
 from .common import default_tr_crossings, segment_transmittance_walk
 
 # vertex types (bdpt.h VertexType)
@@ -165,11 +166,13 @@ def _is_delta_light(scene: Scene, light_idx):
 
 def _surface_connectible(scene: Scene, mat_idx):
     """IsConnectible for surfaces (bdpt.h:246-252): a non-delta lobe, which
-    every ported material has."""
-    if scene.materials.mtype.shape[0] == 0:
+    every ported material but mirror and glass has."""
+    nm = scene.materials.mtype.shape[0]
+    if nm == 0:
         return torch.zeros(mat_idx.shape, dtype=torch.bool,
                            device=mat_idx.device)
-    return mat_idx >= 0
+    mt = scene.materials.mtype[torch.clamp(mat_idx, 0, nm - 1)]
+    return (mat_idx >= 0) & (mt != MAT_MIRROR) & (mt != MAT_GLASS)
 
 
 # --------------------------------------------------------------------------

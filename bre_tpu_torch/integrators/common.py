@@ -98,14 +98,18 @@ def segment_transmittance_walk(scene: Scene, med_idx, o, d, t_end,
 
 
 def sample_one_light(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
-                     med_idx, is_surface, tangent=None, tr_crossings: int = 0,
-                     mis: bool = False, light_distrib=None):
+                     med_idx, is_surface, tangent=None, uv=None, duv_dx=None,
+                     duv_dy=None, tr_crossings: int = 0, mis: bool = False,
+                     light_distrib=None):
     """UniformSampleOneLight (integrator.cpp:54-83): pick one light,
     uniformly or from ``light_distrib`` (a ``lights.SpatialLightDistribution``:
     the "spatial" and "power" strategies), divide by its pick probability;
     EstimateDirect's light-sampling term with media transmittance, and
     with ``mis`` its scatter-sampled term too (two more draws).  ``rng`` is
-    a bare PCG32 state or a sampler stream.  Returns (rng, L (R,3))."""
+    a bare PCG32 state or a sampler stream.  The BSDF reads the scene's
+    kd textures at ``uv`` (at ``p[:, :2]`` where the caller passes none,
+    as the reference's camera passes do), EWA-filtered with ``duv_dx``
+    and ``duv_dy``.  Returns (rng, L (R,3))."""
     R = p.shape[0]
     n_lights = scene.n_lights
     if n_lights == 0:
@@ -127,14 +131,16 @@ def sample_one_light(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
         u_scatter = torch.stack([sa, sb], -1)
     contrib = _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx,
                        is_surface, torch.stack([ua, ub], -1), tangent=tangent,
+                       uv=uv, duv_dx=duv_dx, duv_dy=duv_dy,
                        tr_crossings=tr_crossings, mis=mis,
                        u_scatter=u_scatter)
     return rng, contrib * inv_pick
 
 
 def sample_all_lights(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
-                      med_idx, is_surface, tangent=None,
-                      tr_crossings: int = 0, mis: bool = False):
+                      med_idx, is_surface, tangent=None, uv=None,
+                      duv_dx=None, duv_dy=None, tr_crossings: int = 0,
+                      mis: bool = False):
     """UniformSampleAllLights (integrator.cpp:54-83, strategy "all";
     common.py:261-294): EstimateDirect against every light, one sample
     each, summed in light order.  Returns (rng, L (R,3))."""
@@ -151,8 +157,8 @@ def sample_all_lights(scene: Scene, rng: PCG32State, p, n, wo, mat_idx,
         total = total + _nee_one(
             scene, torch.full((R,), li, dtype=torch.int64, device=p.device),
             p, n, wo, mat_idx, med_idx, is_surface, torch.stack([ua, ub], -1),
-            tangent=tangent, tr_crossings=tr_crossings, mis=mis,
-            u_scatter=u_scatter)
+            tangent=tangent, uv=uv, duv_dx=duv_dx, duv_dy=duv_dy,
+            tr_crossings=tr_crossings, mis=mis, u_scatter=u_scatter)
     return rng, total
 
 
@@ -164,8 +170,8 @@ def _power_heuristic(fp, gp):
 
 
 def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
-             tangent=None, tr_crossings: int = 0, mis: bool = False,
-             u_scatter=None):
+             tangent=None, uv=None, duv_dx=None, duv_dy=None,
+             tr_crossings: int = 0, mis: bool = False, u_scatter=None):
     """EstimateDirect for one light per lane (integrator.cpp:85-215,
     without the pick-probability factor; common.py:154-258).  The
     light-sampling term; with ``mis`` it is weighted by the power heuristic
@@ -176,7 +182,10 @@ def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
     term for infinite lights is absent.  ``u_scatter`` (R,2): the
     scatter-direction sample, needed with ``mis``."""
     ls = sample_li(scene, light_idx, p, u2)
-    f_surf, pdf_surf = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi)
+    tex = dict(textures=scene.textures, p=p, uv=uv, duv_dx=duv_dx,
+               duv_dy=duv_dy)
+    f_surf, pdf_surf = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi,
+                                 **tex)
     f_surf = f_surf * absdot(ls.wi, n)[:, None]
     _, _, g_here, _, _ = gather_medium(scene.media, med_idx)
     phase_l = hg_p(wo, ls.wi, g_here)
@@ -206,7 +215,7 @@ def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
 
     # scatter-sampled half: the BSDF on surfaces, the phase function in media
     bs = sample_bsdf(scene.materials, mat_idx, n, wo, u_scatter,
-                     mode=MODE_RADIANCE, tangent=tangent)
+                     mode=MODE_RADIANCE, tangent=tangent, **tex)
     wi_ph, pdf_ph = hg_sample_p(wo, g_here, u_scatter)
     surf3 = is_surface[:, None]
     ws = torch.where(surf3, bs.wi, wi_ph)

@@ -49,18 +49,22 @@ def _slice_lift_matrix(k: int, device="cpu") -> torch.Tensor:
 
 
 def slice_scene(scene: Scene, k: int) -> Scene:
-    """The scene with every color field lifted to slice k's wavelengths:
-    the materials' kd, the lights' emission, the media's sigma_a and
-    sigma_s (the reference's other lifted fields, ks, mix amounts, the
-    BSSRDF coefficients and light images, belong to materials and lights
-    the port does not carry)."""
+    """The scene with every color field lifted to slice k's wavelengths
+    (spectral.py:91-115): the materials' kd and ks, and their mix amounts
+    clipped to [0, 1], the lights' emission, the media's sigma_a and
+    sigma_s (the reference's other lifted fields, the BSSRDF coefficients
+    and light images, belong to materials and lights the port does not
+    carry; conductor eta/k and textures stay RGB, as there)."""
     L = _slice_lift_matrix(k, scene.device)
 
     def lift(c):
         return torch.clamp_min(c @ L.T, 0.0)
 
+    m = scene.materials
     return scene._replace(
-        materials=scene.materials._replace(kd=lift(scene.materials.kd)),
+        materials=m._replace(kd=lift(m.kd), ks=lift(m.ks),
+                             mix_amount=torch.clamp(lift(m.mix_amount),
+                                                    0.0, 1.0)),
         lights=scene.lights._replace(emit=lift(scene.lights.emit)),
         media=scene.media._replace(sigma_a=lift(scene.media.sigma_a),
                                    sigma_s=lift(scene.media.sigma_s)))

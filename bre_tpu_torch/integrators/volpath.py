@@ -16,12 +16,12 @@ whatever its width.  Grid media take the fixed-trip delta tracking
 Ported: ``indirect`` "full" and "specular", ``samplealllights``,
 ``nee_mis``, ``maxsampleluminance``, ``tr_crossings``, the light-pick
 strategies "uniform", "power" and "spatial" (``lights.
-spatial_light_distribution``), and every sampler of ``core/samplers``
-(random, stratified, 02sequence, sobol, maxmindist, halton).
-``texture_filter`` raises NotImplementedError (ROADMAP Queue 1 item 5:
-textures), as do scenes the slice does not render (``check_slice``:
-subsurface materials among them, so the reference's BSSRDF branch is never
-needed).
+spatial_light_distribution``), every sampler of ``core/samplers``
+(random, stratified, 02sequence, sobol, maxmindist, halton), and
+``texture_filter``: ray differentials at the first hits and EWA image-map
+lookups where the scene has an image atlas.  Scenes the slice does not
+render raise (``check_slice``: subsurface materials among them, so the
+reference's BSSRDF branch is never needed).
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ from ..lights import (area_light_emitted, escaped_radiance,
                       power_light_distribution, spatial_light_distribution)
 from ..materials import MODE_RADIANCE, sample_bsdf
 from ..media import gather_medium, hg_sample_p, sample_medium
-from ..scene.camera import Camera, generate_rays_weighted, pixel_centers
-from ..scene.intersect import intersect
+from ..scene.camera import (Camera, generate_ray_differentials,
+                            generate_rays_weighted, pixel_centers)
+from ..scene.intersect import compute_uv_differentials, intersect
 from ..scene.scene import Scene, check_slice
 from .common import default_tr_crossings, sample_all_lights, sample_one_light
 
@@ -63,7 +64,7 @@ class VolPathConfig:
     indirect: str = "full"
     # the sampler behind every dimension (core/samplers.KINDS)
     sampler: str = "random"
-    # ray differentials + EWA image-map filtering: not ported
+    # ray differentials + EWA image-map filtering at the first hits
     texture_filter: bool = False
     # Film "maxsampleluminance": per-sample luminance clamp (film.h:121)
     maxsampleluminance: float = float("inf")
@@ -83,10 +84,6 @@ def _check_config(cfg: VolPathConfig) -> None:
     if cfg.lightsamplestrategy not in ("uniform", "power", "spatial"):
         raise ValueError(
             f"unknown lightsamplestrategy {cfg.lightsamplestrategy!r}")
-    if cfg.texture_filter:
-        raise NotImplementedError(
-            "texture_filter (ray differentials and EWA filtering) is not "
-            "ported (ROADMAP Queue 1 item 5: breadth, textures)")
 
 
 def light_distribution(scene: Scene, strategy: str):
@@ -100,9 +97,10 @@ def light_distribution(scene: Scene, strategy: str):
 
 
 def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
-              light_distrib=None):
+              light_distrib=None, diffs=None):
     """Radiance along a batch of camera rays (volpath.py:205-428).
-    Returns (rng, L (R,3))."""
+    ``diffs``: the camera rays' differentials (rx_o, rx_d, ry_o, ry_d),
+    for EWA texture footprints at the first hits.  Returns (rng, L (R,3))."""
     R = o.shape[0]
     dev = o.device
     k_tr = cfg.tr_crossings or 0
@@ -165,8 +163,17 @@ def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
         see_le = surf & (first | specular)
         Le = area_light_emitted(scene, h.area_light, h.n, -d)
         L = L + torch.where(see_le[:, None], beta * Le, zero)
+        # texture footprints at first camera hits, zero past them, as
+        # pbrt differentiates camera rays only (volpath.py:283-294)
+        duv_dx = duv_dy = None
+        if diffs is not None:
+            duv_dx, duv_dy = compute_uv_differentials(scene, h, o, d, *diffs)
+            fm = (first & surf)[:, None]
+            duv_dx = torch.where(fm, duv_dx, torch.zeros_like(duv_dx))
+            duv_dy = torch.where(fm, duv_dy, torch.zeros_like(duv_dy))
+        tex = dict(uv=h.uv, duv_dx=duv_dx, duv_dy=duv_dy)
         rng, nee_surf = nee(rng, h_p, h.ns, -d, h.material, medium, all_surf,
-                            tangent=h.tangent)
+                            tangent=h.tangent, **tex)
         L = L + torch.where((surf & ~is_boundary)[:, None], beta * nee_surf,
                             zero)
 
@@ -174,7 +181,8 @@ def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
         rng, s1 = stream_1d(rng)
         bs = sample_bsdf(scene.materials, h.material, h.ns, -d,
                          torch.stack([s0, s1], -1), mode=MODE_RADIANCE,
-                         tangent=h.tangent)
+                         textures=scene.textures, p=h_p, tangent=h.tangent,
+                         **tex)
         cont_surf = surf & ~is_boundary & bs.valid
         if cfg.indirect == "specular":
             cont_surf = cont_surf & bs.specular
@@ -236,6 +244,8 @@ def render_volpath(scene: Scene, camera: Camera, width: int, height: int,
     pix = pixel_centers(width, height, dev)
     spec = make_stream_spec(cfg.sampler, width, height, cfg.spp)
     light_distrib = light_distribution(scene, cfg.lightsamplestrategy)
+    # EWA texture filtering needs ray differentials and an image atlas
+    use_diffs = bool(cfg.texture_filter) and scene.textures.atlas.shape[0] > 1
     pix_idx = torch.arange(R, dtype=torch.int64, device=dev)
     per_batch = max(1, min(cfg.spp, SAMPLE_LANES // R))
     acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
@@ -248,9 +258,14 @@ def render_volpath(scene: Scene, camera: Camera, width: int, height: int,
         rng = make_sample_stream(spec, lane_pix, lane_pix % width,
                                  lane_pix // width, lane_samp, raw)
         rng, j2, _time, u_lens = stream_camera_sample(rng)
-        o, d, w_cam = generate_rays_weighted(camera, pix.repeat(n, 1) + j2
-                                             - 0.5, u_lens)
-        _, L = _li_batch(scene, o, d, rng, cfg, light_distrib)
+        p_raster = pix.repeat(n, 1) + j2 - 0.5
+        diffs = None
+        if use_diffs:
+            o, d, w_cam, *diffs = generate_ray_differentials(camera, p_raster,
+                                                             u_lens)
+        else:
+            o, d, w_cam = generate_rays_weighted(camera, p_raster, u_lens)
+        _, L = _li_batch(scene, o, d, rng, cfg, light_distrib, diffs)
         if cfg.maxsampleluminance != float("inf"):
             # Film::AddSample's per-sample clamp (film.h:~125)
             y = 0.212671 * L[:, 0] + 0.715160 * L[:, 1] + 0.072169 * L[:, 2]

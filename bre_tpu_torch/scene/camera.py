@@ -80,6 +80,20 @@ def generate_rays_weighted(camera: Camera, p_raster: torch.Tensor,
                             device=p_raster.device)
 
 
+def generate_ray_differentials(camera: Camera, p_raster: torch.Tensor,
+                               u_lens=None):
+    """Camera::GenerateRayDifferential (camera.py:498-512): the main ray
+    and the rays of the +1 pixel raster offsets in x and y.  Returns
+    (o, d, weight, rx_o, rx_d, ry_o, ry_d)."""
+    o, d, w = generate_rays_weighted(camera, p_raster, u_lens)
+    dx = torch.zeros_like(p_raster)
+    dx[:, 0] = 1.0
+    rx_o, rx_d, _ = generate_rays_weighted(camera, p_raster + dx, u_lens)
+    ry_o, ry_d, _ = generate_rays_weighted(camera, p_raster + dx.flip(-1),
+                                           u_lens)
+    return o, d, w, rx_o, rx_d, ry_o, ry_d
+
+
 def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
     """(H*W, 2) raster positions at pixel centers (x+.5, y+.5), row-major."""
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5

@@ -1,5 +1,6 @@
 """Vectorized ray-scene intersection, dense path (counterpart of
-``bre_tpu/scene/intersect.py:63-117, 301-356, 485-537``).
+``bre_tpu/scene/intersect.py:63-117, 301-356, 391-427, 485-617``), with the
+hits' surface uvs and the ray-differential uv footprints.
 
 A batch of rays tests every primitive as one (R, N) masked min — the
 reference's single-chunk sweep.  Scenes above ``MAX_DENSE_PRIMS`` primitives
@@ -9,6 +10,8 @@ reference's single-chunk sweep.  Scenes above ``MAX_DENSE_PRIMS`` primitives
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import math
 
 import torch
 
@@ -33,6 +36,7 @@ class Hit(NamedTuple):
     area_light: torch.Tensor
     prim_kind: torch.Tensor  # (R,) int64 SHAPE_* or -1
     prim_index: torch.Tensor  # (R,) int64
+    uv: torch.Tensor  # (R, 2) surface uv (sphere (phi/2pi, theta/pi))
     tangent: torch.Tensor  # (R, 3) BSDF-frame ss axis
     ns: torch.Tensor  # (R, 3) shading normal
 
@@ -135,6 +139,7 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     area_light = gather(sph.area_light, tri.area_light)
 
     n = torch.zeros_like(p)
+    uv = torch.zeros((R, 2), dtype=torch.float32, device=dev)
     tangent = torch.zeros_like(p)
     ns = None
     if Nt > 0:
@@ -156,6 +161,10 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         det = torch.clamp_min(d11 * d22 - d12 * d12, 1e-20)
         b1 = (d22 * dr1 - d12 * dr2) / det
         b2 = (d11 * dr2 - d12 * dr1) / det
+        # uv = b0 uv0 + b1 uv1 + b2 uv2 (triangle.cpp:171)
+        uv_t = ((1.0 - b1 - b2)[:, None] * tri.uv0[ii]
+                + b1[:, None] * tri.uv1[ii] + b2[:, None] * tri.uv2[ii])
+        uv = torch.where(is_t[:, None], uv_t, uv)
         vn0, vn1, vn2 = tri.n0[ii], tri.n1[ii], tri.n2[ii]
         has_vn = vn0.abs().sum(-1) > 0.0
         ns_t = normalize((1.0 - b1 - b2)[:, None] * vn0 + b1[:, None] * vn1
@@ -168,6 +177,12 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         c = sph.center[best_idx.clamp_max(Ns - 1)]
         n_s = normalize(p - c)
         n = torch.where(is_s[:, None], n_s, n)
+        # sphere uv (sphere.cpp): phi / 2pi, theta / pi
+        phi = torch.atan2(n_s[:, 1], n_s[:, 0])
+        phi = torch.where(phi < 0, phi + 2.0 * math.pi, phi)
+        theta = torch.acos(torch.clamp(n_s[:, 2], -1.0, 1.0))
+        uv_s = torch.stack([phi / (2.0 * math.pi), theta / math.pi], -1)
+        uv = torch.where(is_s[:, None], uv_s, uv)
         # sphere dpdu (sphere.cpp:137): (-y, x, 0) about the center
         rel_s = p - c
         t_s = torch.stack([-rel_s[:, 1], rel_s[:, 0],
@@ -184,8 +199,8 @@ def intersect(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     return Hit(valid=valid, t=torch.where(valid, best_t, t_max), p=p, n=n,
                material=material, medium_inside=medium_inside,
                medium_outside=medium_outside, area_light=area_light,
-               prim_kind=best_kind, prim_index=best_idx, tangent=tangent,
-               ns=ns)
+               prim_kind=best_kind, prim_index=best_idx, uv=uv,
+               tangent=tangent, ns=ns)
 
 
 def intersect_p(scene: Scene, o: torch.Tensor, d: torch.Tensor,
@@ -204,3 +219,68 @@ def intersect_p(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         ts = ray_triangle(o, d, tri.p0, tri.p1, tri.p2, t_min, t_max)
         occluded |= ((ts < BIG) & (tri.material >= 0)[None, :]).any(1)
     return occluded
+
+
+def hit_dpduv(scene: Scene, h: Hit):
+    """dp/du and dp/dv at the hits (intersect.py:540-575; sphere.cpp,
+    triangle.cpp): a sphere's (uv = phi/2pi, theta/pi) dpdu = 2pi (-l_y,
+    l_x, 0), dpdv = pi (l_z cos phi, l_z sin phi, -r sin theta) with
+    l = p - center; a triangle's p1 - p0 and p2 - p0.  (R,3) each."""
+    R = h.p.shape[0]
+    dpdu = torch.zeros((R, 3), dtype=torch.float32, device=h.p.device)
+    dpdv = torch.zeros_like(dpdu)
+    zero = dpdu[:, 0]
+    if scene.n_spheres > 0:
+        c = scene.spheres.center[h.prim_index.clamp_max(scene.n_spheres - 1)]
+        rel = h.p - c
+        du = 2.0 * math.pi * torch.stack([-rel[:, 1], rel[:, 0], zero], -1)
+        zr = torch.sqrt(torch.clamp_min(rel[:, 0] ** 2 + rel[:, 1] ** 2, 1e-12))
+        dv = math.pi * torch.stack([rel[:, 2] * (rel[:, 0] / zr),
+                                    rel[:, 2] * (rel[:, 1] / zr), -zr], -1)
+        is_s = (h.prim_kind == SHAPE_SPHERE)[:, None]
+        dpdu = torch.where(is_s, du, dpdu)
+        dpdv = torch.where(is_s, dv, dpdv)
+    if scene.n_triangles > 0:
+        tri = scene.triangles
+        ii = h.prim_index.clamp_max(scene.n_triangles - 1)
+        is_t = (h.prim_kind == SHAPE_TRIANGLE)[:, None]
+        dpdu = torch.where(is_t, tri.p1[ii] - tri.p0[ii], dpdu)
+        dpdv = torch.where(is_t, tri.p2[ii] - tri.p0[ii], dpdv)
+    return dpdu, dpdv
+
+
+def compute_uv_differentials(scene: Scene, h: Hit, o, d, rx_o, rx_d, ry_o,
+                             ry_d):
+    """SurfaceInteraction::ComputeDifferentials (intersect.py:578-617):
+    the two offset rays meet the hit's tangent plane, and the least-squares
+    2x2 system dp = dpdu du + dpdv dv gives (duv_dx, duv_dy) (R,2) each;
+    zero where the hit is invalid or an offset ray runs parallel."""
+    n = h.n
+    pn = dot(h.p, n)
+
+    def plane_hit(oo, dd):
+        dn = dot(dd, n)
+        ok = dn.abs() >= 1e-9
+        tt = (pn - dot(oo, n)) / torch.where(ok, dn, torch.ones_like(dn))
+        return oo + tt[:, None] * dd, ok
+
+    px, okx = plane_hit(rx_o, rx_d)
+    py, oky = plane_hit(ry_o, ry_d)
+    dpdu, dpdv = hit_dpduv(scene, h)
+    a11 = dot(dpdu, dpdu)
+    a12 = dot(dpdu, dpdv)
+    a22 = dot(dpdv, dpdv)
+    det = a11 * a22 - a12 * a12
+    ok = okx & oky & h.valid & (det > 1e-18)
+    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+
+    def solve(dp):
+        b1 = dot(dpdu, dp)
+        b2 = dot(dpdv, dp)
+        return torch.stack([(a22 * b1 - a12 * b2) * inv_det,
+                            (a11 * b2 - a12 * b1) * inv_det], -1)
+
+    okc = ok[:, None]
+    zero = torch.zeros((ok.shape[0], 2), dtype=torch.float32, device=n.device)
+    return (torch.where(okc, solve(px - h.p), zero),
+            torch.where(okc, solve(py - h.p), zero))

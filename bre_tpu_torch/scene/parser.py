@@ -14,10 +14,11 @@ Three kinds of input, as the reference treats them and as the port must:
 - directives, materials, lights, shapes and media the reference does not
   know either: warn and skip, or fall back (matte, a point light,
   perspective), exactly as the reference does;
-- what the reference builds and the port cannot render (materials other
-  than matte, textures, lights other than point and diffuse area lights,
-  the analytic and subdivision shapes, cameras other than perspective): NotImplementedError naming the ROADMAP Queue 1 item,
-  never a silent skip that would render another scene;
+- what the reference builds and the port cannot render (the hair,
+  subsurface, kdsubsurface and fourier materials, lights other than point
+  and diffuse area lights, the analytic and subdivision shapes, cameras
+  other than perspective): NotImplementedError naming the ROADMAP Queue 1
+  item, never a silent skip that would render another scene;
 - everything else: built as the reference builds it.
 """
 
@@ -33,18 +34,18 @@ import numpy as np
 
 from ..bssrdf import get_medium_scattering_properties
 from ..core import transform as tfm
+from ..io.image import read_image
 from ..io.ply import read_ply
 from .builder import SceneBuilder
 from .camera import Camera, make_perspective_camera
-from .scene import LIGHT_DIFFUSE_AREA, SHAPE_TRIANGLE
+from .scene import LIGHT_DIFFUSE_AREA, MAT_MIX, SHAPE_TRIANGLE
 
 _TOKEN_RE = re.compile(r'"[^"]*"|\[|\]|[^\s"\[\]#]+|#[^\n]*')
 
 _BREADTH = "ROADMAP Queue 1 item 5: breadth"
-# materials the reference builds (bre_tpu/scene/parser.py:215-293)
-_REF_MATERIALS = ("mirror", "glass", "metal", "plastic", "uber", "substrate",
-                  "translucent", "hair", "fourier", "subsurface",
-                  "kdsubsurface", "mix")
+# materials the reference builds and the port does not (ROADMAP Queue 1
+# item 5.8; bre_tpu/scene/parser.py:241-284)
+_REF_MATERIALS = ("hair", "fourier", "subsurface", "kdsubsurface")
 _REF_LIGHTS = ("distant", "infinite", "spot", "goniometric", "projection")
 _REF_SHAPES = ("disk", "cylinder", "cone", "paraboloid", "hyperboloid",
                "curve", "loopsubdiv", "nurbs")
@@ -191,6 +192,7 @@ def parse_string(text: str, include_dir: Path = Path("."),
     named_coords: Dict[str, np.ndarray] = {}
     named_materials: Dict[str, int] = {}
     named_media: Dict[str, int] = {}
+    named_textures: Dict[str, int] = {}
 
     cam_to_world: Optional[np.ndarray] = None
     cam_params: Dict = {}
@@ -212,31 +214,120 @@ def parse_string(text: str, include_dir: Path = Path("."),
     def xf_point(p):
         return (ctm[:3, :3] @ np.asarray(p, np.float32)) + ctm[:3, 3]
 
+    def load_map(params: Dict):
+        """The image an imagemap's "filename" names, relative to the
+        including file; a file that cannot be read warns and gives None, as
+        the reference's does (parser.py:180-193)."""
+        fname = params.get("filename")
+        if not isinstance(fname, str):
+            return None
+        path = ts.include_dir / fname.strip('"')
+        try:
+            return np.asarray(read_image(str(path)), np.float32)
+        except Exception as e:
+            warnings.warn(f"cannot read image map '{path}': {e}")
+            return None
+
     def make_material(mat_type: str, params: Dict) -> int:
+        """The reference's make_material (parser.py:215-294): its
+        parameters and defaults for the ported kinds."""
         if mat_type == "matte":
-            if isinstance(params.get("Kd"), str):  # "texture Kd" "name"
-                raise _not_ported("a matte Kd texture",
-                                  "materials and textures")
+            kd = params.get("Kd")
+            if isinstance(kd, str):  # "texture Kd" "name"
+                return b.matte((1.0, 1.0, 1.0), _f(params, "sigma", 0.0),
+                               kd_tex=named_textures.get(kd.strip('"'), -1))
             return b.matte(_p3(params, "Kd", (0.5, 0.5, 0.5)),
                            _f(params, "sigma", 0.0))
+        if mat_type == "mirror":
+            return b.mirror(_p3(params, "Kr", (0.9, 0.9, 0.9)))
+        if mat_type == "glass":
+            return b.glass(_p3(params, "Kr", (1, 1, 1)),
+                           _p3(params, "Kt", (1, 1, 1)),
+                           _f(params, "eta", _f(params, "index", 1.5)))
+        if mat_type == "metal":
+            return b.metal(roughness=_f(params, "roughness", 0.01))
+        if mat_type in ("plastic", "uber"):
+            make = b.plastic if mat_type == "plastic" else b.uber
+            return make(_p3(params, "Kd", (0.25,) * 3),
+                        _p3(params, "Ks", (0.25,) * 3),
+                        _f(params, "roughness", 0.1))
+        if mat_type == "substrate":
+            return b.substrate(_p3(params, "Kd", (0.5,) * 3),
+                               _p3(params, "Ks", (0.5,) * 3),
+                               _f(params, "roughness", 0.1))
+        if mat_type == "translucent":
+            return b.translucent(_p3(params, "Kd", (0.25,) * 3))
         if mat_type == "fourier" and not str(
                 params.get("bsdffile", "")).strip('"'):
             warnings.warn("fourier material needs bsdffile; using matte")
             return b.matte()
-        if mat_type == "mix" and (
-                named_materials.get(str(params.get("namedmaterial1", ""))
-                                    .strip('"'), -1) < 0
-                or named_materials.get(str(params.get("namedmaterial2", ""))
-                                       .strip('"'), -1) < 0):
-            warnings.warn("mix material needs namedmaterial1/2")
-            return b.matte()
+        if mat_type == "mix":
+            m1 = named_materials.get(
+                str(params.get("namedmaterial1", "")).strip('"'), -1)
+            m2 = named_materials.get(
+                str(params.get("namedmaterial2", "")).strip('"'), -1)
+            if m1 < 0 or m2 < 0:
+                warnings.warn("mix material needs namedmaterial1/2")
+                return b.matte()
+            if b._mat[m1]["mtype"] == MAT_MIX or b._mat[m2]["mtype"] == MAT_MIX:
+                raise _not_ported("a mix of mixes", "materials")
+            return b.mix(m1, m2, _p3(params, "amount", (0.5,) * 3))
         if mat_type in _REF_MATERIALS:
-            raise _not_ported(f"material '{mat_type}'",
-                              "materials and textures")
+            raise _not_ported(f"material '{mat_type}'", "materials")
         if mat_type in ("", "none"):
             return -1
         warnings.warn(f"material '{mat_type}' not implemented; using matte")
         return b.matte(_p3(params, "Kd", (0.5, 0.5, 0.5)))
+
+    def make_texture(tname: str, tclass: str, p: Dict) -> None:
+        """The reference's Texture statement (parser.py:403-462): the 12
+        classes with its parameters and defaults; tex1/tex2 may name
+        textures."""
+        if tclass == "imagemap":
+            img = load_map(p)
+            if img is not None:
+                named_textures[tname] = b.tex_imagemap(
+                    img, uscale=_f(p, "uscale", 1.0),
+                    vscale=_f(p, "vscale", 1.0), udelta=_f(p, "udelta", 0.0),
+                    vdelta=_f(p, "vdelta", 0.0))
+        elif tclass in ("checkerboard", "scale", "mix"):
+            def arg(key, default):
+                v = p.get(key)
+                if isinstance(v, str):
+                    return default, named_textures.get(v.strip('"'), -1)
+                return _p3(p, key, default), -1
+
+            if tclass == "checkerboard":
+                (c1, r1), (c2, r2) = arg("tex1", (1, 1, 1)), arg("tex2", (0, 0, 0))
+                named_textures[tname] = b.tex_checkerboard(c1, c2, tex1=r1,
+                                                           tex2=r2)
+            elif tclass == "scale":
+                (c1, r1), (c2, r2) = arg("tex1", (1, 1, 1)), arg("tex2", (1, 1, 1))
+                named_textures[tname] = b.tex_scale(c1, c2, tex1=r1, tex2=r2)
+            else:
+                (c1, r1), (c2, r2) = arg("tex1", (0, 0, 0)), arg("tex2", (1, 1, 1))
+                named_textures[tname] = b.tex_mix(
+                    c1, c2, amount=_f(p, "amount", 0.5), tex1=r1, tex2=r2)
+        elif tclass == "constant":
+            named_textures[tname] = b.tex_constant(_p3(p, "value", (1, 1, 1)))
+        elif tclass in ("fbm", "wrinkled"):
+            make = b.tex_fbm if tclass == "fbm" else b.tex_wrinkled
+            named_textures[tname] = make(octaves=_i(p, "octaves", 8),
+                                         omega=_f(p, "roughness", 0.5))
+        elif tclass == "marble":
+            named_textures[tname] = b.tex_marble(scale=_f(p, "scale", 1.0))
+        elif tclass == "windy":
+            named_textures[tname] = b.tex_windy()
+        elif tclass == "uv":
+            named_textures[tname] = b.tex_uv()
+        elif tclass == "bilerp":
+            named_textures[tname] = b.tex_bilerp(
+                _p3(p, "v00", (0, 0, 0)), _p3(p, "v01", (1, 1, 1)),
+                _p3(p, "v10", (0, 0, 0)), _p3(p, "v11", (1, 1, 1)))
+        elif tclass == "dots":
+            named_textures[tname] = b.tex_dots()
+        else:
+            warnings.warn(f"texture class '{tclass}' unsupported")
 
     while not ts.done():
         tok = ts.next()
@@ -346,7 +437,12 @@ def parse_string(text: str, include_dir: Path = Path("."),
             name = ts.next().strip('"')
             gs.material = named_materials.get(name, -1)
         elif tok == "Texture":
-            raise _not_ported(f"Texture {ts.next()}", "materials and textures")
+            # Texture "name" "spectrum|float" "class" params (api.cpp
+            # pbrtTexture)
+            tname = ts.next().strip('"')
+            ts.next()  # value type
+            tclass = ts.next().strip('"')
+            make_texture(tname, tclass, parse_params(ts))
         elif tok == "MakeNamedMedium":
             name = ts.next().strip('"')
             p = parse_params(ts)

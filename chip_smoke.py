@@ -251,6 +251,23 @@ its own failure and nothing falls back to the CPU or a plain version):
      versions on the sweep's heaviest and a median ray tile; the sparse and
      dense backward's kernels one by one under torch.profiler (a child).
 
+The surface materials and the texture table (plain torch: the reference
+runs them as XLA code; config 4's gathers go through rows 1-2):
+ 34. (a) BASELINE config 4 through cli.main on examples/glass_caustics.pbrt
+     as written (256x256, 12 iterations x 100,000 photons, maxdepth 6,
+     the default route), counted: the forward kernels must launch and the
+     image be finite; wall s, s/iter, the photon statistics, and the same
+     config through render_photonbeam with each iteration timed; (b) the
+     8-iteration caustics golden gate (interactions within 0.2% of the C++
+     reference's 111,394, channel means within 1.5%, region p90 under 0.12
+     and max under 0.5); (c) every material's sample_bsdf (both modes)
+     and eval_bsdf at 2^20 lanes (the textured ones at 2^16) on the card
+     against the CPU, within rtol 1e-5 plus four times the CPU's own
+     spread under 1-8 ulp input moves; (d) volpath with texture_filter=True
+     on image maps at 64x64 x 4 spp, card against CPU (means within 1e-3);
+     (e) render_mlt (a CUDA-graph chain step) on the glass, mirror, metal
+     and plastic scene: a finite image.  Prints its own seconds.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
@@ -3327,6 +3344,349 @@ def phase_sparse_regime(dev, kernels):
     return out
 
 
+GLASS_PBRT = os.path.join(ROOT, "examples", "glass_caustics.pbrt")
+BSDF_LANES = 1 << 20
+
+
+def _spread(run, inputs, names):
+    """run(*inputs) -> dict of CPU outputs, and how far each float output
+    moves, lane by lane, when each input x moves by up to eight float32
+    ulps of max(|x|, 1) (tests/test_torch_materials.py's conditioning
+    bound), and the lanes whose bool outputs or lobe that moves flip."""
+    out = run(*inputs)
+    spread = {k: torch.zeros(out[k].shape[0]) for k in names}
+    flips = torch.zeros(out["f"].shape[0], dtype=torch.bool)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        moved = [x + torch.randint(-8, 9, x.shape, generator=g)
+                 .to(torch.float32) * 2.0 ** -23 * torch.clamp_min(x.abs(), 1.0)
+                 for x in inputs]
+        o = run(*moved)
+        for k in names:
+            d = (o[k] - out[k]).abs()
+            spread[k] = torch.maximum(spread[k], d.amax(-1) if d.dim() == 2
+                                      else d)
+        for k in ("specular", "valid"):
+            if k in out:
+                flips |= o[k] != out[k]
+        if "wi" in out:
+            flips |= (o["wi"] - out["wi"]).abs().amax(-1) > 1e-3
+    return out, spread, flips
+
+
+def _bsdf_card_vs_cpu(scenes, ids, R, textured, seed, card_dev):
+    """Every material's sample_bsdf (both modes) and eval_bsdf (at random
+    and at the sampled directions) on R lanes on the card against the same
+    calls on the CPU: wi, f and pdf within rtol 1e-5 / atol 1e-6 plus four
+    times the CPU's own spread under 1-8 ulp input moves; specular and
+    valid equal but on the lanes that move flips (at most 0.1%).  Returns
+    (max |card - cpu| / max(|cpu|, 1) over f, the flipped lanes, the logged
+    outliers)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True)
+
+    n = unit(torch.randn((R, 3), generator=g))
+    wo = unit(torch.randn((R, 3), generator=g))
+    k = R // 16  # grazing lanes
+    t = unit(torch.cross(n[:k], torch.randn((k, 3), generator=g), dim=-1))
+    wo[:k] = unit(t + 1e-3 * n[:k])
+    wi = unit(torch.randn((R, 3), generator=g))
+    u = torch.rand((R, 2), generator=g)
+    tan = torch.randn((R, 3), generator=g)
+    p = torch.rand((R, 3), generator=g) * 4.0 - 2.0
+    uv = torch.rand((R, 2), generator=g) * 3.0 - 1.0
+    names = [m for m in ids if m.endswith("_tex") == textured]
+    pick = torch.tensor([ids[m] for m in names])
+    mat = pick[torch.randint(0, len(names), (R,), generator=g)]
+    mat[torch.rand(R, generator=g) < 0.1] = -1
+    worst, flipped = 0.0, 0
+
+    def calls(dev):
+        sc = scenes["cpu" if dev.type == "cpu" else "card"]
+
+        def kw(p_, uv_, t_):
+            d = dict(tangent=t_)
+            if textured:
+                d.update(textures=sc.textures, p=p_, uv=uv_)
+            return d
+
+        def sample(mode):
+            def run(n_, wo_, u_, p_, uv_, t_):
+                b = MAT.sample_bsdf(sc.materials, mat.to(dev), n_.to(dev),
+                                    wo_.to(dev), u_.to(dev), mode=mode,
+                                    **kw(p_.to(dev), uv_.to(dev), t_.to(dev)))
+                return {f: v.cpu() for f, v in b._asdict().items()}
+            return run
+
+        def evaluate(n_, wo_, w_, p_, uv_, t_):
+            ekw = kw(p_.to(dev), uv_.to(dev), t_.to(dev))
+            del ekw["tangent"]  # no ported lobe's eval reads it
+            f, pdf = MAT.eval_bsdf(sc.materials, mat.to(dev), n_.to(dev),
+                                   wo_.to(dev), w_.to(dev), **ekw)
+            return dict(f=f.cpu(), pdf=pdf.cpu())
+        return sample, evaluate
+
+    cpu_sample, cpu_eval = calls(torch.device("cpu"))
+    card_sample, card_eval = calls(card_dev)
+
+    outliers = []
+    M_cpu = scenes["cpu"].materials
+    mi = mat.clamp_min(0)
+    ggx = (M_cpu.mtype >= 3) & (M_cpu.mtype <= 5)  # metal, plastic, uber
+    a_mat = torch.where(ggx, M_cpu.roughness.clamp(1e-3, 1.0),
+                        torch.full_like(M_cpu.roughness, float("inf")))
+    alpha = a_mat[mi].double()  # inf: no GGX lobe, so no D to condition
+    for sub in (M_cpu.mix_m1, M_cpu.mix_m2):  # a mix: its narrower lobe
+        alpha = torch.where(M_cpu.mtype[mi] == 8, torch.minimum(
+            alpha, a_mat[sub[mi].clamp_min(0)].double()), alpha)
+
+    def ggx_rtol(w):
+        """4 float32 ulps of c^2 times the condition number of GGX's D at
+        the half vector of (wo, w): near a narrow lobe's peak D's
+        denominator cancels to about alpha^2, and the rounding of c^2
+        itself (not an input move) sets the error (measured on the card:
+        a metal lane at roughness 0.01, f 345.128 against 345.519)."""
+        ns = torch.where(((n * wo).sum(-1) < 0)[:, None], -n, n).double()
+        h = wo.double() + w.double()
+        h = h / h.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+        c2 = (h * ns).sum(-1) ** 2
+        a2 = alpha.clamp_max(1.0) ** 2
+        kappa = 2.0 * (c2 * (a2 - 1.0)).abs() / (c2 * (a2 - 1.0) + 1.0).abs(
+        ).clamp_min(1e-30)
+        return torch.where(alpha.isinf(), 0.0, kappa * 2.0 ** -21).float()
+
+    def close(name, a, b, spread, skip, w=None):
+        """Lanes outside the bound (rtol 1e-5 plus ``ggx_rtol`` of the
+        lane's directions, atol 1e-6, four times the CPU's spread) are
+        logged with their inputs; at most one in 100,000 may be, and none
+        of those by more than the larger of 1e-3 (relative to max(|cpu|,
+        1)) and 16 times the spread: the card's sinf, cosf, sqrtf and
+        division round differently from the CPU's, which two draws of
+        input moves need not always show (a mixed plastic lane near its
+        GGX peak: pdf 29,588 on the card, 10,142 on the CPU, spread
+        3,927)."""
+        if a.dtype == torch.bool:
+            bad = (a != b) & ~skip
+            far = bad
+        else:
+            sp = spread[:, None] if a.dim() == 2 else spread
+            rt = 1e-5 + (ggx_rtol(w) if w is not None else 0.0)
+            rt = rt[:, None] if a.dim() == 2 and w is not None else rt
+            d = (a - b).abs()
+            bad = d > 1e-6 + 4.0 * sp + rt * b.abs()
+            far = d > torch.maximum(1e-3 * torch.clamp_min(b.abs(), 1.0),
+                                    16.0 * sp + 4.0 * rt * b.abs())
+            if a.dim() == 2:
+                bad, far = bad.any(-1), far.any(-1)
+            bad, far = bad & ~skip, far & ~skip
+        for i in bad.nonzero()[:4, 0].tolist():
+            outliers.append(dict(
+                what=name, lane=i, material=int(mat[i]), card=a[i].tolist(),
+                cpu=b[i].tolist(), spread=None if spread is None
+                else float(spread[i]), n=n[i].tolist(), wo=wo[i].tolist(),
+                u=u[i].tolist(), tangent=tan[i].tolist(),
+                w=None if w is None else w[i].tolist()))
+            log(f"[surface] (c) outlier: {outliers[-1]}")
+        if int(bad.sum()) > R // 100000 or bool((far & bad).any()):
+            i = int(bad.nonzero()[0, 0])
+            raise AssertionError(f"bsdf {name}, card vs CPU: {int(bad.sum())} "
+                                 f"lanes differ, lane {i}: {a[i]} vs {b[i]} "
+                                 f"(material {int(mat[i])})")
+
+    def rel_err(a, b):
+        return float(((a - b).abs() / torch.clamp_min(b.abs(), 1.0)).max())
+
+    args = [n, wo, u, p, uv, tan]
+    for mode in (MAT.MODE_RADIANCE, MAT.MODE_IMPORTANCE):
+        ref, spread, flips = _spread(cpu_sample(mode), args, ("wi", "f", "pdf"))
+        card = card_sample(mode)(*args)
+        skip = flips & (mat >= 0)
+        if int(skip.sum()) > R // 1000:
+            raise AssertionError(f"bsdf: {int(skip.sum())} lanes at a branch "
+                                 f"threshold of {R}")
+        for key in ("specular", "valid", "wi", "f", "pdf"):
+            close(f"sample {key} mode {mode}", card[key], ref[key],
+                  spread.get(key, None), skip,
+                  ref["wi"] if key in ("f", "pdf") else None)
+        worst = max(worst, rel_err(card["f"], ref["f"]))
+        flipped += int(skip.sum())
+    # eval has no mode, and the sampled directions are the same in both
+    for w in (wi, ref["wi"]):
+        e, es, _ = _spread(cpu_eval, [n, wo, w, p, uv, tan], ("f", "pdf"))
+        ec = card_eval(n, wo, w, p, uv, tan)
+        none = torch.zeros(R, dtype=torch.bool)
+        close("eval f", ec["f"], e["f"], es["f"], none, w)
+        close("eval pdf", ec["pdf"], e["pdf"], es["pdf"], none, w)
+        worst = max(worst, rel_err(ec["f"], e["f"]))
+    return worst, flipped, outliers
+
+
+def phase_surface_materials(dev, card):
+    """34. The analytic surface materials and the texture table: (a)
+    BASELINE config 4 through cli.main on examples/glass_caustics.pbrt as
+    written (256x256, 12 iterations x 100,000 photons, maxdepth 6, radius
+    0.12, the default route), counted: the forward kernels must launch and
+    the image be finite; wall s, s/iter, the photon statistics, then the
+    same config through render_photonbeam with each iteration timed; (b)
+    the 8-iteration caustics golden gate (tests/test_torch_caustics_golden
+    .py's caustics_gate: interactions within 0.2% of 111,394, channel means
+    within 1.5%, region p90 under 0.12 and max under 0.5); (c) every
+    material's sample_bsdf and eval_bsdf at 2^20 lanes (the textured ones
+    at 2^16) on the card against the CPU; (d) a textured volpath render with
+    texture_filter=True on the card against the CPU (64x64, 4 spp: means
+    within 1e-3); (e) MLT, whose chain step is a CUDA graph, on the glass,
+    mirror, metal and plastic scene: a finite image."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_caustics_golden import caustics_gate
+    from torch_parity import (IMAGE_LOOK, SURFACE_FOV, SURFACE_LOOK,
+                              every_material, image_scene, surface_scene)
+    from bre_tpu_torch.integrators import mlt as ML
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    # (a) config 4 through the CLI
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        pfm = os.path.join(tmp, "glass_caustics.pfm")
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc, wall = _timed(lambda: CLI.main([GLASS_PBRT, "-o", pfm]))
+        counts, routes = launches(FWD_KERNELS), route_calls()
+        if rc != 0:
+            raise AssertionError(f"cli on glass_caustics.pbrt returned {rc}: "
+                                 f"{buf.getvalue()}")
+        img = torch.from_numpy(IMG.read_pfm(pfm))
+    stats = _cli_stats(buf.getvalue())
+    ps = PARSER.parse_file(GLASS_PBRT, device=dev)
+    cfg = CLI.photonbeam_config(ps)
+    size, iters = ps.width, cfg.iterations
+    mean = check_image(img, size, "config-4 CLI render")
+    log(f"[surface] (a) python -m bre_tpu_torch.cli examples/glass_caustics"
+        f".pbrt (in process), {card}: {size}x{size}, {iters} iterations x "
+        f"{cfg.photonsperiteration} photons, maxdepth {cfg.maxdepth}, radius "
+        f"{cfg.initialbeamradius}, kernel {cfg.kernel}, gather={cfg.gather}: "
+        f"wall {wall:.3f} s ({wall / iters:.4f} s/iter, parse, build and PFM "
+        f"write included); statistics {stats}; image mean {mean:.6f}, finite;"
+        f" launches {counts}; route calls {routes}")
+    if sum(counts.values()) <= 0 or counts["gather_forward"] <= 0 or \
+            routes["gather_beams_bruteforce"] <= 0:
+        raise AssertionError(f"config 4: the forward kernels must launch on "
+                             f"the default route: {counts}, {routes}")
+    scene = ps.build(device=dev)
+    _, st, per_iter = timed_render(scene, ps.camera, size, dataclasses.replace(
+        cfg, imagewritefrequency=1))
+    warm = float(np.mean(per_iter[1:]))
+    log(f"[surface] (a) the same config through render_photonbeam: s/iter "
+        f"{[round(t, 4) for t in per_iter]} (warm, iterations 2-{iters}: "
+        f"{warm:.4f}); valid beams/iter {st['n_beams'] / iters:.0f}, medium "
+        f"interactions/iter {int(st['n_medium_scatter']) / iters:.0f} "
+        f"({card})")
+    # one more iteration, phase by phase (phase 20's breakdown)
+    phases, sweeps = [], []
+    saved = [(PB, n, _host_timed(PB, n, phases))
+             for n in ("trace_photon_beams", "compact_beams", "camera_pass")]
+    saved.append((BG, "gather_forward", _event_timed(BG, "gather_forward",
+                                                     sweeps)))
+    try:
+        _, _, it1 = timed_render(scene, ps.camera, size, dataclasses.replace(
+            cfg, iterations=iters + 1, startiteration=iters,
+            enditeration=iters + 1))
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+    torch.cuda.synchronize()
+    by = {n: sum(t for m, t in phases if m == n) for n, _ in phases}
+    kernel_ms = [e0.elapsed_time(e1) for _, e0, e1, _ in sweeps]
+    breakdown = dict(iteration_s=it1[0], trace_s=by["trace_photon_beams"],
+                     compact_s=by["compact_beams"],
+                     camera_pass_s=by["camera_pass"], kernel_ms=kernel_ms,
+                     walk_outside_kernels_s=by["camera_pass"]
+                     - sum(kernel_ms) / 1e3)
+    log(f"[surface] (a) iteration {iters + 1}: {it1[0]:.4f} s; trace "
+        f"{breakdown['trace_s']:.4f} s, compaction "
+        f"{breakdown['compact_s']:.4f} s, camera pass "
+        f"{breakdown['camera_pass_s']:.4f} s, of which the forward kernel "
+        f"{sum(kernel_ms):.3f} ms over {len(kernel_ms)} sweeps "
+        f"{[round(m, 3) for m in kernel_ms]} ({card})")
+    out["config4"] = dict(wall_s=wall, s_per_iter=wall / iters,
+                          warm_s_per_iter=warm, per_iter_s=per_iter,
+                          stats=stats, image_mean=mean, launches=counts,
+                          route_calls=routes, breakdown=breakdown,
+                          n_beams_per_iter=st["n_beams"] / iters)
+    # (b) the caustics golden gate
+    (img_b, st_b), t_b = _timed(lambda: caustics_gate(dev, 8))
+    log(f"[surface] (b) caustics golden gate, 8 iterations x 20,000 photons "
+        f"on the card: {t_b:.3f} s, {int(st_b['n_medium_scatter'])} medium "
+        f"interactions (reference 111,394), image mean {img_b.mean():.6f} "
+        f"({card})")
+    out["caustics_gate"] = dict(s=t_b, medium_interactions=int(
+        st_b["n_medium_scatter"]))
+    # (c) the materials, card against CPU
+    scenes = {}
+    for d, devd in (("cpu", torch.device("cpu")), ("card", dev)):
+        b = SceneBuilder()
+        ids = every_material(b)
+        scenes[d] = b.build(device=devd)
+    (err, flipped, odd), t_c = _timed(lambda: _bsdf_card_vs_cpu(
+        scenes, ids, BSDF_LANES, False, 5, dev))
+    (err_t, flipped_t, odd_t), t_ct = _timed(lambda: _bsdf_card_vs_cpu(
+        scenes, ids, BSDF_LANES >> 4, True, 6, dev))
+    log(f"[surface] (c) sample_bsdf and eval_bsdf of {len(ids)} materials, "
+        f"2^20 lanes (textured: 2^16), both modes, card against CPU: agree "
+        f"(max |f| difference / max(|f|, 1) {max(err, err_t):.3e}; "
+        f"{flipped + flipped_t} "
+        f"lanes at a branch threshold skipped; {len(odd) + len(odd_t)} "
+        f"logged outside the bound); {t_c + t_ct:.3f} s")
+    out["bsdf"] = dict(max_rel_err_f=max(err, err_t),
+                       threshold_lanes=flipped + flipped_t,
+                       outliers=odd + odd_t, s=t_c + t_ct)
+    # (d) texture_filter volpath, card against CPU
+    wh = 64
+    vcfg = VolPathConfig(maxdepth=3, spp=4, texture_filter=True)
+    imgs = {}
+    for d in ("card", "cpu"):
+        devd = dev if d == "card" else torch.device("cpu")
+        sc = image_scene(SceneBuilder(), device=devd)
+        cam = make_perspective_camera(tfm.look_at(*IMAGE_LOOK), 40.0, wh, wh,
+                                      device=devd)
+        imgs[d], t = _timed(lambda: render_volpath(sc, cam, wh, wh, vcfg))
+        imgs[d] = imgs[d].cpu()
+        out[f"texture_filter_{d}_s"] = t
+    m_card = check_image(imgs["card"], wh, "texture_filter volpath (card)")
+    m_cpu = check_image(imgs["cpu"], wh, "texture_filter volpath (CPU)")
+    rel_d = abs(m_card / m_cpu - 1.0)
+    log(f"[surface] (d) volpath texture_filter=True on image maps, {wh}x{wh}"
+        f" x {vcfg.spp} spp: card {out['texture_filter_card_s']:.3f} s, CPU "
+        f"{out['texture_filter_cpu_s']:.3f} s; means {m_card:.6f} / "
+        f"{m_cpu:.6f} (rel {rel_d:.2e}, limit 1e-3) ({card})")
+    if rel_d >= 1e-3:
+        raise AssertionError(f"texture_filter volpath: card mean {m_card} vs "
+                             f"CPU {m_cpu}")
+    out["texture_filter"] = dict(mean_card=m_card, mean_cpu=m_cpu, rel=rel_d)
+    # (e) MLT's CUDA-graph chain step on a scene with glass
+    wm = 32
+    sc = surface_scene(SceneBuilder(), textured=False, device=dev)
+    cam = make_perspective_camera(tfm.look_at(*SURFACE_LOOK), SURFACE_FOV, wm,
+                                  wm, device=dev)
+    mcfg = ML.MLTConfig(maxdepth=4, bootstrapsamples=1024, chains=64,
+                        mutationsperpixel=4)
+    img_e, t_e = _timed(lambda: ML.render_mlt(sc, cam, wm, wm, mcfg))
+    m_e = check_image(img_e.cpu(), wm, "mlt on the surface scene")
+    log(f"[surface] (e) render_mlt on the glass/mirror/metal/plastic scene "
+        f"{wm}x{wm}, 64 chains, 4 mutations per pixel: {t_e:.3f} s, mean "
+        f"{m_e:.6f}, finite ({card})")
+    out["mlt"] = dict(s=t_e, mean=m_e)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[surface] phase 34 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -3384,6 +3744,7 @@ def main():
     report["photon_mapping"] = phase_photon_mapping(dev, report["card"])
     report["bidirectional"] = phase_bidirectional(dev, report["card"])
     report["sparse_regime"] = phase_sparse_regime(dev, kernels)
+    report["surface_materials"] = phase_surface_materials(dev, report["card"])
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run

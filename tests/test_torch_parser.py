@@ -1,12 +1,13 @@
 """bre_tpu_torch's .pbrt parser against bre_tpu's.
 
 The lexer equals the reference's ``tokenize`` on every .pbrt in the repo;
-``parse_params`` types values as the reference does; and on every file the port renders (seven of ten: the three
-glass-sphere scenes need glass) and on synthetic strings for each
-construct, ``parse_*(...).build(device="cpu")`` equals
+``parse_params`` types values as the reference does; and on every .pbrt
+file and on synthetic strings for each construct (every material and
+texture class among them), ``parse_*(...).build(device="cpu")`` equals
 ``scene_from_jax(reference.build())``.  Every construct the reference
-builds and the port cannot render raises NotImplementedError naming its
-ROADMAP item.
+builds and the port cannot render (hair, subsurface, kdsubsurface, fourier,
+a mix of mixes, the lights, shapes and cameras of ROADMAP Queue 1 items
+5.4-5.7) raises NotImplementedError naming its ROADMAP item.
 
 Tolerances: scene tensors compare with ``torch.equal`` (dtype, shape and
 bits: the CTM and every transformed point are computed with the
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from bre_tpu.scene import parser as jparser
+from bre_tpu_torch.io.image import write_pfm
 from bre_tpu_torch.io.ply import write_ply
 from bre_tpu_torch.scene import parser as tparser
 from bre_tpu_torch.scene.scene import scene_from_jax
@@ -43,6 +45,9 @@ def assert_scenes_equal(mine, ref):
         pairs = ([(part, a, b)] if isinstance(a, torch.Tensor) else
                  [((part, n), getattr(a, n), getattr(b, n)) for n in a._fields])
         for name, x, y in pairs:
+            if not isinstance(x, torch.Tensor):  # Textures.depth, an int
+                assert x == y, name
+                continue
             assert x.dtype == y.dtype and x.shape == y.shape, (name, x, y)
             assert torch.equal(x, y), name
 
@@ -351,17 +356,66 @@ def test_unknown_camera_falls_back_to_perspective():
     assert_parsed_equal(mine, ref)
 
 
-NOT_PORTED = {
+# the materials and textures the port builds since the surface-material
+# slice: each case a scene held bit for bit against the reference's
+SURFACE = {
     **{f"material {m}": f'Material "{m}"\n' for m in (
         "mirror", "glass", "metal", "plastic", "uber", "substrate",
-        "translucent", "hair", "subsurface", "kdsubsurface")},
-    "material fourier": 'Material "fourier" "string bsdffile" "x.bsdf"\n',
+        "translucent")},
     "material mix": ('MakeNamedMaterial "a" "string type" "matte"\n'
                      'MakeNamedMaterial "b" "string type" "matte"\n'
                      'Material "mix" "string namedmaterial1" "a" '
                      '"string namedmaterial2" "b"\n'),
-    "matte Kd texture": 'Material "matte" "texture Kd" "checks"\n',
+    "matte Kd texture": ('Texture "checks" "spectrum" "checkerboard"\n'
+                         'Material "matte" "texture Kd" "checks"\n'),
     "texture": 'Texture "checks" "spectrum" "checkerboard"\n',
+    **{f"texture {c}": (f'Texture "t" "spectrum" "{c}" {p}\n'
+                        'Material "matte" "texture Kd" "t"\n')
+       for c, p in (
+           ("constant", '"rgb value" [0.2 0.4 0.6]'),
+           ("checkerboard", '"rgb tex1" [1 0 0] "rgb tex2" [0 1 0]'),
+           ("uv", ""), ("fbm", '"integer octaves" 5 "float roughness" 0.4'),
+           ("wrinkled", '"float roughness" 0.7'),
+           ("marble", '"float scale" 2.5'), ("windy", ""), ("dots", ""),
+           ("scale", '"rgb tex1" [0.5 0.5 0.5] "rgb tex2" [1 0.2 0.3]'),
+           ("mix", '"rgb tex1" [0 0 0] "rgb tex2" [1 1 1] "float amount" 0.7'),
+           ("bilerp", '"rgb v00" [0 0 0] "rgb v11" [1 0.5 0.25]'),
+           ("imagemap", '"string filename" "tex.pfm" "float uscale" 2 '
+                        '"float vdelta" 0.25'))},
+    "nested textures": (
+        'Texture "a" "spectrum" "checkerboard" "rgb tex1" [1 0 0]\n'
+        'Texture "b" "spectrum" "scale" "texture tex1" "a" "rgb tex2" [0.5 0.5 0.5]\n'
+        'Texture "c" "spectrum" "mix" "texture tex1" "b" "texture tex2" "a"\n'
+        'Material "plastic" "rgb Kd" [0.3 0.3 0.3]\n'
+        'Material "matte" "texture Kd" "c"\n'),
+    **{f"trianglemesh {k}": (
+        'ReverseOrientation\n'
+        f'Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ] '
+        f'"point P" [ -1 -1 1  1 -1 1  1 1 1  -1 1 1 ] '
+        f'"float {k}" [ 0 0  2 0.5  1.5 2  -0.5 1 ]\n') for k in ("uv", "st")},
+    "materials with parameters": (
+        'MakeNamedMaterial "g" "string type" "glass" "rgb Kr" [0.9 0.8 0.7] '
+        '"rgb Kt" [0.6 0.7 0.8] "float eta" 1.33\n'
+        'MakeNamedMaterial "p" "string type" "uber" "rgb Kd" [0.1 0.2 0.3] '
+        '"rgb Ks" [0.3 0.2 0.1] "float roughness" 0.05\n'
+        'Material "mix" "string namedmaterial1" "g" '
+        '"string namedmaterial2" "p" "rgb amount" [0.2 0.5 0.8]\n'
+        'Material "metal" "float roughness" 0.2\n'
+        'Material "substrate" "rgb Kd" [0.2 0.3 0.4] "float roughness" 0.3\n'
+        'Material "translucent" "rgb Kd" [0.3 0.2 0.1]\n'
+        'Material "mirror" "rgb Kr" [0.5 0.6 0.7]\n'),
+}
+
+NOT_PORTED = {
+    **{f"material {m}": f'Material "{m}"\n' for m in (
+        "hair", "subsurface", "kdsubsurface")},
+    "material fourier": 'Material "fourier" "string bsdffile" "x.bsdf"\n',
+    "material mix of mixes": (
+        'MakeNamedMaterial "a" "string type" "matte"\n'
+        'MakeNamedMaterial "b" "string type" "mix" '
+        '"string namedmaterial1" "a" "string namedmaterial2" "a"\n'
+        'Material "mix" "string namedmaterial1" "a" '
+        '"string namedmaterial2" "b"\n'),
     **{f"light {lt}": f'LightSource "{lt}"\n' for lt in (
         "distant", "infinite", "spot", "goniometric", "projection")},
     **{f"shape {s}": f'Shape "{s}"\n' for s in (
@@ -372,19 +426,34 @@ NOT_PORTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(NOT_PORTED) + GLASS_PBRT)
-def test_not_ported_raises_naming_roadmap_item(case):
+@pytest.mark.parametrize("case", sorted(SURFACE) + GLASS_PBRT)
+def test_surface_materials_parse_as_reference(case, tmp_path):
+    """What raised before the surface-material slice now builds: the glass
+    scenes and each material and texture statement, bit for bit the
+    reference's scene."""
     if case in GLASS_PBRT:
-        run = lambda: tparser.parse_file(os.path.join(ROOT, case),  # noqa: E731
-                                         device="cpu")
+        full = os.path.join(ROOT, case)
+        mine, ref = (tparser.parse_file(full, device="cpu"),
+                     jparser.parse_file(full))
     else:
-        text = NOT_PORTED[case]
-        if not case.startswith("camera"):
-            text = HEAD + "WorldBegin\n" + text + MESH + "WorldEnd\n"
-        run = lambda: tparser.parse_string(text, device="cpu")  # noqa: E731
+        write_pfm(tmp_path / "tex.pfm", np.random.RandomState(0).rand(
+            6, 10, 3).astype(np.float32))
+        text = HEAD + "WorldBegin\n" + SURFACE[case] + MESH + "WorldEnd\n"
+        mine, ref = (tparser.parse_string(text, tmp_path, device="cpu"),
+                     jparser.parse_string(text, tmp_path))
+        if case == "texture imagemap":
+            assert mine.build(device="cpu").textures.atlas.shape[0] > 1
+    assert_parsed_equal(mine, ref)
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_not_ported_raises_naming_roadmap_item(case):
+    text = NOT_PORTED[case]
+    if not case.startswith("camera"):
+        text = HEAD + "WorldBegin\n" + text + MESH + "WorldEnd\n"
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP Queue 1 item 5: breadth"):
-        run()
+        tparser.parse_string(text, device="cpu")
 
 
 def test_transform_needs_brackets():

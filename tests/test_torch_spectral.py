@@ -1,7 +1,8 @@
 """The 60-bin spectral mode in bre_tpu_torch against bre_tpu, on the CPU:
 the SampledSpectrum tables and functions (``core/sampled_spectrum``), the
-lift and white balance of the band-sliced render, ``slice_scene``'s fields,
-and one ``render_volpath_spectral`` at 4x4, 2 samples per pixel, maxdepth
+lift and white balance of the band-sliced render, ``slice_scene``'s fields
+(on a plastic and mix scene too: ks lifted, the lifted mix amounts
+clipped to [0, 1]), and one ``render_volpath_spectral`` at 4x4, 2 samples per pixel, maxdepth
 2 on tests/test_spectral.py's gray fog scene.
 
 bre_tpu's ``render_volpath_spectral`` compiles its volpath pass once per
@@ -126,6 +127,42 @@ def test_slice_scene_matches_jax(k):
                                   to_np(ts.triangles.p0))
     np.testing.assert_array_equal(to_np(mine.media.g), to_np(ts.media.g))
     assert (to_np(mine.lights.emit) >= 0).all()
+
+
+def _plastic(b, **build_kw):
+    """A plastic and a mix of plastic and matte with chromatic ks and mix
+    amounts, so the lift of ks and the clip of the lifted amounts show."""
+    fog = b.homogeneous_medium((0.05,) * 3, (0.3,) * 3, 0.0)
+    b.box((-1, -1, -1), (1, 1, 1), material=-1, medium_inside=fog,
+          medium_outside=-1)
+    plastic = b.plastic((0.6, 0.3, 0.1), (0.1, 0.5, 0.9), 0.2)
+    matte = b.matte((0.2, 0.7, 0.3))
+    mix = b.mix(plastic, matte, (0.95, 0.05, 1.0))
+    b.sphere((0, 0, 0), 0.5, material=plastic, medium_outside=fog)
+    b.quad((-3, -3, 3), (-3, 3, 3), (3, 3, 3), (3, -3, 3), material=mix)
+    b.point_light((0, 0.6, -0.5), (1.0, 0.8, 0.6), medium=fog)
+    return b.build(**build_kw)
+
+
+@pytest.mark.parametrize("k", [0, 10, 19])
+def test_slice_scene_lifts_ks_and_mix_amount(k):
+    """The reference lifts ks and clips the lifted mix amounts to [0, 1]
+    (spectral.py:100-105) on a plastic scene."""
+    js = _plastic(JBuilder())
+    ts = _plastic(SceneBuilder(), device="cpu")
+    ref = scene_from_jax(jsp.slice_scene(js, k), device="cpu")
+    mine = tsp.slice_scene(ts, k)
+    for field in ("kd", "ks", "mix_amount"):
+        a = getattr(mine.materials, field)
+        b = getattr(ref.materials, field)
+        np.testing.assert_allclose(to_np(a), to_np(b), rtol=1e-6, atol=1e-7,
+                                   err_msg=field)
+    assert not torch.equal(mine.materials.ks, ts.materials.ks)
+    amt = to_np(mine.materials.mix_amount)
+    assert amt.min() >= 0.0 and amt.max() <= 1.0
+    for field in ("eta", "roughness", "metal_eta", "metal_k", "mix_m1"):
+        assert torch.equal(getattr(mine.materials, field),
+                           getattr(ts.materials, field)), field
 
 
 def test_render_volpath_spectral_matches_jax():

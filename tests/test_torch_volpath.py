@@ -297,15 +297,15 @@ def _tiny():
 @pytest.mark.parametrize("over,match", [
     (dict(lightsamplestrategy="bogus"), "lightsamplestrategy"),
     (dict(lightsamplestrategy="all"), "lightsamplestrategy"),
-    (dict(texture_filter=True), "item 5"),
     (dict(sampler="pmj02bn"), "sampler"),
     (dict(sampler="bogus"), "sampler"),
     (dict(indirect="bogus"), "indirect"),
 ])
 def test_volpath_out_of_scope_raises(over, match):
-    """Texture filtering is not ported (NotImplementedError, naming ROADMAP
-    Queue 1 item 5); a strategy, sampler or indirect mode the reference
-    does not know raises ValueError instead of falling back."""
+    """A strategy, sampler or indirect mode the reference does not know
+    raises ValueError instead of falling back.  (texture_filter=True, which
+    raised before the surface-material slice, renders against bre_tpu in
+    tests/test_torch_surface_volpath.py.)"""
     scene, cam = _tiny()
     with pytest.raises((NotImplementedError, ValueError), match=match):
         tvp.render_volpath(scene, cam, 4, 4, tvp.VolPathConfig(spp=1, **over))
@@ -313,13 +313,14 @@ def test_volpath_out_of_scope_raises(over, match):
 
 def test_volpath_subsurface_scene_raises():
     """The reference's BSSRDF branch runs where maybe_has_bssrdf holds; the
-    port renders matte only, and a subsurface material raises (ROADMAP
-    Queue 1 item 5, breadth: materials)."""
+    port renders the analytic surface materials only, and a subsurface
+    material raises (ROADMAP Queue 1 item 5, breadth: materials)."""
     scene, cam = _tiny()
     m = scene.materials
     mats = m._replace(mtype=torch.tensor([MAT_SUBSURFACE]),
                       kd=torch.ones(1, 3), kd_tex=torch.tensor([-1]))
-    with pytest.raises(NotImplementedError, match="Queue 1: breadth"):
+    with pytest.raises(NotImplementedError,
+                       match="'subsurface'.*Queue 1 item 5: breadth"):
         tvp.render_volpath(scene._replace(materials=mats), cam, 4, 4,
                            tvp.VolPathConfig(spp=1))
 

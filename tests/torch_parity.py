@@ -87,3 +87,86 @@ def cornell_fog(b, point_light=False, **build_kw):
     if point_light:
         b.point_light((0.2, -0.4, 1.1), (0.8, 0.9, 1.0), medium=fog)
     return b.build(**build_kw)
+
+
+SURFACE_LOOK = ((0, 0.4, -4.5), (0, 0, 0), (0, 1, 0))
+SURFACE_FOV = 42.0
+
+
+def surface_scene(b, textured=True, **build_kw):
+    """tests/test_photonbeam_vs_volpath.py's glass_caustic_scene (BASELINE
+    config 4's shape: a glass sphere in fog, two point lights) with a
+    mirror floor, a metal and a plastic sphere in the fog, and (with
+    ``textured``) a checkerboard texture on the back wall, on either
+    package's SceneBuilder.  Camera: SURFACE_LOOK, SURFACE_FOV."""
+    fog = b.homogeneous_medium((0.02,) * 3, (0.35,) * 3, 0.0)
+    b.box((-2, -2, -2), (2, 2, 2), material=-1, medium_inside=fog,
+          medium_outside=-1)
+    b.sphere((0, 0, 0), 0.6, material=b.glass(eta=1.5), medium_outside=fog)
+    mirror = b.mirror((0.9, 0.85, 0.8))
+    b.quad((-1.8, -1.5, -1.8), (-1.8, -1.5, 1.8), (1.8, -1.5, 1.8),
+           (1.8, -1.5, -1.8), material=mirror, medium_inside=fog,
+           medium_outside=fog)
+    b.sphere((1.1, -0.9, 0.6), 0.4, material=b.metal(roughness=0.15),
+             medium_inside=fog, medium_outside=fog)
+    b.sphere((-1.1, -0.9, 0.5), 0.45,
+             material=b.plastic((0.5, 0.3, 0.2), (0.3, 0.3, 0.3), 0.2),
+             medium_inside=fog, medium_outside=fog)
+    tex = (b.tex_checkerboard((1, 1, 1), (0.2, 0.3, 0.5), scale=1.5)
+           if textured else -1)
+    wall = b.matte((0.6, 0.55, 0.5), kd_tex=tex)
+    b.quad((-5, -5, 3.5), (-5, 5, 3.5), (5, 5, 3.5), (5, -5, 3.5),
+           material=wall)
+    b.point_light((1.5, 1.5, -1.5), (3.0, 2.8, 2.5), medium=fog)
+    b.point_light((-1.5, 1.0, -1.0), (1.0, 1.2, 1.8), medium=fog)
+    return b.build(**build_kw)
+
+
+def every_material(b):
+    """Every ported material, two of some, a mix of two diffuse and a mix
+    of two specular ones, and a textured matte and plastic, on either
+    package's SceneBuilder (a sphere holds material 0).  Returns their
+    ids by name."""
+    ids = dict(
+        matte=b.matte((0.6, 0.5, 0.4)),
+        mirror=b.mirror((0.9, 0.8, 0.7)),
+        glass=b.glass(),
+        glass_tinted=b.glass((0.9, 0.95, 1.0), (0.8, 0.9, 1.0), eta=1.33),
+        metal=b.metal(roughness=0.01),
+        metal_rough=b.metal(eta=(1.5, 0.9, 0.4), k=(2.0, 3.0, 4.0),
+                            roughness=0.3, tint=(0.9, 0.8, 1.0)),
+        plastic=b.plastic((0.4, 0.3, 0.2), (0.3, 0.3, 0.3), 0.2),
+        uber=b.uber((0.2, 0.4, 0.3), (0.5, 0.4, 0.3), 0.05, eta=1.7),
+        substrate=b.substrate((0.5, 0.4, 0.3), (0.2, 0.2, 0.2), 0.15),
+        translucent=b.translucent((0.3, 0.4, 0.5), (0.4, 0.3, 0.2)),
+    )
+    ids["mix"] = b.mix(ids["matte"], ids["plastic"], (0.3, 0.6, 0.2))
+    ids["mix_specular"] = b.mix(ids["glass"], ids["metal"], 0.5)
+    t = b.tex_checkerboard((1, 1, 1), (0.2, 0.3, 0.4), scale=3.0)
+    ids["matte_tex"] = b.matte(kd_tex=t)
+    ids["plastic_tex"] = b.plastic(kd_tex=b.tex_fbm(scale=2.0))
+    b.sphere((0, 0, 0), 1.0, material=0)
+    return ids
+
+
+IMAGE_LOOK = ((0, 0, 0), (0, 0, 4), (0, 1, 0))  # fov 40
+
+
+def image_scene(b, **build_kw):
+    """A minified image-checker plane (tests/test_ewa.py), an image-mapped
+    plastic sphere and a uv-textured matte one, lit by a point light, on
+    either package's SceneBuilder.  Camera: IMAGE_LOOK, fov 40."""
+    n = 64
+    xx, yy = np.meshgrid(np.arange(n), np.arange(n))
+    img = np.zeros((n, n, 3), np.float32)
+    img[((xx // 2 + yy // 2) % 2) == 0] = (1.0, 0.9, 0.7)
+    checker = b.matte((1, 1, 1), kd_tex=b.tex_imagemap(img, uscale=3.0,
+                                                       vscale=3.0))
+    L = 6.0
+    b.quad((-L, -L, 8), (L, -L, 8), (L, L, 8), (-L, L, 8), material=checker)
+    photo = np.random.RandomState(0).rand(16, 32, 3).astype(np.float32)
+    b.sphere((-1.0, 0.0, 4.0), 0.8,
+             material=b.plastic(kd_tex=b.tex_imagemap(photo)))
+    b.sphere((1.0, 0.3, 4.5), 0.7, material=b.matte(kd_tex=b.tex_uv()))
+    b.point_light((0, 2, 0), (40, 40, 40))
+    return b.build(**build_kw)
