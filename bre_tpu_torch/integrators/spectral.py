@@ -51,10 +51,10 @@ def _slice_lift_matrix(k: int, device="cpu") -> torch.Tensor:
 def slice_scene(scene: Scene, k: int) -> Scene:
     """The scene with every color field lifted to slice k's wavelengths
     (spectral.py:91-115): the materials' kd and ks, and their mix amounts
-    clipped to [0, 1], the lights' emission, the media's sigma_a and
-    sigma_s (the reference's other lifted fields, the BSSRDF coefficients
-    and light images, belong to materials and lights the port does not
-    carry; conductor eta/k and textures stay RGB, as there)."""
+    clipped to [0, 1], the lights' emission and image means, the media's
+    sigma_a and sigma_s.  The light atlas, the env map's sampling tables,
+    conductor eta/k and the textures stay RGB, as there (the reference's
+    BSSRDF coefficients belong to materials the port does not carry)."""
     L = _slice_lift_matrix(k, scene.device)
 
     def lift(c):
@@ -65,7 +65,8 @@ def slice_scene(scene: Scene, k: int) -> Scene:
         materials=m._replace(kd=lift(m.kd), ks=lift(m.ks),
                              mix_amount=torch.clamp(lift(m.mix_amount),
                                                     0.0, 1.0)),
-        lights=scene.lights._replace(emit=lift(scene.lights.emit)),
+        lights=scene.lights._replace(emit=lift(scene.lights.emit),
+                                     img_mean=lift(scene.lights.img_mean)),
         media=scene.media._replace(sigma_a=lift(scene.media.sigma_a),
                                    sigma_s=lift(scene.media.sigma_s)))
 

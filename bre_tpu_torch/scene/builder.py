@@ -5,9 +5,12 @@ scene), the analytic surface materials (matte, mirror, glass, metal,
 plastic, uber, substrate, translucent, mix), the texture table with its
 MIPMap atlas, spheres, triangles (with per-vertex shading normals and uvs,
 and pbrt's ``ss = normalize(dpdu)`` tangent from the uvs), quads, boxes,
-point lights and diffuse area lights on triangles and spheres.  Parameter
-names and the numpy arithmetic match the reference, so ``build()`` yields
-the same values as ``scene_from_jax(bre_tpu SceneBuilder.build())``.
+and every light type: point, spot, goniometric, projection, distant and
+infinite lights (constant or image-mapped, the light images packed in their
+own MIPMap atlas, the env map's Distribution2D built here) and diffuse area
+lights on triangles and spheres.  Parameter names and the numpy arithmetic
+match the reference, so ``build()`` yields the same values as
+``scene_from_jax(bre_tpu SceneBuilder.build())``.
 """
 
 from __future__ import annotations
@@ -22,12 +25,17 @@ from ..textures import (TEX_BILERP, TEX_CHECKERBOARD, TEX_CONSTANT, TEX_DOTS,
                         TEX_FBM, TEX_IMAGE, TEX_MARBLE, TEX_MIX, TEX_SCALE,
                         TEX_UV, TEX_WINDY, TEX_WRINKLED, Textures,
                         build_pyramid, noise_permutation, pack_atlas)
-from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_POINT, MAT_GLASS, MAT_MATTE,
-                    MAT_METAL, MAT_MIRROR, MAT_MIX, MAT_PLASTIC, MAT_SUBSTRATE,
-                    MAT_TRANSLUCENT, MAT_UBER, MEDIUM_GRID,
-                    MEDIUM_HOMOGENEOUS, SHAPE_SPHERE, SHAPE_TRIANGLE, Lights,
-                    Materials, Media, Scene, Spheres, Triangles,
-                    material_kinds, resolve_device)
+from ..core import transform as tfm
+from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_DISTANT, LIGHT_GONIOMETRIC,
+                    LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION, LIGHT_SPOT,
+                    MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX,
+                    MAT_PLASTIC, MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_UBER,
+                    MEDIUM_GRID, MEDIUM_HOMOGENEOUS, SHAPE_SPHERE,
+                    SHAPE_TRIANGLE, Lights, Materials, Media, Scene, Spheres,
+                    Triangles, light_kinds, material_kinds, resolve_device)
+
+# luminance weights of the env map's sampling density (builder.py:1126)
+_LUM = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 # pbrt's default triangle uvs (triangle.cpp GetUVs)
 _UV_DEFAULT = (np.array([0.0, 0.0], np.float32),
@@ -65,6 +73,7 @@ class SceneBuilder:
         self._grid_medium_index = -1
         self._tex: List[dict] = []
         self._images: List[list] = []  # MIPMap pyramids of image textures
+        self._light_images: List[list] = []  # pyramids of the light images
         self.camera_medium = -1
 
     # --- materials (reference src/materials/*.cpp) ---
@@ -278,17 +287,96 @@ class SceneBuilder:
         self.quad((lx, ly, lz), (lx, ly, hz), (lx, hy, hz), (lx, hy, lz), **kw)
         self.quad((hx, ly, lz), (hx, hy, lz), (hx, hy, hz), (hx, ly, hz), **kw)
 
-    # --- lights (reference src/lights/{point,diffuse}.cpp) ---
+    # --- lights (reference src/lights/*.cpp) ---
     def _add_light(self, **kw) -> int:
-        base = dict(shape_kind=-1, shape_index=-1, two_sided=0, medium=-1)
+        base = dict(shape_kind=-1, shape_index=-1, two_sided=0, medium=-1,
+                    cos_falloff_start=1.0, cos_total_width=1.0,
+                    direction=np.zeros(3, np.float32), img=-1,
+                    world_to_light=np.eye(4, dtype=np.float32))
         base.update(kw)
         self._light.append(base)
         return len(self._light) - 1
+
+    def _add_light_image(self, image) -> int:
+        self._light_images.append(build_pyramid(np.asarray(image, np.float32)))
+        return len(self._light_images) - 1
+
+    def goniometric_light(self, position=(0, 0, 0), intensity=(1, 1, 1),
+                          image=None, world_to_light=None,
+                          medium: int = -1) -> int:
+        """Goniophotometric point light (goniometric.cpp): I scaled by an
+        angular map indexed by the emitted direction's spherical
+        coordinates in light space."""
+        img = self._add_light_image(image) if image is not None else -1
+        w2l = (np.asarray(world_to_light, np.float32)
+               if world_to_light is not None else np.eye(4, dtype=np.float32))
+        return self._add_light(ltype=LIGHT_GONIOMETRIC,
+                               position=_rgb(position), emit=_rgb(intensity),
+                               medium=medium, img=img, world_to_light=w2l)
+
+    def projection_light(self, position=(0, 0, 0), intensity=(1, 1, 1),
+                         image=None, fov=45.0, target=(0, 0, 1),
+                         medium: int = -1) -> int:
+        """Slide projector (projection.cpp): a point light emitting the
+        image through a perspective frustum of ``fov`` degrees toward
+        ``target``, nothing outside it.  ``cos_falloff_start`` holds
+        cos(fov/2), ``cos_total_width`` the frustum's corner cone."""
+        img = self._add_light_image(image) if image is not None else -1
+        w = _rgb(target) - _rgb(position)
+        w = w / max(np.linalg.norm(w), 1e-9)
+        # light space: +z along the projection axis, a non-parallel up
+        up = (0.0, 1.0, 0.0) if abs(float(w[1])) < 0.99 else (1.0, 0.0, 0.0)
+        l2w = np.asarray(tfm.look_at(_rgb(position), _rgb(position) + w, up),
+                         np.float32)
+        w2l = np.linalg.inv(l2w).astype(np.float32)
+        half_d = np.deg2rad(fov) * 0.5
+        cos_total = float(np.cos(np.arctan(np.tan(half_d) * np.sqrt(2.0))))
+        return self._add_light(ltype=LIGHT_PROJECTION, position=_rgb(position),
+                               direction=w, emit=_rgb(intensity),
+                               medium=medium, img=img, world_to_light=w2l,
+                               cos_total_width=cos_total,
+                               cos_falloff_start=float(np.cos(half_d)))
 
     def point_light(self, position=(0, 0, 0), intensity=(1, 1, 1),
                     medium: int = -1) -> int:
         return self._add_light(ltype=LIGHT_POINT, position=_rgb(position),
                                emit=_rgb(intensity), medium=medium)
+
+    def spot_light(self, position=(0, 0, 0), target=(0, 0, 1),
+                   intensity=(1, 1, 1), coneangle=30.0, conedeltaangle=5.0,
+                   medium: int = -1) -> int:
+        """Spot light (spot.cpp): full intensity inside coneangle -
+        conedeltaangle degrees, a smooth falloff to coneangle."""
+        w = _rgb(target) - _rgb(position)
+        w = w / max(np.linalg.norm(w), 1e-9)
+        return self._add_light(
+            ltype=LIGHT_SPOT, position=_rgb(position), direction=w,
+            emit=_rgb(intensity), medium=medium,
+            cos_falloff_start=float(np.cos(np.deg2rad(coneangle
+                                                      - conedeltaangle))),
+            cos_total_width=float(np.cos(np.deg2rad(coneangle))))
+
+    def distant_light(self, direction=(0, 0, -1), radiance=(1, 1, 1)) -> int:
+        """Distant light (distant.cpp); ``direction`` is the way the light
+        travels."""
+        w = np.asarray(direction, np.float32)
+        w = w / np.linalg.norm(w)
+        return self._add_light(ltype=LIGHT_DISTANT,
+                               position=np.zeros(3, np.float32), direction=w,
+                               emit=_rgb(radiance))
+
+    def infinite_light(self, radiance=(1, 1, 1), image=None,
+                       world_to_light=None) -> int:
+        """Environment light (infinite.cpp): constant L, or L times an
+        equirectangular map, importance-sampled by the map's luminance
+        Distribution2D.  The last image-mapped one is the scene's env map."""
+        img = self._add_light_image(image) if image is not None else -1
+        w2l = (np.asarray(world_to_light, np.float32)
+               if world_to_light is not None else np.eye(4, dtype=np.float32))
+        return self._add_light(ltype=LIGHT_INFINITE,
+                               position=np.zeros(3, np.float32),
+                               emit=_rgb(radiance), img=img,
+                               world_to_light=w2l)
 
     def area_light_sphere(self, center, radius, radiance, material: int = -1,
                           two_sided=False, medium: int = -1,
@@ -319,6 +407,58 @@ class SceneBuilder:
                 shape_index=tidx, two_sided=int(two_sided), medium=medium)
             ids.append(light_id)
         return ids[0]
+
+    def _build_lights(self, L, f, stack, col, i64) -> Lights:
+        """The light table: the per-light image fields, the light atlas and
+        the env map's Distribution2D over luminance * sin(theta), in the
+        reference's numpy float32 expressions (builder.py:1108-1166)."""
+        atlas, offs = pack_atlas(self._light_images)
+        n_l = len(L)
+        l_off = np.full(n_l, -1, np.int64)
+        l_w, l_h = np.zeros(n_l, np.int64), np.zeros(n_l, np.int64)
+        l_mean = np.ones((n_l, 3), np.float32)
+        env_light = -1
+        for i, li in enumerate(L):
+            if li["img"] >= 0:
+                py = self._light_images[li["img"]]
+                l_off[i] = offs[li["img"]]
+                l_h[i], l_w[i] = py[0].shape[:2]
+                l_mean[i] = py[0].reshape(-1, 3).mean(0)
+                if li["ltype"] == LIGHT_INFINITE:
+                    env_light = i
+        if env_light >= 0:
+            env0 = self._light_images[L[env_light]["img"]][0]
+            lum = env0 @ _LUM
+            He, We = lum.shape
+            sin_t = np.sin(np.pi * (np.arange(He) + 0.5) / He).astype(
+                np.float32)
+            func = np.maximum(lum * sin_t[:, None], 0.0).astype(np.float32)
+            row_int = func.mean(axis=1)
+            cond = np.concatenate(
+                [np.zeros((He, 1), np.float32), np.cumsum(func, axis=1) / We],
+                1)
+            cond = cond / np.maximum(row_int[:, None], 1e-30)
+            marg = np.concatenate(
+                [np.zeros(1, np.float32), np.cumsum(row_int) / He])
+            marg = marg / max(marg[-1], 1e-30)
+            env = (func, marg.astype(np.float32), cond.astype(np.float32))
+        else:
+            env = (np.zeros((1, 1), np.float32), np.zeros(2, np.float32),
+                   np.zeros((1, 2), np.float32))
+        return Lights(
+            ltype=col(L, "ltype"), position=stack(L, "position"),
+            direction=stack(L, "direction"), emit=stack(L, "emit"),
+            shape_kind=col(L, "shape_kind"), shape_index=col(L, "shape_index"),
+            two_sided=col(L, "two_sided"), medium=col(L, "medium"),
+            cos_falloff_start=col(L, "cos_falloff_start", torch.float32),
+            cos_total_width=col(L, "cos_total_width", torch.float32),
+            img_off=i64(l_off), img_w=i64(l_w), img_h=i64(l_h),
+            img_mean=f(l_mean),
+            world_to_light=(f(np.stack([li["world_to_light"] for li in L]))
+                            if L else f(np.zeros((0, 4, 4), np.float32))),
+            atlas=f(atlas), env_light=i64(env_light), env_func=f(env[0]),
+            env_marg_cdf=f(env[1]), env_cond_cdf=f(env[2]),
+            kinds=light_kinds([li["ltype"] for li in L]))
 
     # --- freeze ---
     def build(self, device="cuda") -> Scene:
@@ -384,9 +524,7 @@ class SceneBuilder:
             c2=stack(tex, "c2"), c3=stack(tex, "c3"),
             perm=noise_permutation(device), depth=_tex_graph_depth(tex))
         L = self._light
-        lights = Lights(col(L, "ltype"), stack(L, "position"), stack(L, "emit"),
-                        col(L, "shape_kind"), col(L, "shape_index"),
-                        col(L, "two_sided"), col(L, "medium"))
+        lights = self._build_lights(L, f, stack, col, i64)
         density = (self._grid_density if self._grid_density is not None
                    else np.zeros((1, 1, 1), np.float32))
         w2m = (self._grid_world_to_medium
@@ -403,8 +541,8 @@ class SceneBuilder:
             pts.append(sp["center"] + sp["radius"])
         for t in tri:
             pts.extend([t["p0"], t["p1"], t["p2"]])
-        for li in L:
-            if li["ltype"] == LIGHT_POINT:
+        for li in L:  # distant, infinite, goniometric, projection: no
+            if li["ltype"] in (LIGHT_POINT, LIGHT_SPOT):
                 pts.append(li["position"])
         if pts:
             allp = np.stack(pts)

@@ -15,10 +15,10 @@ Three kinds of input, as the reference treats them and as the port must:
   know either: warn and skip, or fall back (matte, a point light,
   perspective), exactly as the reference does;
 - what the reference builds and the port cannot render (the hair,
-  subsurface, kdsubsurface and fourier materials, lights other than point
-  and diffuse area lights, the analytic and subdivision shapes, cameras
-  other than perspective): NotImplementedError naming the ROADMAP Queue 1
-  item, never a silent skip that would render another scene;
+  subsurface, kdsubsurface and fourier materials, the analytic and
+  subdivision shapes, cameras other than perspective): NotImplementedError
+  naming the ROADMAP Queue 1 item, never a silent skip that would render
+  another scene;
 - everything else: built as the reference builds it.
 """
 
@@ -46,7 +46,6 @@ _BREADTH = "ROADMAP Queue 1 item 5: breadth"
 # materials the reference builds and the port does not (ROADMAP Queue 1
 # item 5.8; bre_tpu/scene/parser.py:241-284)
 _REF_MATERIALS = ("hair", "fourier", "subsurface", "kdsubsurface")
-_REF_LIGHTS = ("distant", "infinite", "spot", "goniometric", "projection")
 _REF_SHAPES = ("disk", "cylinder", "cone", "paraboloid", "hyperboloid",
                "curve", "loopsubdiv", "nurbs")
 _REF_CAMERAS = ("orthographic", "realistic", "environment")
@@ -214,11 +213,12 @@ def parse_string(text: str, include_dir: Path = Path("."),
     def xf_point(p):
         return (ctm[:3, :3] @ np.asarray(p, np.float32)) + ctm[:3, 3]
 
-    def load_map(params: Dict):
-        """The image an imagemap's "filename" names, relative to the
-        including file; a file that cannot be read warns and gives None, as
-        the reference's does (parser.py:180-193)."""
-        fname = params.get("filename")
+    def load_map(params: Dict, key: str = "mapname"):
+        """The image a light's "mapname" (or "filename") or an imagemap's
+        "filename" names, relative to the including file; a file that
+        cannot be read warns and gives None, as the reference's does
+        (parser.py:180-193)."""
+        fname = params.get(key, params.get("filename"))
         if not isinstance(fname, str):
             return None
         path = ts.include_dir / fname.strip('"')
@@ -284,7 +284,7 @@ def parse_string(text: str, include_dir: Path = Path("."),
         classes with its parameters and defaults; tex1/tex2 may name
         textures."""
         if tclass == "imagemap":
-            img = load_map(p)
+            img = load_map(p, "filename")
             if img is not None:
                 named_textures[tname] = b.tex_imagemap(
                     img, uscale=_f(p, "uscale", 1.0),
@@ -493,8 +493,33 @@ def parse_string(text: str, include_dir: Path = Path("."),
                 I = _p3(p, "I", (1, 1, 1)) * scale_
                 from_ = xf_point(_p3(p, "from", (0, 0, 0)))
                 b.point_light(from_, I, medium=gs.outside_medium)
-            elif ltype in _REF_LIGHTS:
-                raise _not_ported(f"light '{ltype}'", "lights")
+            elif ltype == "distant":
+                L = _p3(p, "L", (1, 1, 1)) * scale_
+                from_ = xf_point(_p3(p, "from", (0, 0, 0)))
+                to = xf_point(_p3(p, "to", (0, 0, 1)))
+                b.distant_light(to - from_, L)
+            elif ltype == "infinite":
+                L = _p3(p, "L", (1, 1, 1)) * scale_
+                b.infinite_light(L, image=load_map(p),
+                                 world_to_light=np.linalg.inv(ctm))
+            elif ltype == "spot":
+                I = _p3(p, "I", (1, 1, 1)) * scale_
+                from_ = xf_point(_p3(p, "from", (0, 0, 0)))
+                to = xf_point(_p3(p, "to", (0, 0, 1)))
+                b.spot_light(from_, to, I,
+                             coneangle=_f(p, "coneangle", 30.0),
+                             conedeltaangle=_f(p, "conedeltaangle", 5.0))
+            elif ltype == "goniometric":
+                I = _p3(p, "I", (1, 1, 1)) * scale_
+                b.goniometric_light(xf_point((0, 0, 0)), I, image=load_map(p),
+                                    world_to_light=np.linalg.inv(ctm),
+                                    medium=gs.outside_medium)
+            elif ltype == "projection":
+                I = _p3(p, "I", (1, 1, 1)) * scale_
+                b.projection_light(xf_point((0, 0, 0)), I, image=load_map(p),
+                                   fov=_f(p, "fov", 45.0),
+                                   target=xf_point((0, 0, 1)),
+                                   medium=gs.outside_medium)
             else:
                 warnings.warn(f"light '{ltype}' unsupported; treated as point")
                 b.point_light(xf_point((0, 0, 0)), _p3(p, "I", (1, 1, 1)))

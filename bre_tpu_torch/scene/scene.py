@@ -6,9 +6,12 @@ vacuum, no area light).  Ids are int64 so they index directly; positions,
 colors and parameters are float32.  Only the fields the ported slice reads
 are carried: the analytic surface materials (matte, mirror, glass, metal,
 plastic, uber, substrate, translucent and one-level mixes) and the texture
-table, point lights and triangle and sphere area lights, homogeneous and
-grid-density media (at most one grid, as the reference's builder allows),
-spheres and triangles swept densely.
+table, every light type of the reference (point, spot, goniometric and
+projection lights, diffuse area lights on triangles and spheres, distant
+lights, and infinite lights, constant or image-mapped, with the light-image
+atlas and the one env map's sampling tables), homogeneous and grid-density
+media (at most one grid, as the reference's builder allows), spheres and
+triangles swept densely.
 
 ``scene_from_jax`` turns a ``bre_tpu`` Scene into this one, so tests can feed
 both packages identical inputs; ``check_slice`` raises ``NotImplementedError``
@@ -45,9 +48,15 @@ _UNPORTED_MATERIALS = {MAT_HAIR: "hair", MAT_SUBSURFACE: "subsurface",
                        MAT_KDSUBSURFACE: "kdsubsurface",
                        MAT_FOURIER: "fourier"}
 
-# Light type tags
-LIGHT_POINT = 0
-LIGHT_DIFFUSE_AREA = 1
+# Light type tags (bre_tpu/scene/scene.py:42-48)
+LIGHT_POINT = 0  # point.cpp
+LIGHT_DIFFUSE_AREA = 1  # diffuse.cpp (over a triangle or a sphere)
+LIGHT_DISTANT = 2  # distant.cpp
+LIGHT_INFINITE = 3  # infinite.cpp (constant L or an equirectangular map)
+LIGHT_SPOT = 4  # spot.cpp
+LIGHT_GONIOMETRIC = 5  # goniometric.cpp (point light x angular map)
+LIGHT_PROJECTION = 6  # projection.cpp (point light x projected slide)
+N_LIGHT_TAGS = 7
 
 # Medium type tags
 MEDIUM_HOMOGENEOUS = 0
@@ -112,13 +121,38 @@ class Materials(NamedTuple):
 
 
 class Lights(NamedTuple):
+    """Tagged light table (bre_tpu/scene/scene.py:129-160)."""
+
     ltype: torch.Tensor  # (Nl,) int64 tag
-    position: torch.Tensor  # (Nl, 3)
-    emit: torch.Tensor  # (Nl, 3) point I / area L
+    position: torch.Tensor  # (Nl, 3) point/spot/goniometric/projection
+    direction: torch.Tensor  # (Nl, 3) distant/spot/projection axis (travel)
+    emit: torch.Tensor  # (Nl, 3) I of the point-like lights, else L
     shape_kind: torch.Tensor  # (Nl,) int64 SHAPE_* or -1
     shape_index: torch.Tensor  # (Nl,) int64
     two_sided: torch.Tensor  # (Nl,) int64 0/1
     medium: torch.Tensor  # (Nl,) int64 medium the light sits in
+    cos_falloff_start: torch.Tensor  # (Nl,) spot inner cone; projection
+    # cos(fov/2)
+    cos_total_width: torch.Tensor  # (Nl,) spot outer cone; projection
+    # frustum corner cone
+    # the light images (infinite env maps, goniometric maps, projection
+    # slides): MIPMap pyramids packed in one atlas, as the textures are
+    img_off: torch.Tensor  # (Nl,) int64 level-0 row offset, -1 = no image
+    img_w: torch.Tensor  # (Nl,) int64
+    img_h: torch.Tensor  # (Nl,) int64
+    img_mean: torch.Tensor  # (Nl, 3) the image's mean (1 without one)
+    world_to_light: torch.Tensor  # (Nl, 4, 4) orientation of the map lookup
+    atlas: torch.Tensor  # (Ha, Wa, 3) light-image atlas, (1, 1, 3) if unused
+    # the env map's Distribution2D (infinite.cpp): one image-mapped
+    # infinite light per scene, the last one built; (1, 1) func when none
+    env_light: torch.Tensor  # () int64 light index or -1
+    env_func: torch.Tensor  # (He, We) luminance * sin(theta)
+    env_marg_cdf: torch.Tensor  # (He + 1,)
+    env_cond_cdf: torch.Tensor  # (He, We + 1)
+    # (N_LIGHT_TAGS,) bool, on the host whatever the device: which tags the
+    # table holds, decided when it is built; the light queries skip the
+    # branches of absent tags
+    kinds: torch.Tensor
 
 
 class Media(NamedTuple):
@@ -184,50 +218,61 @@ def world_span(scene: Scene) -> torch.Tensor:
 
 
 def check_slice(scene: Scene) -> None:
-    """Raise NotImplementedError for scene content outside the ported slice."""
+    """Raise NotImplementedError for scene content outside the ported slice;
+    ValueError where a table's host-side ``kinds`` lacks a tag it holds."""
     if scene.n_spheres + scene.n_triangles > MAX_DENSE_PRIMS:
         raise NotImplementedError(
             f"more than {MAX_DENSE_PRIMS} primitives needs the chunked sweep "
             "or the tri-BVH (ROADMAP Queue 1 item 5: breadth, accel/lbvh)")
-    m = scene.materials
+    m, L, mt = scene.materials, scene.lights, scene.media.mtype
     n = m.mtype.shape[0]
     is_mix = m.mtype == MAT_MIX
-    # one host read for every tag's presence, a second only where there
-    # are mixes
-    held = torch.stack([(m.mtype == tag).any() for tag in range(N_MAT_TAGS)]
-                       + [((m.mtype < MAT_MATTE)
-                           | (m.mtype >= N_MAT_TAGS)).any()]).tolist() \
-        if n else [False] * (N_MAT_TAGS + 1)
+    # one host read for the presence of every material and light tag and
+    # for the refusals below; a second only where there are mixes
+    flags = ([(m.mtype == tag).any() for tag in range(N_MAT_TAGS)]
+             + [((m.mtype < MAT_MATTE) | (m.mtype >= N_MAT_TAGS)).any()]
+             + [(L.ltype == tag).any() for tag in range(N_LIGHT_TAGS)]
+             + [((L.ltype < 0) | (L.ltype >= N_LIGHT_TAGS)).any(),
+                ((L.ltype == LIGHT_DIFFUSE_AREA)
+                 & (L.shape_kind != SHAPE_TRIANGLE)
+                 & (L.shape_kind != SHAPE_SPHERE)).any(),
+                ((mt != MEDIUM_HOMOGENEOUS) & (mt != MEDIUM_GRID)).any(),
+                (mt == MEDIUM_GRID).sum() > 1])
+    held = torch.stack(flags).tolist()
+    mat_held, held = held[:N_MAT_TAGS + 1], held[N_MAT_TAGS + 1:]
+    light_held, held = held[:N_LIGHT_TAGS], held[N_LIGHT_TAGS:]
+    bad_light, bad_area, bad_medium, two_grids = held
     for tag, name in _UNPORTED_MATERIALS.items():
-        if held[tag]:
+        if mat_held[tag]:
             raise NotImplementedError(
                 f"material '{name}' is not ported (ROADMAP Queue 1 item 5: "
                 "breadth, materials)")
-    if held[-1]:
+    if mat_held[-1]:
         raise NotImplementedError("unknown material type tag")
-    missing = [t for t in range(N_MAT_TAGS) if held[t] and not bool(m.kinds[t])]
-    if missing:
-        raise ValueError(f"Materials.kinds lacks the tags {missing} that "
-                         "mtype holds: rebuild it with material_kinds(mtype)")
-    if held[MAT_MIX]:
+    for what, kinds, held_tags, remedy in (
+            ("Materials", m.kinds, mat_held, "material_kinds(mtype)"),
+            ("Lights", L.kinds, light_held, "light_kinds(ltype)")):
+        missing = [t for t, h in enumerate(held_tags[:kinds.shape[0]])
+                   if h and not bool(kinds[t])]
+        if missing:
+            raise ValueError(f"{what}.kinds lacks the tags {missing} that the "
+                             f"table holds: rebuild it with {remedy}")
+    if mat_held[MAT_MIX]:
         subs = torch.cat([m.mix_m1[is_mix], m.mix_m2[is_mix]])
         if bool((m.mtype[subs.clamp(0, n - 1)] == MAT_MIX).any()):
             raise NotImplementedError(
                 "a mix whose sub-material is a mix is not supported "
                 "(ROADMAP Queue 1 item 5: breadth, materials; the "
                 "reference's mix is one level deep too)")
-    L = scene.lights
-    point = L.ltype == LIGHT_POINT
-    area = (L.ltype == LIGHT_DIFFUSE_AREA) & (
-        (L.shape_kind == SHAPE_TRIANGLE) | (L.shape_kind == SHAPE_SPHERE))
-    if bool((~(point | area)).any()):
+    if bad_light:
+        raise NotImplementedError("unknown light type tag")
+    if bad_area:
         raise NotImplementedError(
-            "only point lights and triangle and sphere area lights are ported "
-            "(ROADMAP Queue 1 item 5: breadth, lights)")
-    mt = scene.media.mtype
-    if bool(((mt != MEDIUM_HOMOGENEOUS) & (mt != MEDIUM_GRID)).any()):
+            "a diffuse area light on a shape other than a triangle or a "
+            "sphere is not ported (ROADMAP Queue 1 item 5: breadth, shapes)")
+    if bad_medium:
         raise NotImplementedError("unknown medium type tag")
-    if int((mt == MEDIUM_GRID).sum()) > 1:
+    if two_grids:
         raise NotImplementedError(
             "more than one grid-density medium: the scene stores one density "
             "brick, as the reference's builder does")
@@ -238,6 +283,14 @@ def material_kinds(mtype) -> torch.Tensor:
     kinds = torch.zeros(N_MAT_TAGS, dtype=torch.bool)
     tags = np.asarray(mtype, np.int64).reshape(-1)
     kinds[tags[(tags >= 0) & (tags < N_MAT_TAGS)]] = True
+    return kinds
+
+
+def light_kinds(ltype) -> torch.Tensor:
+    """``Lights.kinds`` of a table's tags (any int sequence or array)."""
+    kinds = torch.zeros(N_LIGHT_TAGS, dtype=torch.bool)
+    tags = np.asarray(ltype, np.int64).reshape(-1)
+    kinds[tags[(tags >= 0) & (tags < N_LIGHT_TAGS)]] = True
     return kinds
 
 
@@ -290,8 +343,14 @@ def scene_from_jax(scene_jax, device="cuda") -> Scene:
             i(m.mtype), f(m.kd), f(m.ks), f(m.eta), f(m.roughness),
             f(m.metal_eta), f(m.metal_k), i(m.kd_tex), i(m.mix_m1),
             i(m.mix_m2), f(m.mix_amount), material_kinds(m.mtype)),
-        lights=Lights(i(L.ltype), f(L.position), f(L.emit), i(L.shape_kind),
-                      i(L.shape_index), i(L.two_sided), i(L.medium)),
+        lights=Lights(
+            i(L.ltype), f(L.position), f(L.direction), f(L.emit),
+            i(L.shape_kind), i(L.shape_index), i(L.two_sided), i(L.medium),
+            f(L.cos_falloff_start), f(L.cos_total_width), i(L.img_off),
+            i(L.img_w), i(L.img_h), f(L.img_mean),
+            _t(np.asarray(L.world_to_light).reshape(-1, 4, 4), torch.float32,
+               device), f(L.atlas), i(L.env_light), f(L.env_func),
+            f(L.env_marg_cdf), f(L.env_cond_cdf), light_kinds(L.ltype)),
         media=Media(i(md.mtype), f(md.sigma_a), f(md.sigma_s), f(md.g),
                     f(md.density), f(md.world_to_medium), i(md.grid_medium)),
         textures=textures_from_jax(scene_jax.textures, device),

@@ -268,12 +268,41 @@ runs them as XLA code; config 4's gathers go through rows 1-2):
      (e) render_mlt (a CUDA-graph chain step) on the glass, mirror, metal
      and plastic scene: a finite image.  Prints its own seconds.
 
+The other lights (plain torch: the reference runs them as XLA code; the
+lit fog box's gathers go through rows 1-2):
+ 35. (a) the lit fog box, examples/cornell_fog.pbrt's camera, geometry and
+     fog as a string with its ceiling area light replaced by a spot light
+     aimed at the floor, a goniometric light (seeded 32x64 map), a
+     projection light (seeded 64x64 slide), a distant light through the
+     open front and an image-mapped infinite light (seeded 128x256 PFM),
+     the maps written to a temporary directory, through cli.main at config
+     2's width (256x256, 16 iterations x 65,536 photons, maxdepth 5, radius
+     0.15), counted: row 1 must launch and the image be finite and not
+     black; wall s, s/iter and each light's pick pmf; (b) the same box and
+     lights at 32x32 in the builder's form, the fog behind a null-material
+     boundary that the camera rays enter (tests/torch_parity.lit_fog_box;
+     from the .pbrt's vacuum camera no sweep reaches the full film), 2
+     iterations x 4,096 photons, card against CPU on the default route (row
+     1 must launch) and on the packed route with the sparse cap at the
+     block grid (row 2 must launch): means within 1e-3, 99% of the pixels
+     within rtol 1e-3; (c) sample_le, sample_li and pdf_le of every light
+     type (tests/torch_parity.lights_scene) at 2^20 lanes, card against
+     CPU, rtol 1e-5 with an atol of 1e-5 x each field's largest magnitude
+     (a sample near a hemisphere's rim, cosine c, adds 1e-7 / c to its
+     direction's and 1e-7 / c^2 to its density's tolerance);
+     (d) volpath (MIS, spatial picks), bdpt, vsppm and photonmap at 32x32 on
+     that scene, card against CPU as in (b), and MLT's CUDA-graph chain
+     step bit for bit its eager steps; the s/iter of phases 29-31's matte
+     scenes beside PERF.md's figures from before these lights.  Prints its
+     own seconds.
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
 phase 23 for kernel 6; rows 1 and 3 also count their launches on the
 non-packed route, phases 20 and 23, and rows 1 and 5 their launches by
-the CLI, phase 29 (a) and (b), as launches_cli), max abs error (and, for
+the CLI, phase 29 (a) and (b), as launches_cli, and row 1 on the lit fog
+box, phase 35 (a), as launches_lit_fog_cli), max abs error (and, for
 the backward kernels, max |diff| / max|ref| per cotangent), time beside
 its plain version's and its bound, and the
 splits per ray tile and blocks that its wrapper launched on its headline
@@ -3687,6 +3716,357 @@ def phase_surface_materials(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The other lights (phase 35)
+# ---------------------------------------------------------------------------
+
+# examples/cornell_fog.pbrt's camera, geometry and fog, its ceiling area
+# light replaced by a spot light at the ceiling aimed at the floor, a
+# goniometric light and a projection light in the fog, a distant light
+# through the open front (z = -1) and an image-mapped infinite light
+LIT_FOG_PBRT = """Integrator "photonbeam"
+    "integer iterations" [ {iters} ]
+    "integer photonsperiteration" [ {photons} ]
+    "float initialbeamradius" [ 0.15 ]
+    "integer maxdepth" [ 5 ]
+Film "image" "integer xresolution" [ {size} ] "integer yresolution" [ {size} ]
+    "string filename" "lit_fog.pfm"
+LookAt 0 1 -3.9   0 1 0   0 1 0
+Camera "perspective" "float fov" 40
+
+WorldBegin
+MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [ .02 .02 .02 ] "rgb sigma_s" [ .25 .25 .25 ] "float g" 0.2
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .73 .73 .73 ]
+  Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ]
+      "point P" [ -1 0 -1   -1 0 1   1 0 1   1 0 -1 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ -1 2 -1   -1 2 1   1 2 1   1 2 -1 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ -1 0 1   -1 2 1   1 2 1   1 0 1 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .65 .05 .05 ]
+  Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ]
+      "point P" [ -1 0 -1   -1 0 1   -1 2 1   -1 2 -1 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .12 .45 .15 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ 1 0 -1   1 0 1   1 2 1   1 2 -1 ]
+AttributeEnd
+
+AttributeBegin
+  MediumInterface "" "fog"
+  LightSource "spot" "point from" [ 0 1.95 0 ] "point to" [ 0.1 0 0.2 ]
+      "rgb I" [ 6 5.5 5 ] "float coneangle" 40 "float conedeltaangle" 10
+  AttributeBegin
+    Translate -0.5 1.6 0.4
+    Rotate 90 1 0 0
+    LightSource "goniometric" "string mapname" "gonio.pfm" "rgb I" [ 2 2 2 ]
+  AttributeEnd
+  AttributeBegin
+    Translate 0.5 1.7 -0.6
+    Rotate 70 1 0 0
+    LightSource "projection" "string mapname" "slide.pfm" "float fov" 30
+        "rgb I" [ 5 5 4 ]
+  AttributeEnd
+AttributeEnd
+LightSource "distant" "point from" [ 0 0 0 ] "point to" [ 0.3 -0.5 1 ]
+    "rgb L" [ 1.2 1.2 1.1 ]
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string mapname" "env.pfm" "rgb L" [ 0.5 0.5 0.5 ]
+AttributeEnd
+WorldEnd
+"""
+LIT_FOG_PBRT_LIGHTS = ("spot", "goniometric", "projection", "distant",
+                       "infinite")
+# the same five in torch_parity.lit_fog_box's names
+LIT_FOG_KINDS = ("spot", "goniometric", "projection", "distant", "envmap")
+LIT_FOG_MAPS = dict(env=(128, 256), gonio=(32, 64), slide=(64, 64))
+LIGHT_LANES = 1 << 20
+# the s/iter of three matte scenes before the other lights were ported
+# (PERF.md; NVIDIA H100 80GB HBM3, 700 W), beside this run's
+MATTE_S_PER_ITER_BEFORE = dict(cli_config2=0.2297, vsppm_golden=0.3054,
+                       config1_compat=0.7189)
+
+
+def write_light_maps(directory, seed=35):
+    """Seeded PFMs beside the scene: an equirectangular sky with a sun
+    patch (128x256), a goniometric map (32x64) and a slide (64x64)."""
+    rs = np.random.RandomState(seed)
+    h, w = LIT_FOG_MAPS["env"]
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    sun = np.exp(-((yy - 0.25 * h) ** 2 + (xx - 0.6 * w) ** 2) / (0.002 * h
+                                                                  * w))
+    sky = (0.2 + 0.1 * rs.rand(h, w, 3) + 20.0 * sun[..., None]
+           * np.array([1.0, 0.9, 0.7]))
+    maps = dict(env=sky, gonio=0.2 + rs.rand(*LIT_FOG_MAPS["gonio"], 3),
+                slide=0.1 + rs.rand(*LIT_FOG_MAPS["slide"], 3))
+    for name, img in maps.items():
+        IMG.write_pfm(os.path.join(directory, f"{name}.pfm"),
+                      img.astype(np.float32))
+
+
+def lit_fog_parsed(directory, dev, size, iters=16, photons=65536):
+    """The lit fog box's text written beside its maps and parsed on dev:
+    (path of the .pbrt, ParsedScene)."""
+    path = os.path.join(directory, f"lit_fog_{size}.pbrt")
+    with open(path, "w") as f:
+        f.write(LIT_FOG_PBRT.format(size=size, iters=iters, photons=photons))
+    return path, PARSER.parse_file(path, device=dev)
+
+
+def _images_agree(card, host, what):
+    """Card against CPU: finite, means within 1e-3, 99% of the pixels
+    within rtol 1e-3 (atol 1e-6).  Returns (rel mean, close share)."""
+    card, host = card.float().cpu(), host.float().cpu()
+    if not (bool(torch.isfinite(card).all()) and float(host.mean()) > 0):
+        raise AssertionError(f"{what}: non-finite or dark image")
+    rel = float(card.mean() / host.mean() - 1.0)
+    close = float(np.isclose(card.numpy(), host.numpy(), rtol=1e-3,
+                             atol=1e-6).all(-1).mean())
+    if abs(rel) >= 1e-3 or close < 0.99:
+        raise AssertionError(f"{what}: card against CPU, mean {rel:+.2e}, "
+                             f"{close:.4f} of the pixels close")
+    return rel, close
+
+
+def lights_card_vs_cpu(dev, n):
+    """sample_le, sample_li and pdf_le of every light type (tests/
+    torch_parity.lights_scene with all of LIGHT_KINDS) at n lanes, card
+    against CPU on the same inputs (pdf_le at the CPU's emitted rays):
+    rtol 1e-5 with an atol of 1e-5 x each field's largest magnitude, ids
+    exact; as in tests/test_torch_lights.py, a sample taken through a
+    square root near a hemisphere's rim (cosine c to its light's normal)
+    adds 1e-7 / c to its direction's tolerance and 1e-7 / c^2 to its
+    density's relative one.  Returns (worst |d| / tolerance, lanes with
+    c < 1e-2, seconds)."""
+    from torch_parity import lights_scene
+    from bre_tpu_torch import lights as TL
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(35)
+    devs = (dev, torch.device("cpu"))
+    scenes = [lights_scene(SceneBuilder(), device=d) for d in devs]
+    li = torch.from_numpy(rs.randint(0, scenes[1].n_lights, n))
+    u1, u2 = (torch.from_numpy(rs.rand(n, 2).astype(np.float32))
+              for _ in range(2))
+    p = torch.from_numpy(rs.uniform([-0.9, -0.9, 0.1], [0.9, 0.9, 1.9],
+                                    (n, 3)).astype(np.float32))
+    outs = []
+    for d, sc in zip(devs, scenes):
+        le = TL.sample_le(sc, li.to(d), u1.to(d), u2.to(d))
+        ls = TL.sample_li(sc, li.to(d), p.to(d), u1.to(d))
+        outs.append(dict(
+            **{f"sample_le.{k}": v.cpu() for k, v in le._asdict().items()},
+            **{f"sample_li.{k}": v.cpu() for k, v in ls._asdict().items()}))
+    host = outs[1]
+    for d, sc, out in zip(devs, scenes, outs):
+        pe = TL.pdf_le(sc, li.to(d), host["sample_le.n_light"].to(d),
+                       host["sample_le.d"].to(d))
+        out["pdf_le.pdf_pos"], out["pdf_le.pdf_dir"] = pe[0].cpu(), pe[1].cpu()
+    cos_e = (host["sample_le.n_light"] * host["sample_le.d"]).sum(-1).abs()
+    cos_i = (host["sample_li.n_light"] * host["sample_li.wi"]).sum(-1).abs()
+    rim = {"sample_le": torch.clamp_min(cos_e, 1e-12),
+           "sample_li": torch.clamp_min(cos_i, 1e-12)}
+    worst = 0.0
+    for name, a in outs[0].items():
+        b = host[name]
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: card and CPU differ")
+            continue
+        tol = 1e-5 * b.abs() + 1e-5 * float(b.abs().max())
+        c = rim.get(name.split(".")[0])
+        if c is not None and name.endswith(("pdf", "pdf_dir")):
+            tol = tol + 1e-7 / c ** 2 * b.abs()
+        elif c is not None and b.dim() == 2:
+            tol = tol + (1e-7 / c)[:, None]
+        ratio = float(((a - b).abs() / torch.clamp_min(tol, 1e-30)).max())
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"{name}: card against CPU off by {ratio:.2f}"
+                                 " of its tolerance")
+    n_rim = int((cos_e < 1e-2).sum() + (cos_i < 1e-2).sum())
+    return worst, n_rim, time.perf_counter() - t0
+
+
+def phase_other_lights(dev, card, report):
+    """35. The spot, goniometric, projection, distant and image-mapped
+    infinite lights; see the module docstring."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_parity import lit_fog_box
+    from bre_tpu_torch.integrators import mlt as ML
+    from bre_tpu_torch.integrators.bdpt import BDPTConfig, render_bdpt
+    from bre_tpu_torch.integrators.photonmap import (PhotonMapConfig,
+                                                     render_photonmap)
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+    from bre_tpu_torch.integrators.vsppm import VSPPMConfig, render_vsppm
+    from bre_tpu_torch.lights import light_choice_pmf
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_light_maps(tmp)
+        # (a) the lit fog box at config 2's width through cli.main
+        path, ps = lit_fog_parsed(tmp, dev, 256)
+        cfg = CLI.photonbeam_config(ps)
+        pmf = light_choice_pmf(ps.build(device=dev)).cpu().tolist()
+        pfm = os.path.join(tmp, "lit_fog.pfm")
+        buf = io.StringIO()
+        reset_launches()
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(buf):
+            rc, wall = _timed(lambda: CLI.main([path, "-o", pfm]))
+        counts, routes = launches(FWD_KERNELS), route_calls()
+        if rc != 0:
+            raise AssertionError(f"cli on the lit fog box returned {rc}: "
+                                 f"{buf.getvalue()}")
+        img = torch.from_numpy(IMG.read_pfm(pfm))
+        mean = check_image(img, 256, "the lit fog box through cli.main")
+        iters = cfg.iterations
+        log(f"[lights] (a) cli.main on the lit fog box (cornell_fog.pbrt's "
+            f"box and fog; spot, goniometric 32x64, projection 64x64, "
+            f"distant, infinite 128x256): 256x256, {iters} iterations x "
+            f"{cfg.photonsperiteration} photons, maxdepth {cfg.maxdepth}, "
+            f"radius {cfg.initialbeamradius}: wall {wall:.3f} s "
+            f"({wall / iters:.4f} s/iter, parse, build and PFM write "
+            f"included); pick pmf "
+            f"{dict(zip(LIT_FOG_PBRT_LIGHTS, [round(x, 4) for x in pmf]))}; "
+            f"image "
+            f"mean {mean:.6f}; launches {counts}; route calls {routes}; "
+            f"statistics {_cli_stats(buf.getvalue())} ({card})")
+        if counts["gather_forward"] <= 0:
+            raise AssertionError(f"the lit fog box: row 1 did not launch "
+                                 f"{counts}")
+        out["cli"] = dict(wall_s=wall, s_per_iter=wall / iters,
+                          image_mean=mean, pick_pmf=pmf, launches=counts,
+                          route_calls=routes)
+        # (b) the lit fog box at 32x32 with the fog behind a null-material
+        # boundary (torch_parity.lit_fog_box, cornell_fog's builder scene
+        # with the same five lights): the camera rays enter the fog, so the
+        # packed route's full-film sweeps take row 2 at the grid cap (from
+        # the .pbrt's vacuum camera no sweep passes the R/4 budget).  Card
+        # against CPU on both routes
+        W = 32
+        pcfg = PB.PhotonBeamConfig(iterations=2, maxdepth=5,
+                                   photonsperiteration=4096,
+                                   initialbeamradius=0.15, alpha=0.7)
+        sc = {d: lit_fog_box(SceneBuilder(), LIT_FOG_KINDS, device=d)
+              for d in (dev, cpu)}
+        cams = {d: cornell_camera(d, W) for d in (dev, cpu)}
+        grid = -(-4096 * 7 // BG.CHUNK) * (W * W // BG.TILE)
+        routes_b = dict(default=dict(), packed=dict(
+            grad_geometry=False, gather_sparse_cap=grid))
+        out["routes"] = {}
+        for route, over in routes_b.items():
+            imgs = []  # card, CPU: (image, s, launches)
+            for d in (dev, cpu):
+                reset_launches()
+                (img_d, _), t = _timed(lambda: PB.render_photonbeam(
+                    sc[d], cams[d], W, W, dataclasses.replace(pcfg, **over)))
+                imgs.append((img_d, t, launches(FWD_KERNELS)))
+            rel, close = _images_agree(imgs[0][0], imgs[1][0],
+                                       f"photonbeam {route} route")
+            n_card = imgs[0][2]
+            log(f"[lights] (b) lit_fog_box {W}x{W} x 2 iterations x 4096 "
+                f"photons, the "
+                f"{route} route: card {imgs[0][1]:.3f} s, CPU "
+                f"{imgs[1][1]:.3f} s; means {rel:+.2e} apart, {close:.4f}"
+                f" of the pixels within rtol 1e-3; card launches {n_card}")
+            # row 1 on the default route; row 2 on the packed one, whose
+            # sweeps all reach the full film here
+            row = "gather_sparse" if route == "packed" else "gather_forward"
+            if n_card[row] <= 0:
+                raise AssertionError(f"{route} route: {row} did not launch "
+                                     f"{n_card}")
+            out["routes"][route] = dict(rel_mean=rel, close=close,
+                                        launches=n_card)
+        # (d) the other integrators at 32x32 on that scene
+        runs = {
+            "volpath": lambda s, c: render_volpath(s, c, W, W, VolPathConfig(
+                maxdepth=5, spp=2, nee_mis=True,
+                lightsamplestrategy="spatial")),
+            "bdpt": lambda s, c: render_bdpt(s, c, W, W, BDPTConfig(
+                maxdepth=3, spp=2)),
+            "vsppm": lambda s, c: render_vsppm(s, c, W, W, VSPPMConfig(
+                iterations=2, maxdepth=5, photonsperiteration=8192,
+                radius=0.15))[0],
+            "photonmap": lambda s, c: render_photonmap(s, c, W, W,
+                                                       PhotonMapConfig(
+                nphotons=10_000, spp=1, march_steps=8))[0]}
+        out["integrators"] = {}
+        for name, run in runs.items():
+            (card_img, t_card), (host_img, t_host) = (
+                _timed(lambda: run(sc[d], cams[d])) for d in (dev, cpu))
+            rel, close = _images_agree(card_img, host_img, name)
+            log(f"[lights] (d) {name} {W}x{W}: card {t_card:.3f} s, CPU "
+                f"{t_host:.3f} s; means {rel:+.2e} apart, {close:.4f} of the "
+                f"pixels within rtol 1e-3 ({card})")
+            out["integrators"][name] = dict(card_s=t_card, cpu_s=t_host,
+                                            rel_mean=rel, close=close)
+        mcfg = ML.MLTConfig(maxdepth=3, bootstrapsamples=256, chains=128,
+                            mutationsperpixel=1)
+        graphed, t_g = _timed(lambda: ML.render_mlt(sc[dev], cams[dev], W, W,
+                                                    mcfg))
+        saved = ML._step_evaluator
+        ML._step_evaluator = (lambda scene, camera, w, h, depth, maxdepth,
+                              pmf_, n_dims: lambda u, rng: ML._evaluate(
+                                  scene, camera, w, h, u, depth, rng,
+                                  maxdepth, pmf_))
+        try:
+            eager, t_e = _timed(lambda: ML.render_mlt(sc[dev], cams[dev], W,
+                                                      W, mcfg))
+        finally:
+            ML._step_evaluator = saved
+        same = bool(torch.equal(graphed.cpu(), eager.cpu()))
+        log(f"[lights] (d) mlt {W}x{W}, 128 chains, 1 mutation per pixel: "
+            f"graphed chain step {t_g:.3f} s, eager {t_e:.3f} s, bit for bit "
+            f"{same}, mean {float(graphed.mean()):.5f} ({card})")
+        if not (same and float(graphed.mean()) > 0):
+            raise AssertionError("mlt on the lit fog box: the graphed chain "
+                                 "step differs from the eager one")
+        out["mlt"] = dict(graphed_s=t_g, eager_s=t_e, same=same)
+    # (c) every light type's queries at 2^20 lanes
+    worst, n_rim, t_c = lights_card_vs_cpu(dev, LIGHT_LANES)
+    log(f"[lights] (c) sample_le, sample_li and pdf_le of every light type "
+        f"at 2^20 lanes, card against CPU: worst lane at {worst:.3f} of its "
+        f"tolerance (rtol 1e-5 + atol 1e-5 x max; {n_rim} lanes within 1e-2 "
+        f"of a hemisphere's rim); {t_c:.3f} s")
+    out["queries"] = dict(worst=worst, rim_lanes=n_rim, s=t_c)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lights] phase 35 took {out['phase_s']:.2f} s")
+    if not all(k in report for k in ("cli", "photon_mapping",
+                                     "compat_volpath")):
+        return out  # run alone: no matte scene was timed
+    # the matte scenes' s/iter beside PERF.md's from before these lights
+    now = dict(cli_config2=report["cli"]["config2"]["s_per_iter"],
+               vsppm_golden=report["photon_mapping"]["cli_golden"]
+               ["s_per_iter"],
+               config1_compat=report["compat_volpath"]["config1"]
+               ["s_per_iter"])
+    out["matte_s_per_iter"] = {k: dict(now=v,
+                                       before=MATTE_S_PER_ITER_BEFORE[k],
+                                       ratio=v / MATTE_S_PER_ITER_BEFORE[k])
+                               for k, v in now.items()}
+    log(f"[lights] s/iter of the CLI's config 2, the vsppm golden and config"
+        f" 1 compat: {[round(v, 4) for v in now.values()]} against "
+        f"{list(MATTE_S_PER_ITER_BEFORE.values())} before these lights "
+        f"({[f'{v / MATTE_S_PER_ITER_BEFORE[k]:.3f}' for k, v in now.items()]}"
+        f"x) ({card})")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -3745,6 +4125,7 @@ def main():
     report["bidirectional"] = phase_bidirectional(dev, report["card"])
     report["sparse_regime"] = phase_sparse_regime(dev, kernels)
     report["surface_materials"] = phase_surface_materials(dev, report["card"])
+    report["other_lights"] = phase_other_lights(dev, report["card"], report)
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -3778,6 +4159,10 @@ def main():
         if k["name"] == "gather_forward_het":
             k["launches_cli"] = report["cli"]["config3"]["launches"][
                 "gather_forward_het"]
+        # row 1 launched by cli.main on the lit fog box (phase 35 (a))
+        if k["name"] == "gather_forward":
+            k["launches_lit_fog_cli"] = report["other_lights"]["cli"][
+                "launches"]["gather_forward"]
     report["kernels"] = kernels
     report["command_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3789,6 +4174,7 @@ def main():
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
         for key in ("err_over_max_ref", "launches_non_packed", "launches_cli",
+                    "launches_lit_fog_cli",
                     "n_splits", "blocks", "beam_blocks", "regime"):
             if key in kk:
                 row[key] = kk[key]

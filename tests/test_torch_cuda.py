@@ -203,7 +203,7 @@ def test_sparse_kernels_in_the_sparse_regime(dev, het, want_extras):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-def _cornell(dev):
+def _cornell(dev, point_light=False):
     b = SceneBuilder()
     fog = b.homogeneous_medium((0.02,) * 3, (0.35,) * 3, g=0.0)
     white = b.matte((0.73, 0.73, 0.73))
@@ -214,6 +214,8 @@ def _cornell(dev):
     b.area_light_quad((-0.3, 0.98, 0.7), (0.3, 0.98, 0.7),
                       (0.3, 0.98, 1.3), (-0.3, 0.98, 1.3),
                       (6.0, 5.5, 4.5), medium=fog)
+    if point_light:  # a second light: a point light in the fog
+        b.point_light((0.2, -0.4, 1.1), (0.8, 0.9, 1.0), medium=fog)
     return b.build(device=dev)
 
 
@@ -760,14 +762,7 @@ def test_photonmap_and_spatial_volpath_on_card_match_cpu(dev):
         cam = make_perspective_camera(
             tfm.look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)), 50.0, W, W,
             device=d)
-        scene = _cornell(d)
-        L = scene.lights  # a second light: a point light in the fog
-        scene = scene._replace(lights=L._replace(**{
-            f: torch.cat([getattr(L, f), v.to(getattr(L, f))]) for f, v in
-            dict(ltype=torch.tensor([0]), position=torch.tensor(
-                [[0.2, -0.4, 1.1]]), emit=torch.tensor([[0.8, 0.9, 1.0]]),
-                shape_kind=torch.tensor([-1]), shape_index=torch.tensor([0]),
-                two_sided=torch.tensor([0]), medium=torch.tensor([0])).items()}))
+        scene = _cornell(d, point_light=True)
         vp.append(render_volpath(scene, cam, W, W, VolPathConfig(
             spp=4, sampler="halton", lightsamplestrategy="spatial")).cpu())
     assert pm[0][1] == pm[1][1]
@@ -853,3 +848,78 @@ def test_bdpt_and_mlt_on_card_match_cpu(dev, monkeypatch):
     for name in ("mlt", "mlt_fog"):
         build, render = runs[name]
         assert torch.equal(render(build(dev), cam).cpu(), cards[name]), name
+
+
+def test_other_lights_on_card_match_cpu(dev, monkeypatch):
+    """The spot, goniometric, projection, distant and image-mapped infinite
+    lights (torch_parity.lit_fog_box with all five) on the card against
+    the CPU, same seeds: sample_le, sample_li and pdf_le of every light at
+    2^16 lanes within rtol 1e-5 (atol 1e-5 x the largest magnitude); the
+    photon-beam render at 32x32 on both routes (the packed one with the
+    sparse cap at the block grid), volpath with MIS and bdpt at 16x16:
+    means within 1e-3, 99% of pixels within rtol 1e-3; MLT's CUDA-graph
+    chain step the bits of its eager steps."""
+    from torch_parity import lit_fog_box
+    from bre_tpu_torch import lights as TL
+    from bre_tpu_torch.integrators import mlt as ML
+    from bre_tpu_torch.integrators.bdpt import BDPTConfig, render_bdpt
+    from bre_tpu_torch.integrators.volpath import VolPathConfig, render_volpath
+
+    kinds = ("spot", "goniometric", "projection", "distant", "envmap")
+    devs = (dev, torch.device("cpu"))
+    scenes = [lit_fog_box(SceneBuilder(), kinds, device=d) for d in devs]
+    n = 1 << 16
+    rs = np.random.RandomState(31)
+    li = torch.from_numpy(rs.randint(0, scenes[1].n_lights, n))
+    u1, u2 = (torch.from_numpy(rs.rand(n, 2).astype(np.float32))
+              for _ in range(2))
+    p = torch.from_numpy(rs.uniform([-0.9, -0.9, 0.1], [0.9, 0.9, 1.9],
+                                    (n, 3)).astype(np.float32))
+    outs = []
+    for d, sc in zip(devs, scenes):
+        le = TL.sample_le(sc, li.to(d), u1.to(d), u2.to(d))
+        ls = TL.sample_li(sc, li.to(d), p.to(d), u1.to(d))
+        pe = TL.pdf_le(sc, li.to(d), le.n_light, le.d)
+        outs.append([x.cpu() for x in (*le[:6], *ls, *pe)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+    def cam(d, w):
+        return make_perspective_camera(
+            tfm.look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)), 50.0, w, w,
+            device=d)
+
+    runs = {"photonbeam": (32, lambda s, c, w: render_photonbeam(
+        s, c, w, w, PhotonBeamConfig(iterations=1, maxdepth=5,
+                                     photonsperiteration=4000,
+                                     initialbeamradius=0.15))[0]),
+        "photonbeam_packed": (32, lambda s, c, w: render_photonbeam(
+            s, c, w, w, PhotonBeamConfig(
+                iterations=1, maxdepth=5, photonsperiteration=4000,
+                initialbeamradius=0.15, grad_geometry=False,
+                gather_sparse_cap=-(-4000 * 7 // BG.CHUNK)
+                * (w * w // BG.TILE)))[0]),
+        "volpath": (16, lambda s, c, w: render_volpath(
+            s, c, w, w, VolPathConfig(maxdepth=5, spp=4, nee_mis=True,
+                                      lightsamplestrategy="spatial"))),
+        "bdpt": (16, lambda s, c, w: render_bdpt(
+            s, c, w, w, BDPTConfig(maxdepth=3, spp=4)))}
+    for name, (w, render) in runs.items():
+        card, host = (render(sc, cam(d, w), w).cpu()
+                      for d, sc in zip(devs, scenes))
+        assert bool(torch.isfinite(card).all()) and float(host.mean()) > 0
+        assert float((card.mean() / host.mean() - 1).abs()) < 1e-3, name
+        _pixels_close(card, host)
+
+    mcfg = ML.MLTConfig(maxdepth=3, bootstrapsamples=256, chains=32,
+                        mutationsperpixel=2)
+    graphed = ML.render_mlt(scenes[0], cam(dev, 16), 16, 16, mcfg).cpu()
+
+    def eager_steps(scene, camera, w, h, depth, maxdepth, pmf, n_dims):
+        return lambda u, rng: ML._evaluate(scene, camera, w, h, u, depth,
+                                           rng, maxdepth, pmf)
+
+    monkeypatch.setattr(ML, "_step_evaluator", eager_steps)
+    eager = ML.render_mlt(scenes[0], cam(dev, 16), 16, 16, mcfg).cpu()
+    assert float(graphed.mean()) > 0 and torch.equal(graphed, eager)

@@ -6,8 +6,10 @@ file and on synthetic strings for each construct (every material and
 texture class among them), ``parse_*(...).build(device="cpu")`` equals
 ``scene_from_jax(reference.build())``.  Every construct the reference
 builds and the port cannot render (hair, subsurface, kdsubsurface, fourier,
-a mix of mixes, the lights, shapes and cameras of ROADMAP Queue 1 items
-5.4-5.7) raises NotImplementedError naming its ROADMAP item.
+a mix of mixes, the shapes and cameras of ROADMAP Queue 1 items 5.5-5.7)
+raises NotImplementedError naming its ROADMAP item; the distant, infinite,
+spot, goniometric and projection LightSource statements build as the
+reference's.
 
 Tolerances: scene tensors compare with ``torch.equal`` (dtype, shape and
 bits: the CTM and every transformed point are computed with the
@@ -416,8 +418,6 @@ NOT_PORTED = {
         '"string namedmaterial1" "a" "string namedmaterial2" "a"\n'
         'Material "mix" "string namedmaterial1" "a" '
         '"string namedmaterial2" "b"\n'),
-    **{f"light {lt}": f'LightSource "{lt}"\n' for lt in (
-        "distant", "infinite", "spot", "goniometric", "projection")},
     **{f"shape {s}": f'Shape "{s}"\n' for s in (
         "disk", "cylinder", "cone", "paraboloid", "hyperboloid", "curve",
         "loopsubdiv", "nurbs")},
@@ -444,6 +444,55 @@ def test_surface_materials_parse_as_reference(case, tmp_path):
         if case == "texture imagemap":
             assert mine.build(device="cpu").textures.atlas.shape[0] > 1
     assert_parsed_equal(mine, ref)
+
+
+# the light sources that raised before the lights slice: each under a CTM
+# (a translation, a rotation and a scale), with "scale", a medium
+# interface, and a PFM map under "mapname" where the light reads one
+LIGHTS = {
+    "light distant": ('LightSource "distant" "point from" [ 0 1 0 ] '
+                      '"point to" [ 0.3 0 0.9 ] "rgb L" [ 1 0.9 0.8 ] '
+                      '"rgb scale" [ 2 2 2 ]\n'),
+    "light infinite": ('LightSource "infinite" "rgb L" [ 0.5 0.6 0.7 ] '
+                       '"string mapname" "env.pfm" "rgb scale" [ 1.5 1 1 ]\n'
+                       'LightSource "infinite" "rgb L" [ 0.1 0.1 0.1 ]\n'),
+    "light spot": ('LightSource "spot" "point from" [ 0 2 0 ] '
+                   '"point to" [ 0.2 0 0.5 ] "rgb I" [ 5 4 3 ] '
+                   '"float coneangle" 25 "float conedeltaangle" 8 '
+                   '"rgb scale" [ 0.5 0.5 0.5 ]\n'),
+    "light goniometric": ('LightSource "goniometric" "rgb I" [ 2 2 2 ] '
+                          '"string mapname" "gonio.pfm" '
+                          '"rgb scale" [ 1 2 3 ]\n'),
+    "light projection": ('LightSource "projection" "rgb I" [ 3 3 3 ] '
+                         '"string mapname" "slide.pfm" "float fov" 35 '
+                         '"rgb scale" [ 2 1 1 ]\n'),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIGHTS))
+def test_lights_parse_as_reference(case, tmp_path):
+    """What raised before the lights slice now builds bit for bit as the
+    reference's scene: "scale" multiplies I or L, from/to go through the
+    CTM, the infinite and goniometric lights take inv(CTM) as their
+    world-to-light, the projection light aims from CTM (0,0,0) to
+    CTM (0,0,1), and "mapname" reads a PFM beside the file."""
+    rs = np.random.RandomState(7)
+    for name, shape in (("env.pfm", (8, 16, 3)), ("gonio.pfm", (6, 12, 3)),
+                        ("slide.pfm", (8, 8, 3))):
+        write_pfm(tmp_path / name, (0.1 + rs.rand(*shape)).astype(np.float32))
+    text = (HEAD + "WorldBegin\n"
+            'MakeNamedMedium "fog" "string type" "homogeneous"\n'
+            "AttributeBegin\n"
+            'MediumInterface "" "fog"\n'
+            "Translate 0.5 1.5 -0.25\nRotate 35 0.2 1 0.4\nScale 1 1.5 1\n"
+            + LIGHTS[case] + "AttributeEnd\n" + MESH + "WorldEnd\n")
+    mine, ref = (tparser.parse_string(text, tmp_path, device="cpu"),
+                 jparser.parse_string(text, tmp_path))
+    assert_parsed_equal(mine, ref)
+    lights = mine.build(device="cpu").lights
+    assert lights.ltype.shape[0] >= 1
+    if "mapname" in LIGHTS[case]:
+        assert int(lights.img_off[0]) == 0 and lights.atlas.shape[0] > 1
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))

@@ -2,8 +2,10 @@
 the SampledSpectrum tables and functions (``core/sampled_spectrum``), the
 lift and white balance of the band-sliced render, ``slice_scene``'s fields
 (on a plastic and mix scene too: ks lifted, the lifted mix amounts
-clipped to [0, 1]), and one ``render_volpath_spectral`` at 4x4, 2 samples per pixel, maxdepth
-2 on tests/test_spectral.py's gray fog scene.
+clipped to [0, 1]; on image-mapped lights: their image means lifted, the
+light atlas left RGB), and one ``render_volpath_spectral`` at 4x4, 2
+samples per pixel, maxdepth 2 on tests/test_spectral.py's gray fog
+scene.
 
 bre_tpu's ``render_volpath_spectral`` compiles its volpath pass once per
 slice (the pass closes over the slice's scene): 20 compiles, about 125 s
@@ -163,6 +165,29 @@ def test_slice_scene_lifts_ks_and_mix_amount(k):
     for field in ("eta", "roughness", "metal_eta", "metal_k", "mix_m1"):
         assert torch.equal(getattr(mine.materials, field),
                            getattr(ts.materials, field)), field
+
+
+@pytest.mark.parametrize("k", [0, 10, 19])
+def test_slice_scene_lifts_img_mean(k):
+    """The reference lifts each light's image mean (spectral.py:107-110),
+    which Power() reads, and leaves the light atlas RGB, on an env map and
+    a goniometric and a projection light."""
+    from torch_parity import lights_scene
+
+    kinds = ("envmap", "goniometric", "projection", "point")
+    js = lights_scene(JBuilder(), kinds)
+    ts = lights_scene(SceneBuilder(), kinds, device="cpu")
+    ref = scene_from_jax(jsp.slice_scene(js, k), device="cpu")
+    mine = tsp.slice_scene(ts, k)
+    for field in ("emit", "img_mean"):
+        np.testing.assert_allclose(to_np(getattr(mine.lights, field)),
+                                   to_np(getattr(ref.lights, field)),
+                                   rtol=1e-6, atol=1e-7, err_msg=field)
+    assert not torch.equal(mine.lights.img_mean, ts.lights.img_mean)
+    assert (to_np(mine.lights.img_mean) >= 0).all()
+    for field in ("atlas", "env_func", "env_cond_cdf", "img_off"):
+        assert torch.equal(getattr(mine.lights, field),
+                           getattr(ts.lights, field)), field
 
 
 def test_render_volpath_spectral_matches_jax():

@@ -170,3 +170,122 @@ def image_scene(b, **build_kw):
     b.sphere((1.0, 0.3, 4.5), 0.7, material=b.matte(kd_tex=b.tex_uv()))
     b.point_light((0, 2, 0), (40, 40, 40))
     return b.build(**build_kw)
+
+
+# the light kinds of the light tests: each of the seven types, the infinite
+# light both constant and image-mapped
+LIGHT_KINDS = ("point", "spot", "area", "sphere", "distant", "infinite",
+               "envmap", "goniometric", "projection")
+
+
+def _rot(deg, axis):
+    """A 4x4 rotation about a unit axis (Rodrigues), float32."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    t = np.deg2rad(deg)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    m = np.eye(4)
+    m[:3, :3] = np.eye(3) + np.sin(t) * k + (1 - np.cos(t)) * (k @ k)
+    return m.astype(np.float32)
+
+
+def light_images(seed=0, env=(16, 32), gonio=(8, 16), slide=(8, 8)):
+    """Seeded positive RGB images: an equirectangular env map (a bright
+    patch on a dim sky), a goniometric map and a projector slide."""
+    rs = np.random.RandomState(seed)
+    h, w = env
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    patch = np.exp(-((yy - 0.3 * h) ** 2 / (0.02 * h * h)
+                     + (xx - 0.6 * w) ** 2 / (0.02 * w * w)))
+    env_img = (0.1 + 0.2 * rs.rand(h, w, 3)
+               + 4.0 * patch[..., None] * np.array([1.0, 0.9, 0.7]))
+    return (env_img.astype(np.float32),
+            (0.2 + rs.rand(*gonio, 3)).astype(np.float32),
+            (0.1 + rs.rand(*slide, 3)).astype(np.float32))
+
+
+def add_lights(b, kinds, images, medium=-1):
+    """One light of each of ``kinds`` (LIGHT_KINDS) on either package's
+    SceneBuilder, about a box [-1,1] x [-1,1] x [0,2] whose front z=0 is
+    open; area lights are one-sided quads and spheres of matte."""
+    env, gonio, slide = images
+    for k in kinds:
+        if k == "point":
+            b.point_light((0.3, 0.6, 0.8), (1.0, 0.9, 0.8), medium=medium)
+        elif k == "spot":
+            b.spot_light((0.0, 0.95, 1.0), (0.1, -1.0, 1.2), (6.0, 5.5, 5.0),
+                         coneangle=35.0, conedeltaangle=10.0, medium=medium)
+        elif k == "area":
+            b.area_light_quad((-0.3, 0.98, 0.7), (0.3, 0.98, 0.7),
+                              (0.3, 0.98, 1.3), (-0.3, 0.98, 1.3),
+                              (4.0, 3.5, 3.0), medium=medium)
+        elif k == "sphere":
+            b.area_light_sphere((-0.6, -0.7, 1.5), 0.2, (2.0, 2.5, 3.0),
+                                material=b.matte((0.5, 0.5, 0.5)),
+                                medium=medium)
+        elif k == "distant":
+            b.distant_light((0.25, -0.35, 1.0), (0.9, 0.95, 1.0))
+        elif k == "infinite":
+            b.infinite_light((0.05, 0.06, 0.08))
+        elif k == "envmap":
+            b.infinite_light((0.8, 0.8, 0.8), image=env,
+                             world_to_light=_rot(30.0, (1.0, 2.0, 0.5)))
+        elif k == "goniometric":
+            b.goniometric_light((-0.4, 0.7, 1.6), (0.8, 0.7, 0.9),
+                                image=gonio,
+                                world_to_light=_rot(-40.0, (0.3, 1.0, 0.2)),
+                                medium=medium)
+        elif k == "projection":
+            b.projection_light((0.5, 0.8, 0.3), (5.0, 5.0, 4.0), image=slide,
+                               fov=40.0, target=(-0.2, -1.0, 1.4),
+                               medium=medium)
+        else:
+            raise ValueError(k)
+
+
+def lights_scene(b, kinds=LIGHT_KINDS, seed=0, **build_kw):
+    """A matte floor, back and side walls and ``kinds`` of light
+    (add_lights), in vacuum, on either package's SceneBuilder."""
+    m = b.matte((0.6, 0.55, 0.5))
+    b.quad((-1, -1, 0), (1, -1, 0), (1, -1, 2), (-1, -1, 2), material=m)
+    b.quad((-1, -1, 2), (-1, 1, 2), (1, 1, 2), (1, -1, 2), material=m)
+    b.quad((-1, -1, 0), (-1, -1, 2), (-1, 1, 2), (-1, 1, 0),
+           material=b.matte((0.63, 0.065, 0.05)))
+    add_lights(b, kinds, light_images(seed))
+    return b.build(**build_kw)
+
+
+LIT_FOG_LIGHTS = ("spot", "distant", "envmap")
+
+
+def lit_fog_box(b, kinds=LIT_FOG_LIGHTS, seed=0, **build_kw):
+    """cornell_fog's box and fog lit by ``kinds`` of light (add_lights) in
+    place of its ceiling area light, on either package's SceneBuilder;
+    the distant and infinite lights reach in through the open front.
+    Camera: cornell_fog's, look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)),
+    fov 50."""
+    fog = b.homogeneous_medium((0.02,) * 3, (0.35,) * 3, g=0.0)
+    white = b.matte((0.73, 0.73, 0.73))
+    red = b.matte((0.63, 0.065, 0.05))
+    green = b.matte((0.14, 0.45, 0.09))
+    b.box((-1, -1, 0), (1, 1, 2), material=-1, medium_inside=fog,
+          medium_outside=-1)
+    b.quad((-1, -1, 2), (-1, 1, 2), (1, 1, 2), (1, -1, 2), material=white)
+    b.quad((-1, -1, 0), (-1, -1, 2), (-1, 1, 2), (-1, 1, 0), material=red)
+    b.quad((1, -1, 0), (1, 1, 0), (1, 1, 2), (1, -1, 2), material=green)
+    b.quad((-1, -1, 0), (1, -1, 0), (1, -1, 2), (-1, -1, 2), material=white)
+    b.quad((-1, 1, 0), (-1, 1, 2), (1, 1, 2), (1, 1, 0), material=white)
+    add_lights(b, kinds, light_images(seed), medium=fog)
+    return b.build(**build_kw)
+
+
+ENV_SPHERE_LOOK = ((0.3, 0.4, -3.0), (0, 0, 0), (0, 1, 0))  # fov 60
+
+
+def env_sphere(b, kinds=("distant", "envmap"), seed=0, **build_kw):
+    """A matte sphere of radius 1 at the origin under ``kinds`` of light
+    (add_lights), in vacuum, on either package's SceneBuilder; from
+    ENV_SPHERE_LOOK the film's corners see the env map past it."""
+    b.sphere((0, 0, 0), 1.0, material=b.matte((0.6, 0.55, 0.5)))
+    add_lights(b, kinds, light_images(seed))
+    return b.build(**build_kw)
