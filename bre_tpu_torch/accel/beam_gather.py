@@ -989,3 +989,149 @@ def gather_beams_bruteforce(beams, media: Media, seg_a0, seg_a1, seg_dir,
 
 gather_beams_bruteforce.calls = 0
 gather_beams_packed.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The LBVH-culled tile gather (gather="lbvh", beam_gather.py:1325-1504)
+# ---------------------------------------------------------------------------
+
+class _TileCfg(NamedTuple):
+    kernel: int
+    tile: int
+    n_tiles: int
+    power_scale: float
+    min_sin: float
+
+
+def _seg_slice(seg: dict, ti: int, tile: int) -> dict:
+    """Tile ti's rows of the per-ray fields (the scalars whole)."""
+    return _seg_rows(seg, ti * tile, (ti + 1) * tile)
+
+
+def _tile_cb(pb: dict, cand_t: torch.Tensor) -> dict:
+    """The candidate beams of one tile, (K, ...) each; the -1 padding reads
+    beam 0 with its validity zeroed."""
+    cb = {k: v[cand_t.clamp_min(0)] for k, v in pb.items()}
+    cb["valid_f"] = cb["valid_f"] * (cand_t >= 0).to(torch.float32)
+    return cb
+
+
+def _tile_contrib(cfg: _TileCfg, cb: dict, seg_t: dict) -> torch.Tensor:
+    return _chunk_contrib(cb, seg_t, cfg.kernel, cfg.power_scale,
+                          cfg.min_sin)
+
+
+class _GatherTilesCore(torch.autograd.Function):
+    """The reference's ``_gather_tiles_core`` custom VJP: per ray tile, the
+    dense tile x K contribution of its candidate beams; the backward
+    recomputes one tile at a time under autograd (one tile's pairwise
+    intermediates live at once), adds the beam cotangents into the rows of
+    the tile's candidates (distinct ids within a tile, tiles in order) and
+    the segment cotangents into the tile's rows.  The candidate ids are
+    structure: they get no cotangent."""
+
+    @staticmethod
+    def forward(ctx, cfg, pb_keys, seg_keys, cand, *tensors):
+        pb = dict(zip(pb_keys, tensors[:len(pb_keys)]))
+        seg = dict(zip(seg_keys, tensors[len(pb_keys):]))
+        ctx.cfg, ctx.keys = cfg, (pb_keys, seg_keys)
+        ctx.save_for_backward(cand, *tensors)
+        return torch.cat([
+            _tile_contrib(cfg, _tile_cb(pb, cand[ti]),
+                          _seg_slice(seg, ti, cfg.tile))
+            for ti in range(cfg.n_tiles)], 0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg, (pb_keys, seg_keys) = ctx.cfg, ctx.keys
+        cand, *tensors = ctx.saved_tensors
+        n_pb = len(pb_keys)
+        pb = dict(zip(pb_keys, tensors[:n_pb]))
+        seg = dict(zip(seg_keys, tensors[n_pb:]))
+        need = ctx.needs_input_grad[4:]
+        need_pb = dict(zip(pb_keys, need[:n_pb]))
+        need_seg = dict(zip(seg_keys, need[n_pb:]))
+        d_pb = {k: torch.zeros_like(v) if need_pb[k] else None
+                for k, v in pb.items()}
+        d_seg = {k: torch.zeros_like(v) if need_seg[k] else None
+                 for k, v in seg.items()}
+        ct = ct.contiguous()
+        for ti in range(cfg.n_tiles):
+            cand_t = cand[ti]
+            lo, hi = ti * cfg.tile, (ti + 1) * cfg.tile
+            with torch.enable_grad():
+                cb = {k: v.detach().requires_grad_(need_pb[k])
+                      for k, v in _tile_cb(pb, cand_t).items()}
+                sp = {k: v.detach().requires_grad_(need_seg[k])
+                      for k, v in _seg_slice(seg, ti, cfg.tile).items()}
+                out = _tile_contrib(cfg, cb, sp)
+                if not out.requires_grad:
+                    continue
+                leaves = ([("pb", k, v) for k, v in cb.items() if need_pb[k]]
+                          + [("seg", k, v) for k, v in sp.items()
+                             if need_seg[k]])
+                grads = torch.autograd.grad(out, [v for _, _, v in leaves],
+                                            ct[lo:hi], allow_unused=True)
+            live = cand_t >= 0
+            ids = cand_t[live]
+            for (side, k, _), g in zip(leaves, grads):
+                if g is None:
+                    continue
+                if side == "pb":
+                    d_pb[k].index_add_(0, ids, g[live])
+                elif k in _SEG_SCALARS:
+                    d_seg[k] += g
+                else:
+                    d_seg[k][lo:hi] += g
+        grads = [d_pb[k] for k in pb_keys] + [d_seg[k] for k in seg_keys]
+        return (None, None, None, None, *grads)
+
+
+def gather_beams_lbvh(beams, bvh, tile_cand: torch.Tensor, media: Media,
+                      seg_a0, seg_a1, seg_dir, seg_medium, seg_tr_full,
+                      cam_radius, kernel: int = KERNEL_BRE, tile: int = 128,
+                      power_scale: float = 1.0,
+                      min_sin_theta: float = 0.05) -> torch.Tensor:
+    """The LBVH-culled gather (beam_gather.py:1415-1465): per ray tile,
+    only the beams whose inflated boxes meet the tile's segment bounds, the
+    (n_tiles, K) candidates of ``accel.lbvh.query_aabb_collect`` (-1
+    padded), through the dense tile x K ``_chunk_contrib``.  R must be a
+    multiple of ``tile`` (the caller pads).  ``bvh`` is the caller's tree,
+    unused here as in the reference.  Returns (R, 3), differentiable in the
+    beams and the segments as ``_GatherTilesCore`` says."""
+    R = seg_a0.shape[0]
+    n_tiles, _ = tile_cand.shape
+    if R != n_tiles * tile:
+        raise ValueError(f"{R} segments are not {n_tiles} tiles of {tile}")
+    pb = dict(start=beams.start, end=beams.end,
+              power_start=beams.power_start, power_end=beams.power_end,
+              radius=beams.radius, valid_f=beams.valid.to(torch.float32))
+    _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
+    seg = dict(a0=seg_a0, a1=seg_a1, dir=seg_dir,
+               len=_max(length(seg_a1 - seg_a0), 1e-30),
+               tr_full=seg_tr_full, sigma_s=sigma_s_seg, g=g_seg,
+               in_med_f=seg_in_med.to(torch.float32),
+               cam_radius=torch.as_tensor(cam_radius, dtype=torch.float32,
+                                          device=seg_a0.device).reshape(()))
+    cfg = _TileCfg(int(kernel), int(tile), int(n_tiles), float(power_scale),
+                   float(min_sin_theta))
+    return _GatherTilesCore.apply(cfg, tuple(pb), tuple(seg),
+                                  tile_cand.detach(), *pb.values(),
+                                  *seg.values())
+
+
+def beam_aabbs(beams, extra_radius):
+    """Radius-inflated beam boxes (photonbeambvh.h:48-73), the camera blur
+    radius folded in so that the tile queries need no inflation."""
+    r = (beams.radius + extra_radius)[:, None]
+    return (torch.minimum(beams.start, beams.end) - r,
+            torch.maximum(beams.start, beams.end) + r)
+
+
+def tile_aabbs(seg_a0, seg_a1, tile: int):
+    """Each tile's bounds over its camera segments (R a multiple of tile)."""
+    n_tiles = seg_a0.shape[0] // tile
+    a0 = seg_a0.reshape(n_tiles, tile, 3)
+    a1 = seg_a1.reshape(n_tiles, tile, 3)
+    return (torch.minimum(a0.amin(1), a1.amin(1)),
+            torch.maximum(a0.amax(1), a1.amax(1)))

@@ -19,8 +19,9 @@ with the state, never recomputed), as in the reference.
 
 A chain step's evaluation is some 40,000 small kernels on a few hundred
 lanes (maxdepth 5), whose launches set the pace on a card.  There, for a
-scene without a grid medium (whose tracking reads a host flag every trip),
-the evaluation is captured once as a CUDA graph and replayed each step
+scene without a grid medium (whose tracking reads a host flag every trip)
+and without a tri-BVH (whose walk reads one every few trips), the
+evaluation is captured once as a CUDA graph and replayed each step
 (``_step_evaluator``); the kernels and their order are those of the eager
 evaluation.
 """
@@ -133,10 +134,17 @@ def _evaluate(scene: Scene, camera: Camera, width: int, height: int, u,
     return L, p_out
 
 
+def _capturable(scene: Scene) -> bool:
+    """Whether an evaluation can be one CUDA graph: not where a loop reads
+    the host to know when it is done, the grid media's tracking
+    (``media.py``) and the tri-BVH walk (``scene/intersect.py``)."""
+    return scene.media.density.numel() <= 1 and scene.tri_bvh is None
+
+
 def _step_evaluator(scene: Scene, camera: Camera, width: int, height: int,
                     depth, maxdepth: int, pmf, n_dims: int):
     """``f(u, rng) -> _evaluate(..., u, depth, rng, ...)`` for the chain
-    steps.  On a card and without a grid medium, one capture of the
+    steps.  On a card and where ``_capturable``, one capture of the
     evaluation on static buffers (after a warm-up on a side stream) that
     each call fills and replays; else the eager evaluation."""
     def run(u, rng):
@@ -144,7 +152,7 @@ def _step_evaluator(scene: Scene, camera: Camera, width: int, height: int,
                          maxdepth, pmf)
 
     dev = depth.device
-    if dev.type != "cuda" or scene.media.density.numel() > 1:
+    if dev.type != "cuda" or not _capturable(scene):
         return run
     C = depth.shape[0]
     u_in = torch.zeros((C, n_dims), dtype=torch.float32, device=dev)

@@ -25,8 +25,15 @@ plain chunk scan of ``gather_beams_bruteforce`` on every device (the
 reference keeps it dense XLA, photonbeam.py:181-182), a gather on every
 intersected segment, in a medium or not, the raw kernel sum added without
 the camera throughput, Russian roulette after boundary hops too, and
-``3 * maxdepth + 2`` camera steps.  ``gather="lbvh"`` raises
-NotImplementedError naming its ROADMAP item.
+``3 * maxdepth + 2`` camera steps.
+
+``gather="lbvh"`` (photonbeam.py:183-193, 255-275) builds an LBVH over the
+beams' radius-inflated boxes once per pass and, at each depth step, pads the
+segments to whole ``tile``s, collects each tile's candidate beams
+(``accel/lbvh.query_aabb_collect``, at most ``max_candidates``) and gathers
+them through ``gather_beams_lbvh``; the candidates past the cap, which the
+reference drops without a word, are counted in the pass's stats as
+``lbvh_overflow``.  In grid media it takes the chunk scan, as there.
 """
 
 from __future__ import annotations
@@ -38,10 +45,12 @@ import numpy as np
 import torch
 
 from ..accel.beam_gather import (CHUNK, KERNEL_BRE, KERNEL_COMPAT, TILE,
-                                 compact_beams, gather_beams_bruteforce,
+                                 beam_aabbs, compact_beams,
+                                 gather_beams_bruteforce, gather_beams_lbvh,
                                  gather_beams_packed, medium_interval_poly,
-                                 pack_beams_compact, permute_rows,
+                                 pack_beams_compact, permute_rows, tile_aabbs,
                                  validity_order)
+from ..accel.lbvh import build_lbvh, query_aabb_collect
 from ..checkpoint import load_checkpoint, save_checkpoint
 from ..core.math import absdot, dot, offset_ray_origin
 from ..core.rng import pcg32_init, pcg32_next_f32
@@ -79,7 +88,7 @@ class PhotonBeamConfig:
     gather_chunk: int = 2048
     # "auto" = "pallas": the kernels (packed with grad_geometry=False), or
     # for kernel="compat" "brute"; "brute": the plain chunk scan; "lbvh":
-    # not ported
+    # per ray tile, the candidate beams of an LBVH query
     gather: str = "auto"
     tile: int = 128  # gather="lbvh" only
     max_candidates: int = 4096  # gather="lbvh" only
@@ -99,11 +108,7 @@ class PhotonBeamConfig:
 def _check_config(cfg: PhotonBeamConfig) -> None:
     if cfg.kernel not in ("bre", "compat"):
         raise ValueError(f"unknown kernel {cfg.kernel!r}")
-    if cfg.gather == "lbvh":
-        raise NotImplementedError(
-            'gather="lbvh" is not ported (ROADMAP Queue 1: breadth, '
-            "accel/lbvh)")
-    if cfg.gather not in ("auto", "pallas", "brute"):
+    if cfg.gather not in ("auto", "pallas", "brute", "lbvh"):
         raise ValueError(f"unknown gather backend {cfg.gather!r}")
 
 
@@ -151,9 +156,16 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
         gather = cfg.gather
     # the packed route serves the kernels with the geometry detached
     # (photonbeam.py:189-190); everything else takes gather_beams_bruteforce
+    use_lbvh = gather == "lbvh" and cfg.rendermedia and not hetero
     use_packed = (gather == "pallas" and not cfg.grad_geometry and not compat
                   and cfg.rendermedia)
-    if use_packed:
+    lbvh_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if use_lbvh:
+        # the tree is structure: built on detached boxes
+        bvh = build_lbvh(*(b.detach() for b in beam_aabbs(beams,
+                                                           beam_radius)),
+                         beams.valid)
+    elif use_packed:
         # grid media: the beams' polynomial tables, once per pass, packed
         # beside them (photonbeam.py:196-202)
         d_poly = sigma_t = None
@@ -223,9 +235,26 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
             seg_valid = alive & h.valid
             if not compat:
                 seg_valid = seg_valid & (medium >= 0)
-            n_valid = int(seg_valid.sum())
+            n_valid = 0 if use_lbvh else int(seg_valid.sum())
             gathered = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-            if n_valid > 0:
+            if use_lbvh:
+                # segments padded with dead ones to whole tiles
+                tile = cfg.tile
+                R_pad = -(-R // tile) * tile
+
+                def pad(x):
+                    return torch.cat([x, x.new_zeros((R_pad - R,)
+                                                     + x.shape[1:])], 0)
+                o_p, e_p, d_p = pad(o), pad(p_seg_end), pad(d)
+                cand, _, ovf = query_aabb_collect(
+                    bvh, *tile_aabbs(o_p.detach(), e_p.detach(), tile),
+                    cfg.max_candidates)
+                lbvh_overflow = lbvh_overflow + ovf.sum()
+                gathered = gather_beams_lbvh(
+                    beams, bvh, cand, scene.media, o_p, e_p, d_p, pad(medium),
+                    pad(tr_seg), beam_radius, kernel=kern, tile=tile,
+                    power_scale=power_scale)[:R]
+            elif n_valid > 0:
                 budget = next((b for b in budgets if b < R and n_valid <= b),
                               None)
                 if budget is None:
@@ -310,7 +339,10 @@ def camera_pass_by_pixels(scene: Scene, camera: Camera,
         o, d, beta, medium = new_o, new_d, new_beta, new_medium
         alive = new_alive & ~killed
 
-    return Ld, dict(camera_rays=R)
+    stats = dict(camera_rays=R)
+    if use_lbvh:
+        stats["lbvh_overflow"] = lbvh_overflow
+    return Ld, stats
 
 
 def render_photonbeam(scene: Scene, camera: Camera, width: int, height: int,

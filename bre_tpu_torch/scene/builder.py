@@ -5,10 +5,13 @@ scene), the analytic surface materials (matte, mirror, glass, metal,
 plastic, uber, substrate, translucent, mix), the texture table with its
 MIPMap atlas, spheres, triangles (with per-vertex shading normals and uvs,
 and pbrt's ``ss = normalize(dpdu)`` tangent from the uvs), quads, boxes,
-and every light type: point, spot, goniometric, projection, distant and
-infinite lights (constant or image-mapped, the light images packed in their
-own MIPMap atlas, the env map's Distribution2D built here) and diffuse area
-lights on triangles and spheres.  Parameter names and the numpy arithmetic
+the shapes the reference tessellates into triangles (disk, cylinder, cone,
+paraboloid, hyperboloid, heightfield, curves, Loop subdivision surfaces
+and NURBS patches; the tri-BVH over the triangles at ``BVH_MIN_TRIANGLES``
+and above), and every light type: point, spot, goniometric, projection,
+distant and infinite lights (constant or image-mapped, the light images
+packed in their own MIPMap atlas, the env map's Distribution2D built here)
+and diffuse area lights on triangles and spheres.  Parameter names and the numpy arithmetic
 match the reference, so ``build()`` yields the same values as
 ``scene_from_jax(bre_tpu SceneBuilder.build())``.
 """
@@ -20,6 +23,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..accel.lbvh import build_lbvh
 from ..materials import COPPER_ETA, COPPER_K
 from ..textures import (TEX_BILERP, TEX_CHECKERBOARD, TEX_CONSTANT, TEX_DOTS,
                         TEX_FBM, TEX_IMAGE, TEX_MARBLE, TEX_MIX, TEX_SCALE,
@@ -36,6 +40,12 @@ from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_DISTANT, LIGHT_GONIOMETRIC,
 
 # luminance weights of the env map's sampling density (builder.py:1126)
 _LUM = np.array([0.212671, 0.715160, 0.072169], np.float32)
+
+# Triangle count at which build() attaches an LBVH over the triangles
+# (Scene.tri_bvh), which intersect() then traverses per ray instead of
+# sweeping every triangle (builder.py:63, 1205-1219).  Tests lower it to
+# take both paths.
+BVH_MIN_TRIANGLES = 16384
 
 # pbrt's default triangle uvs (triangle.cpp GetUVs)
 _UV_DEFAULT = (np.array([0.0, 0.0], np.float32),
@@ -270,6 +280,368 @@ class SceneBuilder:
                 uv1=np.asarray(uv1, np.float32),
                 uv2=np.asarray(uv2, np.float32)))))
         return len(self._tri) - 1
+
+    def _revolve(self, profile, axis_o, axis_z, n_u: int, closed_bottom=None,
+                 closed_top=None, **kw) -> None:
+        """Tessellate a surface of revolution: profile = [(r_i, z_i), ...].
+
+        The quadrics (disk, cylinder, cone, paraboloid, hyperboloid; pbrt's
+        src/shapes/*.cpp) become triangles at build time, as in the
+        reference (builder.py:446-490), so one intersection routine serves
+        every shape.  A face whose ring edge has collapsed (``np.allclose``,
+        the cone's apex ring) is dropped, as there.
+        """
+        o = np.asarray(axis_o, np.float32)
+        z = np.asarray(axis_z, np.float32)
+        z = z / max(np.linalg.norm(z), 1e-9)
+        x = np.array([1.0, 0, 0], np.float32)
+        if abs(float(np.dot(x, z))) > 0.9:
+            x = np.array([0, 1.0, 0], np.float32)
+        x = np.cross(z, x)
+        x /= max(np.linalg.norm(x), 1e-9)
+        y = np.cross(z, x)
+        ang = np.linspace(0, 2 * np.pi, n_u, endpoint=False)
+        rings = []
+        for r, h in profile:
+            ring = (o[None, :] + r * (np.cos(ang)[:, None] * x
+                                      + np.sin(ang)[:, None] * y)
+                    + h * z[None, :])
+            rings.append(ring)
+        for k in range(len(rings) - 1):
+            a, bq = rings[k], rings[k + 1]
+            for i in range(n_u):
+                j = (i + 1) % n_u
+                if not np.allclose(a[i], a[j]):
+                    self.triangle(a[i], a[j], bq[j], **kw)
+                if not np.allclose(bq[i], bq[j]):
+                    self.triangle(a[i], bq[j], bq[i], **kw)
+        if closed_bottom is not None:
+            c = o + closed_bottom * z
+            ring = rings[0]
+            for i in range(n_u):
+                self.triangle(c, ring[(i + 1) % n_u], ring[i], **kw)
+        if closed_top is not None:
+            c = o + closed_top * z
+            ring = rings[-1]
+            for i in range(n_u):
+                self.triangle(c, ring[i], ring[(i + 1) % n_u], **kw)
+
+    def disk(self, center=(0, 0, 0), normal=(0, 0, 1), radius=1.0,
+             inner_radius=0.0, n_u: int = 32, **kw) -> None:
+        """Disk (src/shapes/disk.cpp), tessellated (fan when solid)."""
+        if inner_radius <= 0.0:
+            o = np.asarray(center, np.float32)
+            z = np.asarray(normal, np.float32)
+            z = z / max(np.linalg.norm(z), 1e-9)
+            x = np.array([1.0, 0, 0], np.float32)
+            if abs(float(np.dot(x, z))) > 0.9:
+                x = np.array([0, 1.0, 0], np.float32)
+            x = np.cross(z, x)
+            x /= max(np.linalg.norm(x), 1e-9)
+            y = np.cross(z, x)
+            ang = np.linspace(0, 2 * np.pi, n_u, endpoint=False)
+            ring = o[None, :] + radius * (np.cos(ang)[:, None] * x
+                                          + np.sin(ang)[:, None] * y)
+            for i in range(n_u):
+                self.triangle(o, ring[i], ring[(i + 1) % n_u], **kw)
+        else:
+            prof = [(inner_radius, 0.0), (radius, 0.0)]
+            self._revolve(prof, center, normal, n_u, **kw)
+
+    def cylinder(self, center=(0, 0, 0), axis=(0, 0, 1), radius=1.0,
+                 zmin=-1.0, zmax=1.0, n_u: int = 32, **kw) -> None:
+        """Cylinder (src/shapes/cylinder.cpp), tessellated (open ends)."""
+        self._revolve([(radius, zmin), (radius, zmax)], center, axis, n_u, **kw)
+
+    def cone(self, center=(0, 0, 0), axis=(0, 0, 1), radius=1.0, height=1.0,
+             n_u: int = 32, **kw) -> None:
+        """Cone (src/shapes/cone.cpp), tessellated."""
+        self._revolve([(radius, 0.0), (1e-5, height)], center, axis, n_u, **kw)
+
+    def paraboloid(self, center=(0, 0, 0), axis=(0, 0, 1), radius=1.0,
+                   zmax=1.0, n_v: int = 8, n_u: int = 32, **kw) -> None:
+        """Paraboloid z = zmax*(r/radius)^2 (src/shapes/paraboloid.cpp)."""
+        prof = [(radius * np.sqrt(t), zmax * t) for t in np.linspace(1e-4, 1.0, n_v)]
+        self._revolve(prof, center, axis, n_u, **kw)
+
+    def hyperboloid(self, center=(0, 0, 0), axis=(0, 0, 1), r1=0.5, r2=1.0,
+                    zmin=0.0, zmax=1.0, n_v: int = 8, n_u: int = 32, **kw) -> None:
+        """Hyperboloid of revolution (src/shapes/hyperboloid.cpp)."""
+        prof = [(r1 + (r2 - r1) * t * t, zmin + (zmax - zmin) * t)
+                for t in np.linspace(0.0, 1.0, n_v)]
+        self._revolve(prof, center, axis, n_u, **kw)
+
+    def heightfield(self, z: "np.ndarray", origin=(0, 0, 0), size=(1.0, 1.0),
+                    **kw) -> None:
+        """Heightfield grid -> triangles (src/shapes/heightfield.cpp)."""
+        z = np.asarray(z, np.float32)
+        ny, nx = z.shape
+        ox, oy, oz = (float(v) for v in origin)
+        sx, sy = (float(v) for v in size)
+        xs = np.linspace(0, sx, nx) + ox
+        ys = np.linspace(0, sy, ny) + oy
+        for j in range(ny - 1):
+            for i in range(nx - 1):
+                p00 = (xs[i], ys[j], oz + z[j, i])
+                p10 = (xs[i + 1], ys[j], oz + z[j, i + 1])
+                p01 = (xs[i], ys[j + 1], oz + z[j + 1, i])
+                p11 = (xs[i + 1], ys[j + 1], oz + z[j + 1, i + 1])
+                self.triangle(p00, p10, p11, **kw)
+                self.triangle(p00, p11, p01, **kw)
+
+    def curve(self, control_points, width0=0.01, width1=0.01,
+              n_segments: int = 16, n_sides: int = 4, ctype: str = "cylinder",
+              n0=None, n1=None, facing=None, **kw) -> None:
+        """Cubic Bezier curve (src/shapes/curve.cpp) tessellated at build into
+        the shared triangle SoA (one intersection kernel for all geometry;
+        the reference intersects curves analytically per ray).
+
+        ``ctype`` mirrors the reference's CurveType (curve.h:60-70):
+
+        - ``"cylinder"`` — tube of ``n_sides`` facets, linearly
+          interpolated width;
+        - ``"ribbon"`` — oriented flat strip: the orientation normal is the
+          sin-weighted interpolation of the endpoint normals ``n0``/``n1``
+          (curve.cpp:301-309 ``sin((1-u)θ)/sinθ · n0 + sin(uθ)/sinθ · n1``),
+          and the strip spans ``normalize(cross(n_u, dpdu)) * width``
+          (curve.cpp:335-336 dpdv);
+        - ``"flat"`` — a ribbon that faces the viewer: the reference orients
+          it per-ray; the static tessellation faces the ``facing`` point
+          (the camera position when driven by the parser) — exact for
+          primary rays, approximate for secondary.
+        """
+        cp = np.asarray(control_points, np.float32).reshape(4, 3)
+        if ctype in ("flat", "ribbon"):
+            self._curve_strip(cp, width0, width1, n_segments, ctype,
+                              n0, n1, facing, **kw)
+            return
+        ts = np.linspace(0.0, 1.0, n_segments + 1, dtype=np.float32)
+        # Bezier evaluation + derivative
+        def bez(t):
+            u = 1.0 - t
+            return (u**3)[:, None] * cp[0] + (3*u*u*t)[:, None] * cp[1] + \
+                   (3*u*t*t)[:, None] * cp[2] + (t**3)[:, None] * cp[3]
+        def bez_d(t):
+            u = 1.0 - t
+            return (3*u*u)[:, None] * (cp[1]-cp[0]) + (6*u*t)[:, None] * (cp[2]-cp[1]) + \
+                   (3*t*t)[:, None] * (cp[3]-cp[2])
+        p = bez(ts)
+        d = bez_d(ts)
+        widths = width0 + (width1 - width0) * ts
+        # stable frame transport along the curve
+        rings = []
+        prev_n = None
+        for i in range(n_segments + 1):
+            tangent = d[i] / max(np.linalg.norm(d[i]), 1e-9)
+            if prev_n is None:
+                ref = np.array([0, 0, 1.0], np.float32)
+                if abs(float(np.dot(ref, tangent))) > 0.9:
+                    ref = np.array([1.0, 0, 0], np.float32)
+                n = np.cross(tangent, ref)
+            else:
+                n = prev_n - tangent * float(np.dot(prev_n, tangent))
+            n = n / max(np.linalg.norm(n), 1e-9)
+            prev_n = n
+            bn = np.cross(tangent, n)
+            ang = np.linspace(0, 2*np.pi, n_sides, endpoint=False)
+            r = 0.5 * widths[i]
+            ring = p[i][None, :] + r * (np.cos(ang)[:, None] * n
+                                        + np.sin(ang)[:, None] * bn)
+            rings.append(ring)
+        for k in range(n_segments):
+            a, bq = rings[k], rings[k + 1]
+            # fiber tangent for the hair BSDF frame (curve dpdu)
+            seg_t = p[k + 1] - p[k]
+            seg_t = seg_t / max(np.linalg.norm(seg_t), 1e-9)
+            kw_t = dict(kw, tangent=seg_t) if "tangent" not in kw else kw
+            for i in range(n_sides):
+                j = (i + 1) % n_sides
+                self.triangle(a[i], a[j], bq[j], **kw_t)
+                self.triangle(a[i], bq[j], bq[i], **kw_t)
+
+    def _curve_strip(self, cp, width0, width1, n_segments, ctype,
+                     n0, n1, facing, **kw):
+        """Flat / ribbon curve tessellation (see ``curve``): a two-triangle
+        strip per segment, side direction from the interpolated orientation
+        normal (ribbon, curve.cpp:301-309,335) or the facing point (flat)."""
+        ts = np.linspace(0.0, 1.0, n_segments + 1, dtype=np.float32)
+        u = 1.0 - ts
+        p = ((u**3)[:, None] * cp[0] + (3*u*u*ts)[:, None] * cp[1]
+             + (3*u*ts*ts)[:, None] * cp[2] + (ts**3)[:, None] * cp[3])
+        d = ((3*u*u)[:, None] * (cp[1]-cp[0]) + (6*u*ts)[:, None] * (cp[2]-cp[1])
+             + (3*ts*ts)[:, None] * (cp[3]-cp[2]))
+        widths = width0 + (width1 - width0) * ts
+
+        if ctype == "ribbon":
+            if n0 is None or n1 is None:
+                raise ValueError(
+                    'ribbon curves need two normals ("N", curve.cpp:429)')
+            na = np.asarray(n0, np.float32)
+            nb = np.asarray(n1, np.float32)
+            na /= max(np.linalg.norm(na), 1e-9)
+            nb /= max(np.linalg.norm(nb), 1e-9)
+            cosang = float(np.clip(np.dot(na, nb), 0.0, 1.0))
+            ang = np.arccos(cosang)  # normalAngle (curve.cpp:85)
+            inv_sin = 1.0 / max(np.sin(ang), 1e-6)
+        else:
+            face_pt = np.asarray(
+                facing if facing is not None else (0.0, 0.0, 0.0), np.float32)
+
+        verts = []
+        for i in range(n_segments + 1):
+            tangent = d[i] / max(np.linalg.norm(d[i]), 1e-9)
+            if ctype == "ribbon":
+                if ang < 1e-5:
+                    n_u = na
+                else:
+                    n_u = (np.sin((1.0 - ts[i]) * ang) * inv_sin * na
+                           + np.sin(ts[i] * ang) * inv_sin * nb)
+                side = np.cross(n_u, tangent)
+            else:  # flat: face the viewer
+                view = face_pt - p[i]
+                side = np.cross(view, tangent)
+            side_n = np.linalg.norm(side)
+            if side_n < 1e-9:  # degenerate: pick any perpendicular
+                ref = np.array([0, 0, 1.0], np.float32)
+                if abs(float(np.dot(ref, tangent))) > 0.9:
+                    ref = np.array([1.0, 0, 0], np.float32)
+                side = np.cross(ref, tangent)
+                side_n = max(np.linalg.norm(side), 1e-9)
+            side = side / side_n * (0.5 * widths[i])
+            verts.append((p[i] - side, p[i] + side))
+        for k in range(n_segments):
+            (a0, a1), (b0, b1) = verts[k], verts[k + 1]
+            seg_t = p[k + 1] - p[k]
+            seg_t = seg_t / max(np.linalg.norm(seg_t), 1e-9)
+            kw_t = dict(kw, tangent=seg_t) if "tangent" not in kw else kw
+            self.triangle(a0, a1, b1, **kw_t)
+            self.triangle(a0, b1, b0, **kw_t)
+
+    def loopsubdiv(self, indices, P, nlevels: int = 2, **kw) -> None:
+        """Loop subdivision surface (src/shapes/loopsubdiv.cpp) applied at
+        build: ``nlevels`` rounds of 4-1 triangle split with Loop's vertex
+        smoothing rules (beta weights for interior vertices, 1/8-3/4-1/8 for
+        edge midpoints), then emitted as triangles.  A vertex's neighbours
+        are summed in the iteration order of a Python ``set`` of their ids,
+        as the reference sums them, so the float32 sums match bit for bit."""
+        V = np.asarray(P, np.float32).reshape(-1, 3)
+        F = np.asarray(indices, np.int64).reshape(-1, 3)
+        for _ in range(nlevels):
+            # edge midpoint indexing
+            edges = {}
+            new_faces = []
+            mids = []
+
+            def edge_key(a, b):
+                return (min(a, b), max(a, b))
+
+            # adjacency for vertex rule
+            neighbors = [set() for _ in range(len(V))]
+            for f in F:
+                for a, b in ((f[0], f[1]), (f[1], f[2]), (f[2], f[0])):
+                    neighbors[a].add(b)
+                    neighbors[b].add(a)
+            # opposite vertices per edge for the 1/8 weights
+            opp = {}
+            for f in F:
+                for a, b, c in ((f[0], f[1], f[2]), (f[1], f[2], f[0]),
+                                (f[2], f[0], f[1])):
+                    opp.setdefault(edge_key(a, b), []).append(c)
+            mid_pos = {}
+            for (a, b), cs in opp.items():
+                if len(cs) == 2:
+                    mp = 0.375 * (V[a] + V[b]) + 0.125 * (V[cs[0]] + V[cs[1]])
+                else:  # boundary edge
+                    mp = 0.5 * (V[a] + V[b])
+                mid_pos[(a, b)] = mp
+            # smoothed original vertices (Loop beta rule)
+            V_new = V.copy()
+            for i in range(len(V)):
+                n = len(neighbors[i])
+                if n < 3:
+                    continue
+                beta = (0.625 - (0.375 + 0.25 * np.cos(2 * np.pi / n)) ** 2) / n
+                V_new[i] = (1 - n * beta) * V[i] + beta * sum(
+                    (V[j] for j in neighbors[i]), np.zeros(3, np.float32))
+            # assign midpoint indices
+            base = len(V_new)
+            mid_idx = {}
+            mid_list = []
+            for k in mid_pos:
+                mid_idx[k] = base + len(mid_list)
+                mid_list.append(mid_pos[k])
+            V = np.concatenate([V_new, np.asarray(mid_list, np.float32)
+                                 if mid_list else np.zeros((0, 3), np.float32)])
+            F2 = []
+            for f in F:
+                m01 = mid_idx[edge_key(f[0], f[1])]
+                m12 = mid_idx[edge_key(f[1], f[2])]
+                m20 = mid_idx[edge_key(f[2], f[0])]
+                F2 += [(f[0], m01, m20), (f[1], m12, m01),
+                       (f[2], m20, m12), (m01, m12, m20)]
+            F = np.asarray(F2, np.int64)
+        for f in F:
+            self.triangle(V[f[0]], V[f[1]], V[f[2]], **kw)
+
+    def nurbs(self, nu: int, nv: int, uorder: int, vorder: int,
+              uknots, vknots, P, w=None, n_eval: int = 24, **kw) -> None:
+        """NURBS patch (src/shapes/nurbs.cpp): Cox-de Boor basis evaluation on
+        an ``n_eval`` x ``n_eval`` grid at build, emitted as triangles.
+        ``P``: (nu*nv, 3) control points; ``w``: optional rational weights."""
+        P = np.asarray(P, np.float32).reshape(nu * nv, 3)
+        w = (np.asarray(w, np.float32).reshape(nu * nv)
+             if w is not None else np.ones(nu * nv, np.float32))
+        uk = np.asarray(uknots, np.float32)
+        vk = np.asarray(vknots, np.float32)
+
+        def basis(knots, order, n_cp, t):
+            """Cox-de Boor: returns (n_cp,) basis values at parameter t."""
+            k = order  # order = degree + 1 (pbrt convention)
+            N = np.zeros((len(knots) - 1,), np.float32)
+            # degree-0
+            for i in range(len(knots) - 1):
+                if knots[i] <= t < knots[i + 1]:
+                    N[i] = 1.0
+            if t >= knots[-1] - 1e-6:
+                # clamp the end of the domain
+                for i in range(len(knots) - 2, -1, -1):
+                    if knots[i] < knots[i + 1]:
+                        N[i] = 1.0
+                        break
+            for d in range(1, k):
+                N_next = np.zeros_like(N)
+                for i in range(len(N) - d):
+                    left = 0.0
+                    if knots[i + d] > knots[i]:
+                        left = (t - knots[i]) / (knots[i + d] - knots[i]) * N[i]
+                    right = 0.0
+                    if knots[i + d + 1] > knots[i + 1]:
+                        right = (knots[i + d + 1] - t) / (
+                            knots[i + d + 1] - knots[i + 1]) * N[i + 1]
+                    N_next[i] = left + right
+                N = N_next
+            return N[:n_cp]
+
+        u0, u1 = float(uk[uorder - 1]), float(uk[nu])
+        v0, v1 = float(vk[vorder - 1]), float(vk[nv])
+        us = np.linspace(u0, u1, n_eval, dtype=np.float32)
+        vs = np.linspace(v0, v1, n_eval, dtype=np.float32)
+        grid = np.zeros((n_eval, n_eval, 3), np.float32)
+        for iu, uu in enumerate(us):
+            Bu = basis(uk, uorder, nu, uu)
+            for iv, vv in enumerate(vs):
+                Bv = basis(vk, vorder, nv, vv)
+                wts = np.outer(Bu, Bv).reshape(-1) * w
+                denom = max(float(wts.sum()), 1e-9)
+                grid[iu, iv] = (wts[:, None] * P).sum(0) / denom
+        for iu in range(n_eval - 1):
+            for iv in range(n_eval - 1):
+                a = grid[iu, iv]
+                bq = grid[iu + 1, iv]
+                c = grid[iu + 1, iv + 1]
+                d_ = grid[iu, iv + 1]
+                self.triangle(a, bq, c, **kw)
+                self.triangle(a, c, d_, **kw)
 
     def quad(self, p0, p1, p2, p3, **kw) -> Sequence[int]:
         """Two triangles (p0,p1,p2) and (p0,p2,p3)."""
@@ -550,9 +922,17 @@ class SceneBuilder:
         else:
             wmin = np.full(3, -1.0, np.float32)
             wmax = np.full(3, 1.0, np.float32)
+        tri_bvh = None
+        if len(tri) >= BVH_MIN_TRIANGLES:
+            bmin = torch.minimum(torch.minimum(triangles.p0, triangles.p1),
+                                 triangles.p2)
+            bmax = torch.maximum(torch.maximum(triangles.p0, triangles.p1),
+                                 triangles.p2)
+            tri_bvh = build_lbvh(bmin, bmax, torch.ones(
+                len(tri), dtype=torch.bool, device=device))
         return Scene(
             spheres=spheres, triangles=triangles, materials=materials,
             lights=lights, media=media, textures=textures,
             camera_medium=torch.tensor(self.camera_medium, dtype=torch.int64,
                                        device=device),
-            world_min=f(wmin), world_max=f(wmax))
+            world_min=f(wmin), world_max=f(wmax), tri_bvh=tri_bvh)

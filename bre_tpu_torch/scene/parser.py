@@ -15,11 +15,15 @@ Three kinds of input, as the reference treats them and as the port must:
   know either: warn and skip, or fall back (matte, a point light,
   perspective), exactly as the reference does;
 - what the reference builds and the port cannot render (the hair,
-  subsurface, kdsubsurface and fourier materials, the analytic and
-  subdivision shapes, cameras other than perspective): NotImplementedError
-  naming the ROADMAP Queue 1 item, never a silent skip that would render
-  another scene;
-- everything else: built as the reference builds it.
+  subsurface, kdsubsurface and fourier materials, cameras other than
+  perspective): NotImplementedError naming the ROADMAP Queue 1 item, never
+  a silent skip that would render another scene;
+- everything else: built as the reference builds it.  Every shape the
+  reference reads is among them: the quadrics, curves, Loop subdivision
+  surfaces and NURBS patches become the builder's triangles; a quadric's
+  axis is the CTM's z axis, a "flat" curve (the default type) faces the
+  camera's eye, a ribbon's two normals go through the inverse CTM, and a
+  malformed curve warns and is skipped, as there.
 """
 
 from __future__ import annotations
@@ -46,8 +50,6 @@ _BREADTH = "ROADMAP Queue 1 item 5: breadth"
 # materials the reference builds and the port does not (ROADMAP Queue 1
 # item 5.8; bre_tpu/scene/parser.py:241-284)
 _REF_MATERIALS = ("hair", "fourier", "subsurface", "kdsubsurface")
-_REF_SHAPES = ("disk", "cylinder", "cone", "paraboloid", "hyperboloid",
-               "curve", "loopsubdiv", "nurbs")
 _REF_CAMERAS = ("orthographic", "realistic", "environment")
 
 
@@ -627,8 +629,76 @@ def parse_string(text: str, include_dir: Path = Path("."),
                                    medium_inside=mi, medium_outside=mo,
                                    n0=nk[0], n1=nk[1], n2=nk[2],
                                    uv0=uk[0], uv1=uk[1], uv2=uk[2])
-            elif stype in _REF_SHAPES:
-                raise _not_ported(f"shape '{stype}'", "extra shapes")
+            elif stype == "disk":
+                b.disk(xf_point((0, 0, _f(p, "height", 0.0))),
+                       normal=ctm[:3, 2], radius=_f(p, "radius", 1.0),
+                       inner_radius=_f(p, "innerradius", 0.0),
+                       material=gs.material, medium_inside=mi, medium_outside=mo)
+            elif stype == "cylinder":
+                b.cylinder(xf_point((0, 0, 0)), axis=ctm[:3, 2],
+                           radius=_f(p, "radius", 1.0),
+                           zmin=_f(p, "zmin", -1.0), zmax=_f(p, "zmax", 1.0),
+                           material=gs.material, medium_inside=mi,
+                           medium_outside=mo)
+            elif stype == "cone":
+                b.cone(xf_point((0, 0, 0)), axis=ctm[:3, 2],
+                       radius=_f(p, "radius", 1.0),
+                       height=_f(p, "height", 1.0),
+                       material=gs.material, medium_inside=mi, medium_outside=mo)
+            elif stype == "paraboloid":
+                b.paraboloid(xf_point((0, 0, 0)), axis=ctm[:3, 2],
+                             radius=_f(p, "radius", 1.0),
+                             zmax=_f(p, "zmax", 1.0),
+                             material=gs.material, medium_inside=mi,
+                             medium_outside=mo)
+            elif stype == "hyperboloid":
+                b.hyperboloid(xf_point((0, 0, 0)), axis=ctm[:3, 2],
+                              material=gs.material, medium_inside=mi,
+                              medium_outside=mo)
+            elif stype == "curve":
+                cps = np.asarray(p.get("P", []), np.float32).reshape(-1, 3)
+                cps = cps @ ctm[:3, :3].T + ctm[:3, 3]
+                w0 = _f(p, "width0", _f(p, "width", 0.01))
+                w1 = _f(p, "width1", _f(p, "width", 0.01))
+                # CurveType (curve.cpp:399-410; reference default "flat");
+                # ribbon takes two endpoint normals via "N" (curve.cpp:412-427)
+                ct_s = str(p.get("type", "flat")).strip('"')
+                if ct_s not in ("flat", "ribbon", "cylinder"):
+                    warnings.warn(
+                        f'unknown curve type "{ct_s}"; using "cylinder"')
+                    ct_s = "cylinder"
+                cn0 = cn1 = None
+                if ct_s == "ribbon":
+                    nn = np.asarray(p.get("N", []), np.float32).reshape(-1, 3)
+                    if nn.shape[0] != 2:
+                        warnings.warn('ribbon curve needs two "N" normals; '
+                                      "skipped")
+                        continue
+                    nn = nn @ np.linalg.inv(ctm[:3, :3])  # normal transform
+                    cn0, cn1 = nn[0], nn[1]
+                eye = (np.asarray(cam_to_world, np.float32)[:3, 3]
+                       if cam_to_world is not None else None)
+                for k in range(0, max(len(cps) - 3, 0), 3):  # bezier chains
+                    b.curve(cps[k:k + 4], width0=w0, width1=w1,
+                            ctype=ct_s, n0=cn0, n1=cn1, facing=eye,
+                            material=gs.material, medium_inside=mi,
+                            medium_outside=mo)
+            elif stype == "loopsubdiv":
+                idx = [int(v) for v in p.get("indices", [])]
+                pts = np.asarray(p.get("P", []), np.float32).reshape(-1, 3)
+                pts = pts @ ctm[:3, :3].T + ctm[:3, 3]
+                b.loopsubdiv(idx, pts, nlevels=_i(p, "nlevels", 3),
+                             material=gs.material, medium_inside=mi,
+                             medium_outside=mo)
+            elif stype == "nurbs":
+                nu_, nv_ = _i(p, "nu", 2), _i(p, "nv", 2)
+                pts = np.asarray(p.get("P", []), np.float32).reshape(-1, 3)
+                pts = pts @ ctm[:3, :3].T + ctm[:3, 3]
+                b.nurbs(nu_, nv_, _i(p, "uorder", 2), _i(p, "vorder", 2),
+                        np.asarray(p.get("uknots", []), np.float32),
+                        np.asarray(p.get("vknots", []), np.float32),
+                        pts, w=p.get("Pw"), material=gs.material,
+                        medium_inside=mi, medium_outside=mo)
             else:
                 warnings.warn(f"shape '{stype}' unsupported; skipped")
         else:

@@ -11,7 +11,7 @@ projection lights, diffuse area lights on triangles and spheres, distant
 lights, and infinite lights, constant or image-mapped, with the light-image
 atlas and the one env map's sampling tables), homogeneous and grid-density
 media (at most one grid, as the reference's builder allows), spheres and
-triangles swept densely.
+triangles, and the tri-BVH the builder attaches to large meshes.
 
 ``scene_from_jax`` turns a ``bre_tpu`` Scene into this one, so tests can feed
 both packages identical inputs; ``check_slice`` raises ``NotImplementedError``
@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..accel.lbvh import LBVH
 from ..textures import Textures, textures_from_jax
 
 # Material type tags (bre_tpu/scene/scene.py:26-39)
@@ -65,10 +66,6 @@ MEDIUM_GRID = 1
 # Shape kind tags
 SHAPE_SPHERE = 0
 SHAPE_TRIANGLE = 1
-
-# Dense primitive sweep limit of the reference's single-chunk path
-# (intersect._PRIM_CHUNK); the chunked sweep and the tri-BVH are not ported.
-MAX_DENSE_PRIMS = 8192
 
 
 class Spheres(NamedTuple):
@@ -179,6 +176,9 @@ class Scene(NamedTuple):
     camera_medium: torch.Tensor  # () int64
     world_min: torch.Tensor  # (3,)
     world_max: torch.Tensor  # (3,)
+    # accel.lbvh.LBVH over the triangles' boxes when the builder holds
+    # builder.BVH_MIN_TRIANGLES or more, else None
+    tri_bvh: "object" = None
 
     @property
     def device(self) -> torch.device:
@@ -220,10 +220,6 @@ def world_span(scene: Scene) -> torch.Tensor:
 def check_slice(scene: Scene) -> None:
     """Raise NotImplementedError for scene content outside the ported slice;
     ValueError where a table's host-side ``kinds`` lacks a tag it holds."""
-    if scene.n_spheres + scene.n_triangles > MAX_DENSE_PRIMS:
-        raise NotImplementedError(
-            f"more than {MAX_DENSE_PRIMS} primitives needs the chunked sweep "
-            "or the tri-BVH (ROADMAP Queue 1 item 5: breadth, accel/lbvh)")
     m, L, mt = scene.materials, scene.lights, scene.media.mtype
     n = m.mtype.shape[0]
     is_mix = m.mtype == MAT_MIX
@@ -314,13 +310,8 @@ def _t(x, dtype, device) -> torch.Tensor:
 def scene_from_jax(scene_jax, device="cuda") -> Scene:
     """A ``bre_tpu`` Scene (its leaves read with ``np.asarray``) -> this
     package's Scene on ``device``, the grid medium's density brick (the
-    parameter inverse rendering fits) included.  The tri-BVH cannot be
-    carried and raises NotImplementedError."""
+    parameter inverse rendering fits) and the tri-BVH included."""
     device = resolve_device(device)
-    if scene_jax.tri_bvh is not None:
-        raise NotImplementedError(
-            "tri-BVH scenes are not ported (ROADMAP Queue 1 item 5: breadth, "
-            "accel/lbvh)")
     f = lambda x: _t(x, torch.float32, device)  # noqa: E731
     i = lambda x: _t(x, torch.int64, device)  # noqa: E731
     s, t = scene_jax.spheres, scene_jax.triangles
@@ -357,4 +348,7 @@ def scene_from_jax(scene_jax, device="cuda") -> Scene:
         camera_medium=i(scene_jax.camera_medium),
         world_min=f(scene_jax.world_min),
         world_max=f(scene_jax.world_max),
+        tri_bvh=(None if scene_jax.tri_bvh is None else LBVH(
+            *(_t(x, torch.int64 if i < 3 else torch.float32, device)
+              for i, x in enumerate(scene_jax.tri_bvh)))),
     )

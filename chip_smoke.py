@@ -23,10 +23,13 @@ its own failure and nothing falls back to the CPU or a plain version):
      the packed inputs of its full-film sweep and its R/4 ray-budget sweep
      are kept for phase 6;
   6. kernel parity: both forward kernels against their plain PyTorch
-     versions on those main-path inputs, rtol 2e-4 / atol 1e-8, each timed
-     with CUDA events after a warm-up, beside its bound and the grid its
-     wrapper launched (splits per ray tile, blocks); the dense kernel run
-     twice, the same bits both times;
+     versions on those main-path inputs, rtol 2e-4 / atol 1e-8 (each on
+     every ray tile of its headline sweep, the dense kernel's R/4 and the
+     sparse one's full film, and on every 8th tile of the other sweep),
+     each timed with CUDA events after a warm-up, beside its bound and the
+     grid its wrapper launched (splits per ray tile, blocks); dense and
+     sparse bit for bit on every tile; the dense kernel run twice, the same
+     bits both times;
   7. device consistency: a 64x64, 20,000-photon, 1-iteration render on the
      card (kernels) and on the CPU (plain versions) must agree.
   The training path, a forward+backward iteration in the medium parameters:
@@ -261,7 +264,7 @@ runs them as XLA code; config 4's gathers go through rows 1-2):
      8-iteration caustics golden gate (interactions within 0.2% of the C++
      reference's 111,394, channel means within 1.5%, region p90 under 0.12
      and max under 0.5); (c) every material's sample_bsdf (both modes)
-     and eval_bsdf at 2^20 lanes (the textured ones at 2^16) on the card
+     and eval_bsdf at 2^19 lanes (the textured ones at 2^16) on the card
      against the CPU, within rtol 1e-5 plus four times the CPU's own
      spread under 1-8 ulp input moves; (d) volpath with texture_filter=True
      on image maps at 64x64 x 4 spp, card against CPU (means within 1e-3);
@@ -296,13 +299,48 @@ lit fog box's gathers go through rows 1-2):
      scenes beside PERF.md's figures from before these lights.  Prints its
      own seconds.
 
+The extra shapes and scenes above 8,192 primitives (plain torch: the
+reference tessellates the shapes into triangles at build and runs its
+chunked sweep, LBVH and tri-BVH walk as XLA code; the shape scenes gather
+through row 1):
+ 36. (a) the shapes fog box, examples/cornell_fog.pbrt's box, fog, light
+     and camera as a string (tests/torch_parity.shapes_fog_pbrt) with one
+     Shape of each kind in the fog (a disk, an annulus, a cylinder, a cone,
+     a paraboloid, a hyperboloid, a curve of each type, a rational NURBS
+     patch, a 64 x 64 heightfield: 10,320 triangles, above one sweep's
+     8,192 and below the tri-BVH's 16,384), through cli.main at 256x256 x
+     65,536 photons for SHAPES_ITERS of the file's 16 iterations (PERF.md
+     §6), counted: row 1 must launch, the image be finite and not
+     black; (b) the same box with a Loop-subdivided icosahedron at level 5
+     (30,800 triangles and the tri-BVH): the same figures, the walk's trips
+     per query (mean, max), its host reads per query, and the parse and
+     build time; (c) card against CPU: both boxes' images (16x16 and 32x32,
+     one iteration), intersect and intersect_p on 2^20 seeded rays inside
+     the box on the card and their first lanes on the CPU (a lane whose
+     winner differs must be an ulp lane: a tie in t or an edge within 1e-5
+     in float64, at most 1e-3 of the lanes), and (b)'s tri-BVH against the
+     chunked sweep on its triangles; (d) one forward+backward of the
+     default PhotonBeamConfig() (grad_geometry=True) on (b) at 64x64 x
+     20,000 photons (s, peak memory), and card against CPU at 8x8 x 1,000
+     (gradients within 2e-3 x max); (e) gather="lbvh" on cornell_fog.pbrt
+     at 64x64, 2 iterations x 512 photons (2,048 candidates per tile: no
+     tile overflows, the load where the reference's route equals brute)
+     against gather="brute" within rtol 2e-4 / atol 1e-7, each one's s/iter
+     and the candidate overflow; then one iteration at the file's 65,536
+     photons and the default 4,096 candidates (tiles overflow, and their
+     extra candidates are dropped as the reference drops them): s/iter and
+     the overflow.  Prints its own seconds.
+
+Each phase's end is logged with the seconds since the start ("[time]").
+
 Prints, before the last line, one JSON line with each kernel's launches
 (phase 3 for the forward kernels, phase 9's counted run for the backward
 ones, phases 13, 14 and 16's config-3 step for the hetero instances,
 phase 23 for kernel 6; rows 1 and 3 also count their launches on the
 non-packed route, phases 20 and 23, and rows 1 and 5 their launches by
 the CLI, phase 29 (a) and (b), as launches_cli, and row 1 on the lit fog
-box, phase 35 (a), as launches_lit_fog_cli), max abs error (and, for
+box, phase 35 (a), as launches_lit_fog_cli, and on the shapes fog boxes,
+phase 36 (a) and (b), as launches_shapes_cli), max abs error (and, for
 the backward kernels, max |diff| / max|ref| per cotangent), time beside
 its plain version's and its bound, and the
 splits per ray tile and blocks that its wrapper launched on its headline
@@ -350,7 +388,7 @@ from bre_tpu_torch.parallel import mesh as MESH  # noqa: E402
 from bre_tpu_torch.scene import intersect as ISECT  # noqa: E402
 from bre_tpu_torch.scene import parser as PARSER  # noqa: E402
 from bre_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
-from bre_tpu_torch.scene.camera import make_perspective_camera  # noqa: E402
+from bre_tpu_torch.scene.camera import Camera, make_perspective_camera  # noqa: E402
 
 RTOL, ATOL = 2e-4, 1e-8  # tests/test_pallas_gather.py:47
 BWD_RTOL = 2e-4  # max|d| <= 2e-4 (max|ref| + 1e-9), tests/test_pallas_gather.py:448
@@ -394,6 +432,9 @@ TWOPASS_KERNELS = (
 # the gather routes, each counting its calls
 ROUTES = ("gather_beams_bruteforce", "gather_beams_packed")
 SIZE, PHOTONS, ITERS, MAXDEPTH = 256, 1_000_000, 2, 5  # BASELINE config 2
+# phase 6 holds each forward kernel against its plain version on every ray
+# tile of its headline sweep and on every PLAIN_TILE_STRIDE-th of the other
+PLAIN_TILE_STRIDE = 8
 BENCH_WH, BENCH_PHOTONS = 128, 50_000  # bench.py:70-71
 SPEC_WH, SPEC_PHOTONS = 256, 1_000_000  # bench.py:125
 
@@ -811,15 +852,28 @@ def phase_breakdown(dev):
 
 
 def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
-                    note=""):
+                    note="", strided=()):
     """Both forward kernels (``names``: the dense and the sparse entry of a
     kernel table) against their plain versions on one sweep's inputs, rtol
     2e-4 / atol 1e-8, each timed with CUDA events after a warm-up beside
     its bound (``in_ops`` per in-range pair); dense and sparse must agree
-    bit for bit.  Returns {name: measurements}."""
+    bit for bit.  The kernels named in ``strided`` are held against their
+    plain versions on every PLAIN_TILE_STRIDE-th ray tile only (the same
+    rows of the kernel's output; their plain_ms is that subset's).
+    Returns {name: measurements}."""
     n_live = int((mask > 0).sum())
     idx, _ = G.sparse_block_ids(mask, n_live)
     idx1, _ = G.sparse_block_ids(mask[:, :1].contiguous(), mask.shape[0])
+    tiles = torch.arange(0, rays.shape[0], PLAIN_TILE_STRIDE,
+                         device=rays.device)
+    sub_plain = {}
+    if strided:
+        sub_r, sub_m = rays[tiles].contiguous(), mask[:, tiles].contiguous()
+        sub_idx, _ = G.sparse_block_ids(sub_m, int((sub_m > 0).sum()))
+        sub_plain = {names[0]: lambda: G.gather_forward_ref(sub_r, beams,
+                                                            scal, sub_m),
+                     names[1]: lambda: G.gather_sparse_ref(sub_r, beams, scal,
+                                                           sub_idx)}
     in_range, n_blocks = pairs_in_range(rays, beams, scal, mask)
     ops = n_blocks * BG.TILE * BG.CHUNK * GEOM_OPS + in_range * in_ops
     out_bytes = rays.shape[0] * G.OUT_ROWS * BG.TILE * 4
@@ -840,20 +894,28 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
             log(f"[{tag}] {label}: {name} two runs bit-identical")
         torch.cuda.synchronize()
         warm()
-        plain_ms, ref = cuda_ms(plain, 1, warm=False)
+        sub = name in strided
+        plain_ms, ref = cuda_ms(sub_plain[name] if sub else plain, 1,
+                                warm=False)
         if not bool(torch.isfinite(res).all()):
             raise AssertionError(f"{name} ({label}): non-finite output")
-        abs_err = float((res - ref).abs().max())
-        rel_err = float(((res - ref).abs() / (ref.abs() + ATOL)).max())
-        ok = bool(torch.allclose(res, ref, rtol=RTOL, atol=ATOL))
+        held = res[tiles] if sub else res
+        abs_err = float((held - ref).abs().max())
+        rel_err = float(((held - ref).abs() / (ref.abs() + ATOL)).max())
+        ok = bool(torch.allclose(held, ref, rtol=RTOL, atol=ATOL))
+        del held
         ms, _ = cuda_ms(kern, 3)
         grid = launched_grid(wrapper)
         bound_ms, bound_by = bound(ops, nbytes(*inputs) + out_bytes)
         log(f"[{tag}] {label}, {n_live} live blocks, {in_range} pairs in "
             f"range: {name} max rel err {rel_err:.3e} max abs err "
             f"{abs_err:.3e} (|ref| max {float(ref.abs().max()):.3e}) "
-            f"allclose(rtol={RTOL}, atol={ATOL}) {ok}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+            f"allclose(rtol={RTOL}, atol={ATOL}) {ok}"
+            + (f" on {tiles.numel()} of {rays.shape[0]} ray tiles (every "
+               f"{PLAIN_TILE_STRIDE}th)" if sub else "")
+            + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + (f" ({tiles.numel()} tiles)" if sub else "")
+            + f", bound {bound_ms:.3f} ms ({bound_by}); "
             f"launched {grid['n_splits']} splits x {rays.shape[0]} ray tiles "
             f"= {grid['blocks']} blocks" + note)
         if not ok:
@@ -861,6 +923,8 @@ def fwd_sweep_check(names, rays, beams, scal, mask, in_ops, label, tag,
                                  f"on the {label} sweep")
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err,
                          max_rel_err=rel_err, live_blocks=n_live,
+                         plain_tiles=int(tiles.numel()) if sub
+                         else rays.shape[0],
                          pairs_in_range=in_range, bound_ms=bound_ms,
                          bound_by=bound_by, **grid)
         outs.append(res)
@@ -901,14 +965,19 @@ def phase_parity(sweeps):
         log(f"[parity] {label} sweep: rays {tuple(rays.shape)} beams "
             f"{tuple(beams.shape)} ({-(-int(scal[0, 3]) // BG.CHUNK)} chunks "
             f"hold valid beams), {mask.numel()} blocks")
-        checked = fwd_sweep_check([n for n, _, _, _ in FWD_KERNELS], rays,
-                                  beams, scal, mask, FWD_IN_OPS, label,
-                                  "parity")
         # the dense kernel's headline is the R/4 sweep (64 ray tiles, where
-        # the split matters most); the sparse one launches at full film
+        # the split matters most); the sparse one launches at full film.  On
+        # the other sweep each is held against its plain version on every
+        # PLAIN_TILE_STRIDE-th ray tile (and bit for bit against the other
+        # kernel on all of them): the dense plain version at full film took
+        # 37.8 s of the run to the kernels line (PERF.md §6)
+        head = {("gather_forward", "r4"): "config-2 R/4 budget",
+                ("gather_sparse", "full"): "config-2 full film"}
+        names = [n for n, _, _, _ in FWD_KERNELS]
+        checked = fwd_sweep_check(
+            names, rays, beams, scal, mask, FWD_IN_OPS, label, "parity",
+            strided=[n for n in names if (n, label) not in head])
         for name, m in checked.items():
-            head = {("gather_forward", "r4"): "config-2 R/4 budget",
-                    ("gather_sparse", "full"): "config-2 full film"}
             _add_sweep(results, {name: m}, label, head.get((name, label)))
     return list(results.values())
 
@@ -3374,7 +3443,10 @@ def phase_sparse_regime(dev, kernels):
 
 
 GLASS_PBRT = os.path.join(ROOT, "examples", "glass_caustics.pbrt")
-BSDF_LANES = 1 << 20
+# phase 34 (c)'s lanes, card against CPU: 2^19, cut from 2^20 for the run
+# to the kernels line (the CPU's side is most of it)
+BSDF_LANES = 1 << 19
+BSDF_TEXTURED_LANES = 1 << 16
 
 
 def _spread(run, inputs, names):
@@ -3562,7 +3634,7 @@ def phase_surface_materials(dev, card):
     the 8-iteration caustics golden gate (tests/test_torch_caustics_golden
     .py's caustics_gate: interactions within 0.2% of 111,394, channel means
     within 1.5%, region p90 under 0.12 and max under 0.5); (c) every
-    material's sample_bsdf and eval_bsdf at 2^20 lanes (the textured ones
+    material's sample_bsdf and eval_bsdf at 2^19 lanes (the textured ones
     at 2^16) on the card against the CPU; (d) a textured volpath render with
     texture_filter=True on the card against the CPU (64x64, 4 spp: means
     within 1e-3); (e) MLT, whose chain step is a CUDA graph, on the glass,
@@ -3665,9 +3737,10 @@ def phase_surface_materials(dev, card):
     (err, flipped, odd), t_c = _timed(lambda: _bsdf_card_vs_cpu(
         scenes, ids, BSDF_LANES, False, 5, dev))
     (err_t, flipped_t, odd_t), t_ct = _timed(lambda: _bsdf_card_vs_cpu(
-        scenes, ids, BSDF_LANES >> 4, True, 6, dev))
+        scenes, ids, BSDF_TEXTURED_LANES, True, 6, dev))
     log(f"[surface] (c) sample_bsdf and eval_bsdf of {len(ids)} materials, "
-        f"2^20 lanes (textured: 2^16), both modes, card against CPU: agree "
+        f"{BSDF_LANES} lanes (textured: {BSDF_TEXTURED_LANES}), both modes, "
+        f"card against CPU: agree "
         f"(max |f| difference / max(|f|, 1) {max(err, err_t):.3e}; "
         f"{flipped + flipped_t} "
         f"lanes at a branch threshold skipped; {len(odd) + len(odd_t)} "
@@ -4067,6 +4140,377 @@ def phase_other_lights(dev, card, report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The extra shapes and scenes above 8,192 primitives (phase 36): plain torch,
+# as the reference's tessellations, chunked sweep, LBVH and tri-BVH walk
+# are XLA code; the shape scenes gather through row 1
+# ---------------------------------------------------------------------------
+
+# iterations of (a) and (b) out of cornell_fog.pbrt's 16 (PERF.md §6:
+# at their s/iter the 16 do not fit the phase's time)
+SHAPES_ITERS = 2
+REF_PRIM_CHUNK = 8192  # the reference's one-chunk sweep limit: (a) is above
+SHAPES_LOOP_LEVELS = 5
+SHAPES_RAYS = 1 << 20  # (c)'s queries on the card
+# of them, the first on the CPU too: (a)'s chunked sweep is the slow one
+SHAPES_CPU_RAYS = {"a": 1 << 11, "b": 1 << 14}
+SHAPES_ROUTE_RAYS = 1 << 16  # (c)'s tri-BVH against the chunked sweep
+# a lane whose winners differ is an ulp lane where the two winners' t agree
+# within this relative gap (a tie) or a winner's barycentric margin, or its
+# t's gap to t_max, is under it (an edge or range decision), in float64
+ULP_LANE_GAP = 1e-5
+ULP_LANE_SHARE = 1e-3  # at most this share of the lanes may be ulp lanes
+
+
+def _shapes_box_rays(n, seed):
+    """Rays from seeded points inside the fog box in seeded directions, and
+    t_max to another such point (shadow-ray-like); numpy float32."""
+    rs = np.random.RandomState(seed)
+    lo, hi = np.array([-0.95, 0.05, -0.95]), np.array([0.95, 1.95, 0.95])
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    p = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.linalg.norm(p - o, axis=1).astype(np.float32)
+    return o, d, t_max
+
+
+def _mt64(scene, o, d, prims):
+    """Moller-Trumbore in float64 of rays (n, 3) against triangles (n, k)
+    ids: (t, barycentric margin min(u, v, 1 - u - v)), each (n, k)."""
+    tri = scene.triangles
+    p0, p1, p2 = (x.cpu().double().numpy()[prims] for x in
+                  (tri.p0, tri.p1, tri.p2))
+    oo, dd = o.astype(np.float64)[:, None], d.astype(np.float64)[:, None]
+    e1, e2, tv = p1 - p0, p2 - p0, oo - p0
+    pv = np.cross(np.broadcast_to(dd, e2.shape), e2)
+    det = (e1 * pv).sum(-1)
+    det = np.where(np.abs(det) < 1e-300, 1e-300, det)
+    u = (tv * pv).sum(-1) / det
+    qv = np.cross(tv, e1)
+    v = (dd * qv).sum(-1) / det
+    t = (e2 * qv).sum(-1) / det
+    return t, np.minimum(np.minimum(u, v), 1.0 - u - v)
+
+
+def _ulp_lanes(scene, o, d, got, ref):
+    """Lanes where two intersect results (valid, prim_index, numpy) differ,
+    each classed by float64 arithmetic on the CPU scene: "tie" (both hit,
+    their t within ULP_LANE_GAP), "edge" (a winner within ULP_LANE_GAP of
+    its triangle's edge) or "other".  Returns {class: count}."""
+    (va, ia), (vb, ib) = got, ref
+    lanes = np.nonzero((va != vb) | (va & vb & (ia != ib)))[0]
+    out = dict(tie=0, edge=0, other=0)
+    if lanes.size:
+        prims = np.stack([ia[lanes], ib[lanes]], 1)
+        t, margin = _mt64(scene, o[lanes], d[lanes], prims)
+        valid = np.stack([va[lanes], vb[lanes]], 1)
+        tie = valid.all(1) & (np.abs(t[:, 0] - t[:, 1])
+                              <= ULP_LANE_GAP * np.abs(t).max(1))
+        edge = (valid & (np.abs(margin) < ULP_LANE_GAP)).any(1)
+        out = dict(tie=int(tie.sum()), edge=int((edge & ~tie).sum()),
+                   other=int((~tie & ~edge).sum()))
+    return out
+
+
+def _ulp_lanes_any(scene, o, d, t_max, occ_a, occ_b):
+    """Lanes where two intersect_p results differ, classed "edge" where an
+    occluding triangle (a material) meets the ray within ULP_LANE_GAP of its
+    edge or of t_max, in float64; else "other"."""
+    lanes = np.nonzero(occ_a != occ_b)[0]
+    out = dict(edge=0, other=0)
+    occl = np.nonzero(scene.triangles.material.cpu().numpy() >= 0)[0]
+    for lane in lanes:
+        t, margin = _mt64(scene, o[lane:lane + 1], d[lane:lane + 1],
+                          occl[None])
+        tm = float(t_max[lane])
+        near = ((np.abs(margin) < ULP_LANE_GAP) & (t > 0) & (t < tm * 1.001)
+                | (np.abs(t - tm) < ULP_LANE_GAP * tm) & (margin > -ULP_LANE_GAP))
+        out["edge" if near.any() else "other"] += 1
+    return out
+
+
+def _query_pair(scene, o, d, t_max):
+    """intersect's (valid, prim_index) and intersect_p's occlusion, numpy,
+    with each query's seconds (synchronized)."""
+    dev = scene.device
+    ot, dt_, tt = (torch.from_numpy(x).to(dev) for x in (o, d, t_max))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    h = ISECT.intersect(scene, ot, dt_)
+    sync()
+    t1 = time.perf_counter()
+    occ = ISECT.intersect_p(scene, ot, dt_, tt)
+    sync()
+    t2 = time.perf_counter()
+    return ((h.valid.cpu().numpy(), h.prim_index.cpu().numpy()),
+            occ.cpu().numpy(), h.t.cpu(), (t1 - t0, t2 - t1))
+
+
+def _check_ulp(what, n, counts):
+    bad = counts.get("other", 0)
+    share = sum(counts.values()) / n
+    if bad or share > ULP_LANE_SHARE:
+        raise AssertionError(f"{what}: {counts} of {n} lanes differ")
+
+
+def _shapes_cli(path, what, card):
+    """cli.main on a shapes fog box, counted: (report, image).  The render's
+    own seconds come from a wrapper of the CLI's render_photonbeam."""
+    import contextlib
+    import io
+
+    rec = {}
+    orig = CLI.render_photonbeam
+
+    def render(scene, *a, **k):
+        rec["n_triangles"] = scene.n_triangles
+        rec["tri_bvh"] = scene.tri_bvh is not None
+        out, rec["render_s"] = _timed(lambda: orig(scene, *a, **k))
+        return out
+
+    pfm = path[:-5] + ".pfm"
+    buf = io.StringIO()
+    CLI.render_photonbeam = render
+    ISECT.TRAVERSAL_STATS.reset()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, wall = _timed(lambda: CLI.main([path, "-o", pfm]))
+    finally:
+        CLI.render_photonbeam = orig
+    counts, trav = launches(FWD_KERNELS), ISECT.TRAVERSAL_STATS.as_dict()
+    if rc != 0:
+        raise AssertionError(f"cli on {what} returned {rc}: {buf.getvalue()}")
+    img = torch.from_numpy(IMG.read_pfm(pfm))
+    mean = check_image(img, img.shape[0], what)
+    out = dict(n_triangles=rec["n_triangles"], tri_bvh=rec["tri_bvh"],
+               wall_s=wall, render_s=rec["render_s"],
+               s_per_iter=rec["render_s"] / SHAPES_ITERS, image_mean=mean,
+               finite_nonzero=True, launches=counts,
+               statistics=_cli_stats(buf.getvalue()))
+    if trav["calls"]:
+        out["traversal"] = dict(
+            queries=trav["calls"], trips_mean=trav["trips"] / trav["calls"],
+            trips_max=trav["max_trips"],
+            host_reads_per_query=trav["host_reads"] / trav["calls"])
+    log(f"[shapes] {what} through cli.main: {rec['n_triangles']} triangles, "
+        f"tri-BVH {rec['tri_bvh']}, {img.shape[0]}x{img.shape[1]}, "
+        f"{SHAPES_ITERS} iterations x "
+        f"{out['statistics']['photon_paths'] // SHAPES_ITERS} photons: render "
+        f"{rec['render_s']:.3f} s ({out['s_per_iter']:.4f} s/iter), wall "
+        f"{wall:.3f} s; image mean {mean:.6f}, finite and non-zero; "
+        f"launches {counts}; traversal {out.get('traversal')} ({card})")
+    if counts["gather_forward"] <= 0:
+        raise AssertionError(f"{what}: row 1 did not launch {counts}")
+    return out
+
+
+def phase_shapes(dev, card):
+    """36. The extra shapes and scenes above 8,192 primitives; see the
+    module docstring."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_parity import shapes_fog_pbrt
+    from bre_tpu_torch.scene import builder as BLD
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name, text):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write(text)
+            return path
+
+        # (a) and (b) through cli.main at config 2's width
+        paths = {
+            "a": write("shapes_a.pbrt", shapes_fog_pbrt(256, SHAPES_ITERS)),
+            "b": write("shapes_b.pbrt", shapes_fog_pbrt(
+                256, SHAPES_ITERS, loop_levels=SHAPES_LOOP_LEVELS))}
+        out["a"] = _shapes_cli(paths["a"], "(a) the shapes fog box", card)
+        sc_b, t_build = _timed(lambda: PARSER.parse_file(
+            paths["b"], device=dev).build(device=dev))
+        out["b"] = _shapes_cli(paths["b"], "(b) the shapes fog box with a "
+                               f"level-{SHAPES_LOOP_LEVELS} Loop icosahedron",
+                               card)
+        out["b"]["parse_build_s"] = t_build
+        log(f"[shapes] (b) parse and build on the card: {t_build:.3f} s "
+            f"(Loop subdivision's Python loops and the tri-BVH build)")
+        if not (REF_PRIM_CHUNK < out["a"]["n_triangles"]
+                < BLD.BVH_MIN_TRIANGLES
+                and not out["a"]["tri_bvh"] and out["b"]["tri_bvh"]):
+            raise AssertionError(f"the shapes boxes: {out['a']} {out['b']}")
+        # (c) card against CPU: the images at 32x32 ((a)'s at 16x16: on the
+        # CPU its chunked sweep is the slowest part); each text parsed once
+        # on the CPU and built on both devices
+        def both(text):
+            ps = PARSER.parse_string(text, device=cpu)
+            cams = {dev: Camera(*(x.to(dev) for x in ps.camera)),
+                    cpu: ps.camera}
+            return ps, {d: (ps.build(device=d), cams[d]) for d in (dev, cpu)}
+
+        out["images"] = {}
+        for key, size, photons in (("a", 16, 256), ("b", 32, 512)):
+            ps, built = both(shapes_fog_pbrt(
+                size, 1, photons, SHAPES_LOOP_LEVELS if key == "b" else None))
+            imgs = []
+            for d in (dev, cpu):
+                sc, cam = built[d]
+                (img, _), t = _timed(lambda: PB.render_photonbeam(
+                    sc, cam, size, size, CLI.photonbeam_config(ps)))
+                imgs.append((img, t))
+            rel, close = _images_agree(imgs[0][0], imgs[1][0],
+                                       f"({key}) at {size}x{size}")
+            log(f"[shapes] (c) ({key}) {size}x{size} x {photons} photons, 1 "
+                f"iteration: card {imgs[0][1]:.3f} s, CPU {imgs[1][1]:.3f} s;"
+                f" means {rel:+.2e} apart, {close:.4f} of the pixels within "
+                f"rtol 1e-3 ({card})")
+            out["images"][key] = dict(size=size, photons=photons, rel_mean=rel,
+                                      close=close, card_s=imgs[0][1],
+                                      cpu_s=imgs[1][1])
+            if key == "b":
+                sc_b_cpu = built[cpu][0]
+        o, d, t_max = _shapes_box_rays(SHAPES_RAYS, 36)
+        out["queries"] = {}
+        sc_a = PARSER.parse_file(paths["a"], device=dev).build(device=dev)
+        sc_a_cpu = PARSER.parse_file(paths["a"], device=cpu).build(device=cpu)
+        for key, sc, sc_cpu in (("a", sc_a, sc_a_cpu), ("b", sc_b, sc_b_cpu)):
+            n = SHAPES_CPU_RAYS[key]
+            hit_c, occ_c, t_c, secs_c = _query_pair(sc, o, d, t_max)
+            hit_h, occ_h, t_h, secs_h = _query_pair(sc_cpu, o[:n], d[:n],
+                                                    t_max[:n])
+            near = _ulp_lanes(sc_cpu, o[:n], d[:n],
+                              tuple(x[:n] for x in hit_c), hit_h)
+            near_p = _ulp_lanes_any(sc_cpu, o[:n], d[:n], t_max[:n],
+                                    occ_c[:n], occ_h)
+            _check_ulp(f"({key}) intersect, card against CPU", n, near)
+            _check_ulp(f"({key}) intersect_p, card against CPU", n, near_p)
+            out["queries"][key] = dict(
+                card_s=secs_c, cpu_s=secs_h, lanes=SHAPES_RAYS, cpu_lanes=n,
+                ulp_lanes=near, ulp_lanes_p=near_p,
+                hit_share=float(hit_c[0].mean()), occluded=float(occ_c.mean()))
+            log(f"[shapes] (c) ({key}) intersect / intersect_p on "
+                f"{SHAPES_RAYS} rays on the card: {secs_c[0]:.3f} / "
+                f"{secs_c[1]:.3f} s ({hit_c[0].mean():.4f} hit, "
+                f"{occ_c.mean():.4f} occluded); the first {n} on the CPU "
+                f"{secs_h[0]:.3f} / {secs_h[1]:.3f} s; lanes whose index "
+                f"differs: {near}, occlusion: {near_p}")
+        del sc_a, sc_a_cpu
+        # the tri-BVH and the chunked sweep on (b)'s triangles: the same
+        # scene without its tree
+        m = SHAPES_ROUTE_RAYS
+        hit_s, occ_s, t_s, secs_s = _query_pair(sc_b._replace(tri_bvh=None),
+                                                o[:m], d[:m], t_max[:m])
+        hit_b, occ_b, t_b, secs_b = _query_pair(sc_b, o[:m], d[:m], t_max[:m])
+        near = _ulp_lanes(sc_b_cpu, o[:m], d[:m], hit_b, hit_s)
+        near_p = _ulp_lanes_any(sc_b_cpu, o[:m], d[:m], t_max[:m], occ_b,
+                                occ_s)
+        _check_ulp("(b) tri-BVH against the chunked sweep", m, near)
+        _check_ulp("(b) tri-BVH against the chunked sweep, occlusion", m,
+                   near_p)
+        same_t = bool(torch.equal(t_b[torch.from_numpy(hit_b[0])],
+                                  t_s[torch.from_numpy(hit_b[0])])) \
+            if (hit_b[0] == hit_s[0]).all() else None
+        out["routes"] = dict(lanes=m, bvh_s=secs_b, sweep_s=secs_s,
+                             ulp_lanes=near, ulp_lanes_p=near_p,
+                             same_t=same_t)
+        log(f"[shapes] (c) (b)'s scene, tri-BVH against the chunked sweep on "
+            f"{m} rays on the card: intersect {secs_b[0]:.3f} against "
+            f"{secs_s[0]:.3f} s, intersect_p {secs_b[1]:.3f} against "
+            f"{secs_s[1]:.3f} s; lanes whose index differs {near}, "
+            f"occlusion {near_p}; t bit for bit on the hits: {same_t}")
+        # (d) the attached gradient: the default PhotonBeamConfig() on (b)
+        out["grad"] = {}
+        _, built8 = both(shapes_fog_pbrt(8, 1, 1000, SHAPES_LOOP_LEVELS))
+        cam64 = both(shapes_fog_pbrt(64, 1, 1000))[1][dev][1]
+        for label, (sc, cam), wh, photons in (
+                ("card", (sc_b, cam64), 64, 20_000),
+                ("card_small", built8[dev], 8, 1_000),
+                ("cpu_small", built8[cpu], 8, 1_000)):
+            d_ = sc.device
+            cfg = dataclasses.replace(
+                PB.PhotonBeamConfig(), maxdepth=5, photonsperiteration=photons,
+                initialbeamradius=0.15,
+                tr_crossings=PB.default_tr_crossings(sc))
+            if d_.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(d_)
+            (loss, grads), t = _timed(lambda: fwd_bwd(
+                sc, cam, wh, cfg, 1, params=("sigma_a", "sigma_s", "g")))
+            check_grads(grads, f"(d) {label}")
+            peak = (torch.cuda.max_memory_allocated(d_) / 2 ** 30
+                    if d_.type == "cuda" else None)
+            out["grad"][label] = dict(size=wh, photons=photons, s=t,
+                                      value=loss, peak_gib=peak,
+                                      grads={k: v.cpu().tolist()
+                                             for k, v in grads.items()})
+        gc, gh = out["grad"]["card_small"], out["grad"]["cpu_small"]
+        rel = {k: float(np.abs(np.array(gc["grads"][k])
+                               - np.array(gh["grads"][k])).max()
+                        / np.abs(np.array(gh["grads"][k])).max())
+               for k in gh["grads"]}
+        out["grad"]["rel_diff"] = rel
+        big = out["grad"]["card"]
+        log(f"[shapes] (d) the default PhotonBeamConfig() (grad_geometry="
+            f"True) on (b), fwd+bwd in sigma_a, sigma_s, g at 64x64 x 20,000 "
+            f"photons on the card: {big['s']:.3f} s, peak "
+            f"{big['peak_gib']} GiB, value {big['value']:.6e}; at 8x8 x"
+            f" 1,000: card {gc['s']:.3f} s, CPU {gh['s']:.3f} s, max |diff| /"
+            f" max |cpu| {rel} (limit {GRAD_CONSISTENCY_RTOL}) ({card})")
+        if not (abs(gc["value"] / gh["value"] - 1) <= CONSISTENCY_RTOL
+                and max(rel.values()) <= GRAD_CONSISTENCY_RTOL):
+            raise AssertionError("(d): CUDA and CPU gradients disagree")
+        # (e) gather="lbvh" against gather="brute" on the fog box
+        ps = parse_cornell(dev, 64)
+        sc = ps.build(device=dev)
+        imgs = {}
+        for gather in ("lbvh", "brute"):
+            cfg = cli_cfg(ps, iterations=2, enditeration=2,
+                          photonsperiteration=512, max_candidates=2048,
+                          gather=gather)
+            (img, st), t = _timed(lambda: PB.render_photonbeam(
+                sc, ps.camera, 64, 64, cfg))
+            imgs[gather] = (img.cpu(), t / 2, st)
+        ovf = imgs["lbvh"][2]["lbvh_overflow"]
+        err = (imgs["lbvh"][0] - imgs["brute"][0]).abs()
+        tol = 2e-4 * imgs["brute"][0].abs() + 1e-7
+        worst = float((err / tol).max())
+        out["lbvh"] = dict(s_per_iter=imgs["lbvh"][1],
+                           brute_s_per_iter=imgs["brute"][1], overflow=ovf,
+                           worst_over_tol=worst,
+                           mean=float(imgs["lbvh"][0].mean()))
+        log(f"[shapes] (e) gather=\"lbvh\" on cornell_fog.pbrt at 64x64, 2 "
+            f"iterations x 512 photons, 2048 candidates per tile: "
+            f"{imgs['lbvh'][1]:.4f} s/iter against"
+            f" brute's {imgs['brute'][1]:.4f}; candidate overflow {ovf}; "
+            f"worst pixel at {worst:.3f} of rtol 2e-4 / atol 1e-7 ({card})")
+        check_image(imgs["lbvh"][0], 64, "(e) gather=\"lbvh\"")
+        if worst > 1.0:
+            raise AssertionError("(e): gather=\"lbvh\" and \"brute\" differ")
+        # the same route at the file's own photons per iteration and the
+        # default candidate cap: tiles overflow there, and the candidates
+        # past the cap are dropped as the reference drops them, so it is
+        # timed and its overflow counted, not held against brute
+        cfg = cli_cfg(ps, iterations=1, enditeration=1, gather="lbvh")
+        (img, st), t = _timed(lambda: PB.render_photonbeam(
+            sc, ps.camera, 64, 64, cfg))
+        check_image(img, 64, "(e) gather=\"lbvh\" at the file's photons")
+        out["lbvh"]["file_load"] = dict(
+            photons=cfg.photonsperiteration, max_candidates=cfg.max_candidates,
+            s_per_iter=t, overflow=int(st["lbvh_overflow"]),
+            mean=float(img.mean()))
+        log(f"[shapes] (e) gather=\"lbvh\" at 64x64, 1 iteration x "
+            f"{cfg.photonsperiteration} photons (the file's), "
+            f"{cfg.max_candidates} candidates per tile (the default): "
+            f"{t:.4f} s/iter; candidate overflow {int(st['lbvh_overflow'])} "
+            f"(dropped, as the reference drops them) ({card})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[shapes] phase 36 took {out['phase_s']:.2f} s")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -4074,6 +4518,10 @@ def main():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
                          "this smoke test needs a CUDA card")
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     dev = torch.device("cuda", 0)
     report = {"card": card_info(dev)}
@@ -4085,47 +4533,83 @@ def main():
     report["ptxas"] = ptxas_summary(cuda_build.build_log or "")
     for kernel, use in report["ptxas"].items():
         log(f"[ptxas] {kernel}: {use}")
+    mark("build")
     img_main, report["main"] = phase_main_path(dev)
+    mark("main_path")
     report["default_pick"] = phase_default_pick(dev, img_main)
+    mark("default_pick")
     report["breakdown"], sweeps = phase_breakdown(dev)
+    mark("breakdown")
     kernels = phase_parity(sweeps)
+    mark("parity")
     del sweeps
     report["consistency"] = phase_consistency(dev)
+    mark("consistency")
     report["bench_step"], bench_sweeps = phase_bench_step(dev)
+    mark("bench_step")
     report["spec_step"], spec_sweeps = phase_spec_step(dev)
+    mark("spec_step")
     report["trainer"] = phase_trainer(dev)
+    mark("trainer")
     kernels += phase_bwd_parity(bench_sweeps, spec_sweeps)
+    mark("bwd_parity")
     del bench_sweeps
     report["grad_consistency"] = phase_grad_consistency(dev)
+    mark("grad_consistency")
     img_smoke, report["smoke"] = phase_smoke_render(dev)
+    mark("smoke_render")
     report["smoke_counted"] = phase_smoke_counted(dev, img_smoke)
+    mark("smoke_counted")
     kernels += phase_smoke_parity(dev)
+    mark("smoke_parity")
     report["smoke_steps"], smoke_sweeps = phase_smoke_steps(dev)
+    mark("smoke_steps")
     kernels.append(phase_smoke_bwd_parity(smoke_sweeps))
+    mark("smoke_bwd_parity")
     del smoke_sweeps
     report["smoke_trainer"] = phase_smoke_trainer(dev)
+    mark("smoke_trainer")
     report["smoke_consistency"] = phase_smoke_consistency(dev)
+    mark("smoke_consistency")
     report["cli_config2"], route_sweep, img_cli2 = phase_cli_config2(dev)
+    mark("cli_config2")
     report["cli_config3"] = phase_cli_config3(dev, img_smoke)
+    mark("cli_config3")
     del img_smoke
     report["attached_step"], captured = phase_attached_step(dev)
+    mark("attached_step")
     report["analytic_bwd"], twopass_row, gather22 = phase_analytic_bwd(
         captured)
+    mark("analytic_bwd")
     del captured
     kernels.append(phase_twopass_timing(spec_sweeps, twopass_row, gather22))
+    mark("twopass_timing")
     del spec_sweeps, gather22
     report["breadth"] = phase_breadth(dev)
+    mark("breadth")
     report["nccl_world1"] = phase_nccl_world1(dev, report["card"])
+    mark("nccl_world1")
     torch.cuda.empty_cache()  # the ranks of phase 27 share the card
     report["ranks"] = phase_ranks(report["card"])
+    mark("ranks")
     report["dot_order"] = phase_dot_order(dev)
+    mark("dot_order")
     report["cli"] = phase_cli(dev, img_cli2)
+    mark("cli")
     report["compat_volpath"] = phase_compat_volpath(dev, report["card"])
+    mark("compat_volpath")
     report["photon_mapping"] = phase_photon_mapping(dev, report["card"])
+    mark("photon_mapping")
     report["bidirectional"] = phase_bidirectional(dev, report["card"])
+    mark("bidirectional")
     report["sparse_regime"] = phase_sparse_regime(dev, kernels)
+    mark("sparse_regime")
     report["surface_materials"] = phase_surface_materials(dev, report["card"])
+    mark("surface_materials")
     report["other_lights"] = phase_other_lights(dev, report["card"], report)
+    mark("other_lights")
+    report["shapes"] = phase_shapes(dev, report["card"])
+    mark("shapes")
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -4159,10 +4643,14 @@ def main():
         if k["name"] == "gather_forward_het":
             k["launches_cli"] = report["cli"]["config3"]["launches"][
                 "gather_forward_het"]
-        # row 1 launched by cli.main on the lit fog box (phase 35 (a))
+        # row 1 launched by cli.main on the lit fog box (phase 35 (a)) and
+        # on the shapes fog boxes (phase 36 (a), (b))
         if k["name"] == "gather_forward":
             k["launches_lit_fog_cli"] = report["other_lights"]["cli"][
                 "launches"]["gather_forward"]
+            k["launches_shapes_cli"] = [
+                report["shapes"][c]["launches"]["gather_forward"]
+                for c in ("a", "b")]
     report["kernels"] = kernels
     report["command_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4174,7 +4662,7 @@ def main():
     rows = [{k: kk[k] for k in keys} for kk in kernels]
     for row, kk in zip(rows, kernels):  # backward kernels: per cotangent
         for key in ("err_over_max_ref", "launches_non_packed", "launches_cli",
-                    "launches_lit_fog_cli",
+                    "launches_lit_fog_cli", "launches_shapes_cli",
                     "n_splits", "blocks", "beam_blocks", "regime"):
             if key in kk:
                 row[key] = kk[key]

@@ -923,3 +923,63 @@ def test_other_lights_on_card_match_cpu(dev, monkeypatch):
     monkeypatch.setattr(ML, "_step_evaluator", eager_steps)
     eager = ML.render_mlt(scenes[0], cam(dev, 16), 16, 16, mcfg).cpu()
     assert float(graphed.mean()) > 0 and torch.equal(graphed, eager)
+
+
+@pytest.mark.parametrize("bvh", [True, False])
+def test_large_scene_queries_on_card_match_cpu(dev, bvh, monkeypatch):
+    """The tri-BVH walk (on the card a CUDA graph per TRIPS_PER_READ trips,
+    on the CPU an eager loop dropping finished lanes) and the chunked sweep
+    (a chunk forced small) give the same winners, t and occlusion on the
+    card as on the CPU, on a 50 x 50 heightfield with a material-less box
+    (4,814 triangles)."""
+    from bre_tpu_torch.scene import builder as B
+    from bre_tpu_torch.scene import intersect as I
+
+    monkeypatch.setattr(B, "BVH_MIN_TRIANGLES", 1000 if bvh else 1 << 40)
+    monkeypatch.setattr(I, "SWEEP_ELEMENTS", 4096 * 512)
+    rs = np.random.RandomState(5)
+    z = 0.3 * rs.rand(50, 50).astype(np.float32)
+    built = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        b = SceneBuilder()
+        m = b.matte((0.5, 0.5, 0.5))
+        b.heightfield(z, (-1, -1, 0), (2, 2), material=m)
+        b.box((-1.5, -1.5, -1), (1.5, 1.5, 1), material=-1)
+        built[name] = b.build(device=d)
+    assert (built["cuda"].tri_bvh is not None) == bvh
+    n = 4096
+    o = rs.uniform(-1.2, 1.2, (n, 3)).astype(np.float32)
+    o[:, 2] = rs.uniform(0.4, 0.9, n)
+    dv = rs.normal(size=(n, 3)).astype(np.float32)
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True)
+    tm = rs.uniform(0.2, 3.0, n).astype(np.float32)
+    out = {}
+    for name, sc in built.items():
+        args = [torch.from_numpy(x).to(sc.device) for x in (o, dv, tm)]
+        h = I.intersect(sc, args[0], args[1])
+        occ = I.intersect_p(sc, *args)
+        out[name] = [x.cpu() for x in (h.valid, h.prim_index, h.t, occ)]
+    (vc, ic, tc, oc), (vh, ih, th, oh) = out["cuda"], out["cpu"]
+    field = vh & (ih < 2 * 49 * 49)  # the box's 12 triangles come last
+    assert 0.1 < float(field.float().mean()) < 1.0
+    assert torch.equal(vc, vh) and torch.equal(ic[vh], ih[vh])
+    torch.testing.assert_close(tc[vh], th[vh], rtol=4 * 2.0 ** -23, atol=0)
+    assert torch.equal(oc, oh)
+
+
+def test_lbvh_gather_on_card_matches_cpu(dev):
+    """gather="lbvh" renders the fog box on the card as on the CPU."""
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        cam = make_perspective_camera(
+            tfm.look_at((0, 0, -2.2), (0, 0, 1), (0, 1, 0)), 50.0, 32, 32,
+            device=d)
+        cfg = PhotonBeamConfig(iterations=1, maxdepth=5,
+                               photonsperiteration=1500,
+                               initialbeamradius=0.12, gather="lbvh",
+                               tile=64)
+        img, stats = render_photonbeam(_cornell(d), cam, 32, 32, cfg)
+        assert stats["lbvh_overflow"] == 0
+        imgs.append(img.cpu())
+    assert float(imgs[1].mean()) > 0
+    assert abs(float(imgs[0].mean() / imgs[1].mean()) - 1) < 1e-3

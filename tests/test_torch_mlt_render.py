@@ -11,6 +11,7 @@ would move a chain and fail these bounds.
 """
 
 import numpy as np
+import pytest
 
 from bre_tpu.integrators import mlt as jm
 from bre_tpu.scene.builder import SceneBuilder as JBuilder
@@ -22,7 +23,8 @@ from torch_parity import pixels_close, region_means, to_np
 WH = 8
 
 
-def test_render_mlt_matches_jax():
+@pytest.fixture(scope="module")
+def images():
     cfg = dict(maxdepth=2, bootstrapsamples=64, chains=16, mutationsperpixel=2)
     cam_t, cam_j = cameras(WH)
     img_t = to_np(tm.render_mlt(sphere_point_light(SceneBuilder(),
@@ -30,8 +32,20 @@ def test_render_mlt_matches_jax():
                                 cam_t, WH, WH, tm.MLTConfig(**cfg)))
     img_j = np.asarray(jm.render_mlt(sphere_point_light(JBuilder()), cam_j, WH,
                                      WH, jm.MLTConfig(**cfg)))
+    return img_t, img_j
+
+
+def test_render_mlt_matches_jax(images):
+    img_t, img_j = images
     assert np.isfinite(img_t).all() and img_j.mean() > 0
     np.testing.assert_allclose(img_t.mean(), img_j.mean(), rtol=1e-4)
+
+
+def test_render_mlt_regions_match_jax(images):
+    img_t, img_j = images
     np.testing.assert_allclose(region_means(img_t), region_means(img_j),
                                rtol=1e-3, atol=1e-7)
-    pixels_close(img_t, img_j)
+
+
+def test_render_mlt_pixels_match_jax(images):
+    pixels_close(*images)

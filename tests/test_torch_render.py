@@ -53,14 +53,19 @@ def test_render_photonbeam_matches():
     (dict(gather="lbvh"), "lbvh"),
 ])
 def test_unported_options_raise(over, match, tmp_path):
+    """The name is from when these options raised NotImplementedError;
+    gather="lbvh", the last of them, is ported and now renders, as a plain
+    render and with a checkpoint written at its end, the same image both
+    ways (against gather="brute": tests/test_torch_lbvh_gather.py)."""
     cfg = tpb.PhotonBeamConfig(**{**CFG, **over})
+    assert getattr(cfg, "gather") == match
     scene = cornell_fog(TBuilder(), device="cpu")
     cam = tcam(ttfm.look_at(*LOOK), 50.0, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tpb.render_photonbeam(scene, cam, 8, 8, cfg)
-    # checkpoint_path is ported (tests/test_torch_checkpoint.py): an
-    # unported option still raises before any iteration writes one
+    img, stats = tpb.render_photonbeam(scene, cam, 8, 8, cfg)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    # 4,000 photons' beams pass the 4,096 candidates of a tile: counted
+    assert float(img.mean()) > 0 and stats["lbvh_overflow"] > 0
     ck = tmp_path / "ck.npz"
-    with pytest.raises(NotImplementedError, match=match):
-        tpb.render_photonbeam(scene, cam, 8, 8, cfg, checkpoint_path=str(ck))
-    assert not ck.exists()
+    img_ck, _ = tpb.render_photonbeam(scene, cam, 8, 8, cfg,
+                                      checkpoint_path=str(ck))
+    assert ck.exists() and torch.equal(img_ck, img)

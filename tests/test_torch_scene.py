@@ -59,6 +59,9 @@ def test_builder_matches_scene_from_jax():
                         device="cpu")
     for group in ts._fields:
         a, b = getattr(ts, group), getattr(cs, group)
+        if a is None:  # tri_bvh below builder.BVH_MIN_TRIANGLES
+            assert b is None, group
+            continue
         if isinstance(a, torch.Tensor):
             np.testing.assert_array_equal(to_np(a), to_np(b), err_msg=group)
             continue

@@ -30,9 +30,10 @@ from torch_parity import SURFACE_FOV, SURFACE_LOOK, surface_scene, to_np
 CFG = dict(iterations=2, maxdepth=2, photonsperiteration=200, radius=0.25)
 
 
-@pytest.mark.parametrize("kernel", ["physical"])
-def test_vsppm_surfaces_match_jax(kernel):
-    cfg = dict(kernel=kernel, **CFG)
+@pytest.fixture(scope="module")
+def renders():
+    """(port image, port stats, reference image, reference stats)."""
+    cfg = dict(kernel="physical", **CFG)
     js = surface_scene(JBuilder(), textured=False)
     jc = jcam.make_perspective_camera(jtfm.look_at(*SURFACE_LOOK),
                                       SURFACE_FOV, W, W)
@@ -42,7 +43,17 @@ def test_vsppm_surfaces_match_jax(kernel):
         tcam.make_perspective_camera(ttfm.look_at(*SURFACE_LOOK), SURFACE_FOV,
                                      W, W, device="cpu"),
         W, W, tv.VSPPMConfig(**cfg))
+    return to_np(img_t), stats_t, img_j, stats_j
+
+
+def test_vsppm_surface_statistics_match_jax(renders):
+    _, stats_t, _, stats_j = renders
     assert stats_t == stats_j
     assert stats_t["medium_interactions"] > 0 and stats_t["vp_surface"] > 0
-    assert np.isfinite(to_np(img_t)).all() and img_j.max() > 0
-    np.testing.assert_allclose(to_np(img_t), img_j, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("kernel", ["physical"])
+def test_vsppm_surfaces_match_jax(kernel, renders):
+    img_t, _, img_j, _ = renders
+    assert np.isfinite(img_t).all() and img_j.max() > 0
+    np.testing.assert_allclose(img_t, img_j, rtol=1e-4, atol=1e-7)

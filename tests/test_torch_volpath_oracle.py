@@ -12,6 +12,7 @@ This file imports no JAX: chip_smoke.py takes its scenes and ``_check``.
 """
 
 import numpy as np
+import pytest
 
 from bre_tpu_torch.core import transform as tfm
 from bre_tpu_torch.integrators.photonbeam import (PhotonBeamConfig,
@@ -21,13 +22,14 @@ from bre_tpu_torch.scene.builder import SceneBuilder
 from bre_tpu_torch.scene.camera import make_perspective_camera
 
 
-def _check(est, truth, mean_tol, region_tol, n_region=3):
-    """tests/test_photonbeam_vs_volpath.py's _check, verbatim."""
-    t = np.asarray(truth)
-    e = np.asarray(est)
+def _check_mean(e, t, mean_tol):
     ratio = e.mean() / t.mean()
     assert 1 - mean_tol < ratio < 1 + mean_tol, (
         f"mean ratio {ratio}: BRE {e.mean()} vs volpath {t.mean()}")
+    return float(ratio)
+
+
+def _check_regions(e, t, region_tol, n_region=3):
     wh = t.shape[0]
     blk = wh // n_region
     tr_ = t[: n_region * blk, : n_region * blk].reshape(
@@ -37,13 +39,26 @@ def _check(est, truth, mean_tol, region_tol, n_region=3):
     sig = tr_ > 0.1 * t.mean()
     rr = er_[sig] / tr_[sig]
     assert (np.abs(rr - 1.0) < region_tol).all(), f"region ratios {rr}"
+    return rr.tolist()
+
+
+def _check_corr(e, t):
+    wh = t.shape[0]
     k = wh // 8
     td = t[: 8 * k, : 8 * k].reshape(8, k, 8, k, 3).mean((1, 3, 4)).ravel()
     ed = e[: 8 * k, : 8 * k].reshape(8, k, 8, k, 3).mean((1, 3, 4)).ravel()
     corr = np.corrcoef(td, ed)[0, 1]
     assert corr > 0.95, f"spatial correlation {corr}"
-    return dict(mean_ratio=float(ratio), region_ratios=rr.tolist(),
-                corr=float(corr))
+    return float(corr)
+
+
+def _check(est, truth, mean_tol, region_tol, n_region=3):
+    """tests/test_photonbeam_vs_volpath.py's _check: its three checks."""
+    t = np.asarray(truth)
+    e = np.asarray(est)
+    return dict(mean_ratio=_check_mean(e, t, mean_tol),
+                region_ratios=_check_regions(e, t, region_tol, n_region),
+                corr=_check_corr(e, t))
 
 
 def fog_cube_scene(device, sigma_a=0.05, sigma_s=0.4, g=0.0, intensity=1.0):
@@ -106,6 +121,21 @@ def oracle_renders(name, device):
     return truth.cpu().numpy(), est.cpu().numpy()
 
 
-def test_bre_matches_volpath_fog_cube():
+@pytest.fixture(scope="module")
+def fog_cube():
+    """(BRE image, volpath image) of the fog cube, the renders the three
+    checks share."""
     truth, est = oracle_renders("fog_cube", "cpu")
-    _check(est, truth, **ORACLES["fog_cube"][5])
+    return np.asarray(est), np.asarray(truth)
+
+
+def test_bre_matches_volpath_fog_cube(fog_cube):
+    _check_mean(*fog_cube, ORACLES["fog_cube"][5]["mean_tol"])
+
+
+def test_bre_matches_volpath_fog_cube_regions(fog_cube):
+    _check_regions(*fog_cube, ORACLES["fog_cube"][5]["region_tol"])
+
+
+def test_bre_matches_volpath_fog_cube_correlation(fog_cube):
+    _check_corr(*fog_cube)

@@ -289,3 +289,143 @@ def env_sphere(b, kinds=("distant", "envmap"), seed=0, **build_kw):
     b.sphere((0, 0, 0), 1.0, material=b.matte((0.6, 0.55, 0.5)))
     add_lights(b, kinds, light_images(seed))
     return b.build(**build_kw)
+
+
+# --- the extra shapes (ROADMAP Queue 1 items 5.5-5.6) ---
+
+# examples/cornell_fog.pbrt's box, fog, light and camera; the shapes sit in
+# the fog, with fog on both sides
+_FOG_BOX_HEAD = """Integrator "photonbeam"
+    "integer iterations" [ {iters} ]
+    "integer photonsperiteration" [ {photons} ]
+    "float initialbeamradius" [ 0.15 ]
+    "integer maxdepth" [ 5 ]
+Film "image" "integer xresolution" [ {size} ] "integer yresolution" [ {size} ]
+    "string filename" "shapes_fog.pfm"
+LookAt 0 1 -3.9   0 1 0   0 1 0
+Camera "perspective" "float fov" 40
+
+WorldBegin
+MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [ .02 .02 .02 ] "rgb sigma_s" [ .25 .25 .25 ] "float g" 0.2
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .73 .73 .73 ]
+  Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ]
+      "point P" [ -1 0 -1   -1 0 1   1 0 1   1 0 -1 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ -1 2 -1   -1 2 1   1 2 1   1 2 -1 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ -1 0 1   -1 2 1   1 2 1   1 0 1 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .65 .05 .05 ]
+  Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ]
+      "point P" [ -1 0 -1   -1 0 1   -1 2 1   -1 2 -1 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "" "fog"
+  Material "matte" "rgb Kd" [ .12 .45 .15 ]
+  Shape "trianglemesh" "integer indices" [ 0 2 1 0 3 2 ]
+      "point P" [ 1 0 -1   1 0 1   1 2 1   1 2 -1 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "" "fog"
+  AreaLightSource "diffuse" "rgb L" [ 9 8 6 ]
+  Material "none"
+  Shape "trianglemesh" "integer indices" [ 0 1 2 0 2 3 ]
+      "point P" [ -0.3 1.99 -0.3   0.3 1.99 -0.3   0.3 1.99 0.3   -0.3 1.99 0.3 ]
+AttributeEnd
+"""
+
+_FOG_BOX_SHAPES = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "matte" "rgb Kd" [ .6 .55 .5 ]
+  AttributeBegin
+    Translate -0.6 1.4 0.5
+    Rotate 30 1 0 0
+    Shape "disk" "float radius" 0.2
+    Translate 0.15 -0.5 0
+    Shape "disk" "float radius" 0.2 "float innerradius" 0.1
+  AttributeEnd
+  AttributeBegin
+    Translate 0.55 0.3 0.4
+    Rotate -90 1 0 0
+    Shape "cylinder" "float radius" 0.12 "float zmin" -0.2 "float zmax" 0.3
+    Translate -0.3 0.4 0
+    Shape "cone" "float radius" 0.15 "float height" 0.4
+    Translate 0 -0.5 0.1
+    Shape "paraboloid" "float radius" 0.15 "float zmax" 0.3
+  AttributeEnd
+  AttributeBegin
+    Translate -0.5 0.4 -0.2
+    Scale 0.2 0.2 0.3
+    Shape "hyperboloid"
+  AttributeEnd
+  AttributeBegin
+    Material "matte" "rgb Kd" [ .3 .5 .7 ]
+    Shape "curve" "point P" [ -0.7 1.6 -0.3  -0.3 1.8 -0.2  0.2 1.5 -0.4  0.6 1.7 -0.3 ]
+        "float width0" 0.04 "float width1" 0.01
+    Shape "curve" "string type" "cylinder"
+        "point P" [ -0.6 0.9 -0.5  -0.2 1.3 -0.4  0.2 0.7 -0.5  0.6 1.1 -0.4 ]
+        "float width" 0.03
+    Shape "curve" "string type" "ribbon"
+        "point P" [ -0.6 0.5 -0.6  -0.2 0.7 -0.5  0.2 0.3 -0.6  0.6 0.6 -0.5 ]
+        "normal N" [ 0 0 -1  0 1 -1 ] "float width" 0.05
+  AttributeEnd
+  AttributeBegin
+    Material "matte" "rgb Kd" [ .7 .6 .2 ]
+    Translate 0.1 1.1 0.6
+    Scale 0.5 0.5 0.3
+    Shape "nurbs" "integer nu" 3 "integer nv" 3 "integer uorder" 3
+        "integer vorder" 3 "float uknots" [ 0 0 0 1 1 1 ]
+        "float vknots" [ 0 0 0 1 1 1 ] "point P" [ 0 0 0  0.5 0 0.6  1 0 0
+          0 0.5 0.4  0.5 0.5 -0.5  1 0.5 0.3  0 1 0  0.5 1 0.5  1 1 0 ]
+        "float Pw" [ 1 2 1 1 0.5 1 1 2 1 ]
+  AttributeEnd
+  AttributeBegin
+    Material "matte" "rgb Kd" [ .5 .5 .45 ]
+    Translate -0.95 0.02 0.95
+    Scale 1.9 1 1.9
+    Rotate -90 1 0 0
+    Shape "heightfield" "integer nu" {hf} "integer nv" {hf} "float Pz" [ {pz} ]
+  AttributeEnd
+{loop}AttributeEnd
+WorldEnd
+"""
+
+# a regular icosahedron, for Loop subdivision
+_ICO_T = (1.0 + 5 ** 0.5) / 2.0
+ICOSAHEDRON_P = [(-1, _ICO_T, 0), (1, _ICO_T, 0), (-1, -_ICO_T, 0),
+                 (1, -_ICO_T, 0), (0, -1, _ICO_T), (0, 1, _ICO_T),
+                 (0, -1, -_ICO_T), (0, 1, -_ICO_T), (_ICO_T, 0, -1),
+                 (_ICO_T, 0, 1), (-_ICO_T, 0, -1), (-_ICO_T, 0, 1)]
+ICOSAHEDRON_F = [0, 11, 5, 0, 5, 1, 0, 1, 7, 0, 7, 10, 0, 10, 11, 1, 5, 9,
+                 5, 11, 4, 11, 10, 2, 10, 7, 6, 7, 1, 8, 3, 9, 4, 3, 4, 2,
+                 3, 2, 6, 3, 6, 8, 3, 8, 9, 4, 9, 5, 2, 4, 11, 6, 2, 10,
+                 8, 6, 7, 9, 8, 1]
+
+
+def shapes_fog_pbrt(size, iters=16, photons=65536, loop_levels=None, hf=64,
+                    seed=36):
+    """examples/cornell_fog.pbrt with one Shape of each kind in its fog: a
+    disk, an annulus, a cylinder, a cone, a paraboloid, a hyperboloid, a
+    curve of each type, a rational NURBS patch and an hf x hf heightfield
+    of seeded heights (10,288 triangles at hf = 64); with ``loop_levels``,
+    also a Loop-subdivided icosahedron (20 x 4^levels triangles)."""
+    rs = np.random.RandomState(seed)
+    pz = " ".join(f"{v:.5f}" for v in 0.12 * rs.rand(hf * hf))
+    loop = ""
+    if loop_levels is not None:
+        pts = "  ".join(f"{x:.6f} {y:.6f} {z:.6f}" for x, y, z in
+                        ICOSAHEDRON_P)
+        loop = ("  AttributeBegin\n"
+                '    Material "matte" "rgb Kd" [ .4 .6 .4 ]\n'
+                "    Translate 0.35 0.75 0.1\n    Scale 0.16 0.16 0.16\n"
+                '    Shape "loopsubdiv" "integer nlevels" '
+                f'{loop_levels} "integer indices" '
+                f'[ {" ".join(map(str, ICOSAHEDRON_F))} ] '
+                f'"point P" [ {pts} ]\n  AttributeEnd\n')
+    return (_FOG_BOX_HEAD.format(size=size, iters=iters, photons=photons)
+            + _FOG_BOX_SHAPES.format(hf=hf, pz=pz, loop=loop))
