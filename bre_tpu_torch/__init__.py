@@ -17,8 +17,9 @@ the ranks of a ``torch.distributed`` process group (``parallel.mesh``,
 hand-written CUDA kernels (``ops/gather.py``, ``ops/gather_bwd.py``,
 ``csrc/``), and the scene input around them: the ``.pbrt`` parser, image
 and PLY I/O, checkpoint/resume and the command line,
-``python -m bre_tpu_torch.cli scene.pbrt``.  Paths outside the slices raise
-``NotImplementedError`` naming their ROADMAP item.
+``python -m bre_tpu_torch.cli scene.pbrt``; the reference's other
+integrators, and every material, texture, light, shape and camera its
+parser builds.
 """
 
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam

@@ -186,7 +186,7 @@ def _nee_one(scene, light_idx, p, n, wo, mat_idx, med_idx, is_surface, u2,
     tex = dict(textures=scene.textures, p=p, uv=uv, duv_dx=duv_dx,
                duv_dy=duv_dy)
     f_surf, pdf_surf = eval_bsdf(scene.materials, mat_idx, n, wo, ls.wi,
-                                 **tex)
+                                 tangent=tangent, **tex)
     f_surf = f_surf * absdot(ls.wi, n)[:, None]
     _, _, g_here, _, _ = gather_medium(scene.media, med_idx)
     phase_l = hg_p(wo, ls.wi, g_here)

@@ -50,11 +50,11 @@ def _slice_lift_matrix(k: int, device="cpu") -> torch.Tensor:
 
 def slice_scene(scene: Scene, k: int) -> Scene:
     """The scene with every color field lifted to slice k's wavelengths
-    (spectral.py:91-115): the materials' kd and ks, and their mix amounts
-    clipped to [0, 1], the lights' emission and image means, the media's
-    sigma_a and sigma_s.  The light atlas, the env map's sampling tables,
-    conductor eta/k and the textures stay RGB, as there (the reference's
-    BSSRDF coefficients belong to materials the port does not carry)."""
+    (spectral.py:91-115): the materials' kd and ks (a hair's sigma_a among
+    them), their mix amounts clipped to [0, 1] and their BSSRDF sigmas,
+    the lights' emission and image means, the media's sigma_a and
+    sigma_s.  The light atlas, the env map's sampling tables, conductor
+    eta/k, the Fourier tables and the textures stay RGB, as there."""
     L = _slice_lift_matrix(k, scene.device)
 
     def lift(c):
@@ -64,7 +64,9 @@ def slice_scene(scene: Scene, k: int) -> Scene:
     return scene._replace(
         materials=m._replace(kd=lift(m.kd), ks=lift(m.ks),
                              mix_amount=torch.clamp(lift(m.mix_amount),
-                                                    0.0, 1.0)),
+                                                    0.0, 1.0),
+                             bss_sigma_a=lift(m.bss_sigma_a),
+                             bss_sigma_s=lift(m.bss_sigma_s)),
         lights=scene.lights._replace(emit=lift(scene.lights.emit),
                                      img_mean=lift(scene.lights.img_mean)),
         media=scene.media._replace(sigma_a=lift(scene.media.sigma_a),

@@ -19,9 +19,15 @@ strategies "uniform", "power" and "spatial" (``lights.
 spatial_light_distribution``), every sampler of ``core/samplers``
 (random, stratified, 02sequence, sobol, maxmindist, halton), and
 ``texture_filter``: ray differentials at the first hits and EWA image-map
-lookups where the scene has an image atlas.  Scenes the slice does not
-render raise (``check_slice``: subsurface materials among them, so the
-reference's BSSRDF branch is never needed).
+lookups where the scene has an image atlas.  Subsurface and kdsubsurface
+materials take the reference's BSSRDF branch on transmission events
+(``_bssrdf_exit``, ``_bssrdf_nee``): an exit point by a probe segment with
+a fixed chain of ``_BSSRDF_CHAIN_K`` re-intersections, next-event
+estimation there with the adapter BSDF, and a cosine-sampled
+continuation.  The branch and its draws run where the material table
+holds those tags, as the reference's static guard decides.  The camera
+rays take the lens samples (thin lens, realistic camera), and a realistic
+camera's vignetted rays weigh 0.
 """
 
 from __future__ import annotations
@@ -31,20 +37,29 @@ from typing import Optional
 
 import torch
 
-from ..core.math import absdot, dot, offset_ray_origin
+import math
+
+from ..bssrdf import (bssrdf_sample_sr, bssrdf_sr, pdf_sp, sw_factor)
+from ..core.math import (absdot, coordinate_system, dot, face_forward,
+                         length, offset_ray_origin)
+from ..core.sampling import cosine_sample_hemisphere
 from ..core.rng import pcg32_init
 from ..core.samplers import (make_sample_stream, make_stream_spec, stream_1d,
                              stream_camera_sample)
 from ..core.spectrum import luminance
 from ..lights import (area_light_emitted, escaped_radiance,
-                      power_light_distribution, spatial_light_distribution)
+                      power_light_distribution, sample_li,
+                      spatial_light_distribution)
 from ..materials import MODE_RADIANCE, sample_bsdf
 from ..media import gather_medium, hg_sample_p, sample_medium
 from ..scene.camera import (Camera, generate_ray_differentials,
                             generate_rays_weighted, pixel_centers)
-from ..scene.intersect import compute_uv_differentials, intersect
-from ..scene.scene import Scene, check_slice
-from .common import default_tr_crossings, sample_all_lights, sample_one_light
+from ..scene.intersect import (compute_uv_differentials, intersect,
+                               intersect_p)
+from ..scene.scene import (MAT_KDSUBSURFACE, MAT_SUBSURFACE, Scene,
+                           check_slice)
+from .common import (default_tr_crossings, sample_all_lights,
+                     sample_one_light, segment_transmittance_det)
 
 _U32 = 0xFFFFFFFF
 # lanes per batch of sample passes: at most this many camera paths (whole
@@ -86,6 +101,130 @@ def _check_config(cfg: VolPathConfig) -> None:
             f"unknown lightsamplestrategy {cfg.lightsamplestrategy!r}")
 
 
+# the probe segment's intersection chain (bssrdf.cpp:296-313 keeps an
+# unbounded list; four hits cover a convex object's front and back and two
+# more), volpath.py:83
+_BSSRDF_CHAIN_K = 4
+
+
+def has_bssrdf(scene: Scene) -> bool:
+    """Whether the material table holds a subsurface material: the BSSRDF
+    branch and its draws run then (materials.py:72-82)."""
+    kinds = scene.materials.kinds
+    return bool(kinds[MAT_SUBSURFACE]) or bool(kinds[MAT_KDSUBSURFACE])
+
+
+def _bssrdf_exit(scene: Scene, rng, active, po_p, ns, mi):
+    """The BSSRDF's exit point (SeparableBSSRDF::Sample_Sp, bssrdf.cpp:
+    247-325; volpath.py:84-174): a projection axis and a channel, a
+    profile radius, then the probe segment re-intersected ``_BSSRDF_CHAIN_K``
+    times, keeping hits on the same material; one of them picked.
+    Returns (rng, dict(ok, p, n, medium, weight = Sp / pdf))."""
+    R = po_p.shape[0]
+    mats = scene.materials
+    tables = mats.bss_tables
+    sig_a = mats.bss_sigma_a[mi]
+    sig_s = mats.bss_sigma_s[mi]
+    sigma_t = sig_a + sig_s
+    rho = torch.where(sigma_t > 0, sig_s / torch.where(
+        sigma_t == 0, torch.ones_like(sigma_t), sigma_t),
+        torch.zeros_like(sigma_t))
+    tidx = mats.bss_table[mi]
+    ss, ts = coordinate_system(ns)
+    rng, u1 = stream_1d(rng)
+    rng, u2a = stream_1d(rng)
+    rng, u2b = stream_1d(rng)
+
+    # the projection axis, .5/.25/.25 toward the normal (bssrdf.cpp:251-270)
+    c_n = (u1 < 0.5)[:, None]
+    c_s = ((u1 >= 0.5) & (u1 < 0.75))[:, None]
+    vx = torch.where(c_n, ss, torch.where(c_s, ts, ns))
+    vy = torch.where(c_n, ts, torch.where(c_s, ns, ss))
+    vz = torch.where(c_n, ns, torch.where(c_s, ss, ts))
+    u1 = torch.where(c_n[:, 0], u1 * 2.0, torch.where(
+        c_s[:, 0], (u1 - 0.5) * 4.0, (u1 - 0.75) * 4.0))
+    # the channel (bssrdf.cpp:272-274)
+    ch = torch.clamp((u1 * 3.0).to(torch.int64), 0, 2)
+    u1 = u1 * 3.0 - ch.to(torch.float32)
+    st_ch = torch.gather(sigma_t, 1, ch[:, None])[:, 0]
+    rho_ch = torch.gather(rho, 1, ch[:, None])[:, 0]
+    r = bssrdf_sample_sr(tables, tidx, st_ch, rho_ch, u2a)
+    r_max = bssrdf_sample_sr(tables, tidx, st_ch, rho_ch,
+                             torch.full_like(u2a, 0.999))
+    ok = active & (r >= 0.0) & (r < r_max) & (r_max > 0.0)
+    phi = 2.0 * math.pi * u2b
+    half_l = torch.sqrt(torch.clamp_min(r_max * r_max - r * r, 0.0))
+    cur_o = (po_p + r[:, None] * (vx * torch.cos(phi)[:, None]
+                                  + vy * torch.sin(phi)[:, None])
+             - half_l[:, None] * vz)
+
+    # the intersection chain (bssrdf.cpp:290-313), K fixed steps
+    remaining = 2.0 * half_l
+    chain_alive = ok
+    ps, nns, meds, match = [], [], [], []
+    for _ in range(_BSSRDF_CHAIN_K):
+        h = intersect(scene, cur_o, vz, t_max=torch.clamp_min(remaining, 0.0))
+        hit_ok = chain_alive & h.valid & (h.t < remaining)
+        hp = cur_o + h.t[:, None] * vz
+        ps.append(hp)
+        nns.append(h.n)
+        meds.append(h.medium_outside)
+        match.append(hit_ok & (h.material == mi))
+        cur_o = torch.where(hit_ok[:, None], offset_ray_origin(hp, h.n, vz),
+                            cur_o)
+        remaining = torch.where(hit_ok, remaining - h.t, remaining)
+        chain_alive = hit_ok
+    match = torch.stack(match, 0).to(torch.int64)  # (K, R)
+    n_found = match.sum(0)
+    selected = torch.minimum(
+        torch.clamp_min((u1 * n_found.to(torch.float32)).to(torch.int64), 0),
+        torch.clamp_min(n_found - 1, 0))
+    rank = torch.cumsum(match, 0) - match
+    sel = (match > 0) & (rank == selected[None, :])  # (K, R) one-hot
+    selw = sel.to(torch.float32)[:, :, None]
+    pi_p = (selw * torch.stack(ps, 0)).sum(0)
+    pi_n = (selw * torch.stack(nns, 0)).sum(0)
+    pi_med = torch.where(sel, torch.stack(meds, 0),
+                         torch.zeros_like(match)).sum(0)
+    ok = ok & (n_found > 0)
+    # the pdf of this combination of strategies over nFound (:316-324)
+    pdf = pdf_sp(tables, tidx, sigma_t, rho, po_p - pi_p, pi_n, ss, ts, ns)
+    pdf = pdf / torch.clamp_min(n_found.to(torch.float32), 1.0)
+    sp = bssrdf_sr(tables, tidx, sigma_t, rho, length(po_p - pi_p))
+    ok = ok & (pdf > 1e-12) & (sp.sum(-1) > 0.0)
+    weight = torch.where(ok[:, None], sp / torch.where(
+        ok, pdf, torch.ones_like(pdf))[:, None], torch.zeros_like(sp))
+    return rng, dict(ok=ok, p=pi_p, n=pi_n, medium=pi_med, weight=weight)
+
+
+def _bssrdf_nee(scene: Scene, rng, p, n, eta, med_idx):
+    """Next-event estimation at the BSSRDF's exit point with the
+    SeparableBSSRDFAdapter BSDF, f = Sw(wi) eta^2 (bssrdf.h:162-180;
+    volpath.py:177-202): one light picked uniformly."""
+    R = p.shape[0]
+    n_lights = scene.n_lights
+    if n_lights == 0:
+        return rng, torch.zeros((R, 3), dtype=torch.float32, device=p.device)
+    rng, u_pick = stream_1d(rng)
+    light_idx = torch.clamp_max((u_pick * n_lights).to(torch.int64),
+                                n_lights - 1)
+    rng, ua = stream_1d(rng)
+    rng, ub = stream_1d(rng)
+    ls = sample_li(scene, light_idx, p, torch.stack([ua, ub], -1))
+    cos_i = dot(ls.wi, n)
+    f = (sw_factor(eta, cos_i) * eta * eta * torch.clamp_min(cos_i, 0.0)
+         )[:, None]
+    o_shadow = offset_ray_origin(p, n, ls.wi)
+    t_shadow = ls.dist * (1.0 - 1e-3)
+    occluded = intersect_p(scene, o_shadow, ls.wi, t_shadow)
+    tr = segment_transmittance_det(scene, med_idx, o_shadow, ls.wi, t_shadow)
+    ok = ~occluded & (ls.pdf > 1e-12) & (cos_i > 0.0)
+    contrib = f * ls.Li * tr / torch.where(ok, ls.pdf,
+                                           torch.ones_like(ls.pdf))[:, None]
+    return rng, torch.where(ok[:, None], contrib,
+                            torch.zeros_like(contrib)) * float(n_lights)
+
+
 def light_distribution(scene: Scene, strategy: str):
     """The NEE light-pick table of a strategy (volpath.py:450-470): None
     for "uniform" (and for a scene without lights)."""
@@ -125,6 +264,7 @@ def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
     bounces = torch.zeros((R,), dtype=torch.int64, device=dev)
     no_mat = torch.full((R,), -1, dtype=torch.int64, device=dev)
     all_surf = torch.ones((R,), dtype=torch.bool, device=dev)
+    bssrdf = has_bssrdf(scene)
 
     for _ in range(cfg.maxdepth + 2):
         h = intersect(scene, o, d)
@@ -203,11 +343,52 @@ def _li_batch(scene: Scene, o, d, rng, cfg: VolPathConfig,
             is_boundary, medium_after_boundary, torch.where(
                 cont_surf & (dot(bs.wi, h.n) > 0.0), h.medium_outside,
                 torch.where(cont_surf, h.medium_inside, medium))))
+
+        # the BSSRDF: subsurface transport on transmission events
+        # (path.cpp:153-170; volpath.py:351-395)
+        sss_ok = sss_failed = None
+        if bssrdf:
+            mats = scene.materials
+            mi_s = torch.clamp(h.material, 0, mats.mtype.shape[0] - 1)
+            mt_s = mats.mtype[mi_s]
+            transmitted = dot(bs.wi, h.n) * dot(-d, h.n) < 0.0
+            is_sss = (cont_surf & ((mt_s == MAT_SUBSURFACE)
+                                   | (mt_s == MAT_KDSUBSURFACE))
+                      & transmitted)
+            eta_s = mats.eta[mi_s]
+            rng, probe = _bssrdf_exit(scene, rng, is_sss, h_p,
+                                      face_forward(h.n, -d), mi_s)
+            sss_ok = is_sss & probe["ok"]
+            sss_failed = is_sss & ~probe["ok"]
+            beta_sss = new_beta * probe["weight"]
+            rng, nee_sss = _bssrdf_nee(scene, rng, probe["p"], probe["n"],
+                                       eta_s, probe["medium"])
+            ok3 = sss_ok[:, None]
+            L = L + torch.where(ok3, beta_sss * nee_sss, zero)
+            # the continuation: the adapter cosine-sampled, f cos / pdf =
+            # pi Sw
+            rng, q0 = stream_1d(rng)
+            rng, q1 = stream_1d(rng)
+            wl = cosine_sample_hemisphere(torch.stack([q0, q1], -1))
+            bx, by = coordinate_system(probe["n"])
+            wi_sss = (wl[:, 0:1] * bx + wl[:, 1:2] * by
+                      + wl[:, 2:3] * probe["n"])
+            sw = sw_factor(eta_s, torch.clamp_min(wl[:, 2], 0.0))
+            beta_sss = beta_sss * (math.pi * sw * eta_s * eta_s)[:, None]
+            new_o = torch.where(ok3, offset_ray_origin(
+                probe["p"], probe["n"], wi_sss), new_o)
+            new_d = torch.where(ok3, wi_sss, new_d)
+            new_beta = torch.where(ok3, beta_sss, new_beta)
+            new_medium = torch.where(sss_ok, probe["medium"], new_medium)
         bounces = bounces + (scattered | cont_surf).to(torch.int64)
         new_alive = alive & (scattered | is_boundary | cont_surf)
+        if sss_failed is not None:
+            new_alive = new_alive & ~sss_failed
         new_alive = new_alive & (luminance(new_beta) > 0.0)
         new_alive = new_alive & (bounces < cfg.maxdepth)
         specular = torch.where(cont_surf, bs.specular, specular & is_boundary)
+        if sss_ok is not None:
+            specular = specular & ~sss_ok  # the exit lobe is diffuse
         first = first & is_boundary
 
         # Russian roulette past three bounces (volpath.cpp:150-158)

@@ -1,8 +1,9 @@
 """Declarative scene builder (counterpart of ``bre_tpu/scene/builder.py``).
 
-The slice's subset: homogeneous and grid-density media (one grid per
-scene), the analytic surface materials (matte, mirror, glass, metal,
-plastic, uber, substrate, translucent, mix), the texture table with its
+Homogeneous and grid-density media (one grid per scene), every material
+of the reference (matte, mirror, glass, metal, plastic, uber, substrate,
+translucent, mix, hair, subsurface and kdsubsurface with their
+beam-diffusion tables, and the measured Fourier BSDF), the texture table with its
 MIPMap atlas, spheres, triangles (with per-vertex shading normals and uvs,
 and pbrt's ``ss = normalize(dpdu)`` tangent from the uvs), quads, boxes,
 the shapes the reference tessellates into triangles (disk, cylinder, cone,
@@ -18,12 +19,18 @@ match the reference, so ``build()`` yields the same values as
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..accel.lbvh import build_lbvh
+from ..bssrdf import (bssrdf_tables, compute_beam_diffusion_bssrdf,
+                      get_medium_scattering_properties,
+                      subsurface_from_diffuse)
+from ..fourier import read_bsdf_file, stack_fourier_tables
+from ..hair import sigma_a_from_concentration
 from ..materials import COPPER_ETA, COPPER_K
 from ..textures import (TEX_BILERP, TEX_CHECKERBOARD, TEX_CONSTANT, TEX_DOTS,
                         TEX_FBM, TEX_IMAGE, TEX_MARBLE, TEX_MIX, TEX_SCALE,
@@ -32,8 +39,9 @@ from ..textures import (TEX_BILERP, TEX_CHECKERBOARD, TEX_CONSTANT, TEX_DOTS,
 from ..core import transform as tfm
 from .scene import (LIGHT_DIFFUSE_AREA, LIGHT_DISTANT, LIGHT_GONIOMETRIC,
                     LIGHT_INFINITE, LIGHT_POINT, LIGHT_PROJECTION, LIGHT_SPOT,
-                    MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX,
-                    MAT_PLASTIC, MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_UBER,
+                    MAT_FOURIER, MAT_GLASS, MAT_HAIR, MAT_KDSUBSURFACE,
+                    MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_MIX, MAT_PLASTIC,
+                    MAT_SUBSTRATE, MAT_SUBSURFACE, MAT_TRANSLUCENT, MAT_UBER,
                     MEDIUM_GRID, MEDIUM_HOMOGENEOUS, SHAPE_SPHERE,
                     SHAPE_TRIANGLE, Lights, Materials, Media, Scene, Spheres,
                     Triangles, light_kinds, material_kinds, resolve_device)
@@ -84,19 +92,108 @@ class SceneBuilder:
         self._tex: List[dict] = []
         self._images: List[list] = []  # MIPMap pyramids of image textures
         self._light_images: List[list] = []  # pyramids of the light images
+        self._bss_tables: List[dict] = []  # beam-diffusion tables
+        self._bss_keys: dict = {}  # (g, eta) -> row of _bss_tables
+        self._fourier_tables: List = []  # fourier.FourierTable rows
         self.camera_medium = -1
 
     # --- materials (reference src/materials/*.cpp) ---
     def _add_mat(self, mtype, kd, ks, eta=1.0, roughness=0.0,
                  metal_eta=(1.0, 1.0, 1.0), metal_k=(0.0, 0.0, 0.0),
                  kd_tex=-1, mix_m1=-1, mix_m2=-1,
-                 mix_amount=(0.5, 0.5, 0.5)) -> int:
+                 mix_amount=(0.5, 0.5, 0.5), beta_n=0.3, hair_alpha=2.0,
+                 bss_sigma_a=(0, 0, 0), bss_sigma_s=(0, 0, 0), bss_table=-1,
+                 fourier=-1) -> int:
         self._mat.append(dict(
             mtype=mtype, kd=_rgb(kd), ks=_rgb(ks), eta=eta,
             roughness=roughness, metal_eta=_rgb(metal_eta),
             metal_k=_rgb(metal_k), kd_tex=kd_tex, mix_m1=mix_m1,
-            mix_m2=mix_m2, mix_amount=_rgb(mix_amount)))
+            mix_m2=mix_m2, mix_amount=_rgb(mix_amount), beta_n=beta_n,
+            hair_alpha=hair_alpha, bss_sigma_a=_rgb(bss_sigma_a),
+            bss_sigma_s=_rgb(bss_sigma_s), bss_table=bss_table,
+            fourier=fourier))
         return len(self._mat) - 1
+
+    def _bss_table_for(self, g: float, eta: float) -> int:
+        """One beam-diffusion table per unique (g, eta)
+        (ComputeBeamDiffusionBSSRDF; builder.py:122-133)."""
+        key = (round(float(g), 6), round(float(eta), 6))
+        if key not in self._bss_keys:
+            self._bss_keys[key] = len(self._bss_tables)
+            self._bss_tables.append(compute_beam_diffusion_bssrdf(g, eta))
+        return self._bss_keys[key]
+
+    def subsurface(self, name=None, sigma_a=None, sigma_s=None, g=0.0,
+                   eta=1.33, scale=1.0, kr=(1.0, 1.0, 1.0),
+                   kt=(1.0, 1.0, 1.0)) -> int:
+        """SubsurfaceMaterial (subsurface.cpp:46-137; builder.py:135-166):
+        a smooth dielectric BSDF and a TabulatedBSSRDF.  ``name`` takes a
+        measured medium's sigmas and forces g = 0; the defaults are
+        Wholemilk's."""
+        sa = np.asarray((0.0011, 0.0024, 0.014), np.float32)
+        ss = np.asarray((2.55, 3.21, 3.77), np.float32)
+        if name is not None:
+            props = get_medium_scattering_properties(name)
+            if props is None:
+                warnings.warn(f'named scattering material "{name}" not '
+                              "found; using defaults")
+            else:
+                ss, sa = props
+                g = 0.0
+        if sigma_a is not None:
+            sa = _rgb(sigma_a)
+        if sigma_s is not None:
+            ss = _rgb(sigma_s)
+        tab = self._bss_table_for(g, eta)
+        return self._add_mat(MAT_SUBSURFACE, kd=kr, ks=kt, eta=eta,
+                             bss_sigma_a=scale * sa, bss_sigma_s=scale * ss,
+                             bss_table=tab)
+
+    def kdsubsurface(self, kd=(0.5, 0.5, 0.5), mfp=(1.0, 1.0, 1.0), g=0.0,
+                     eta=1.33, scale=1.0, kr=(1.0, 1.0, 1.0),
+                     kt=(1.0, 1.0, 1.0)) -> int:
+        """KdSubsurfaceMaterial (kdsubsurface.cpp:44-124; builder.py:
+        168-182): the sigmas inverted from a diffuse color and a mean free
+        path (SubsurfaceFromDiffuse)."""
+        tab = self._bss_table_for(g, eta)
+        sa, ss = subsurface_from_diffuse(self._bss_tables[tab], _rgb(kd),
+                                         scale * _rgb(mfp))
+        return self._add_mat(MAT_KDSUBSURFACE, kd=kr, ks=kt, eta=eta,
+                             bss_sigma_a=sa, bss_sigma_s=ss, bss_table=tab)
+
+    def hair(self, sigma_a=None, color=None, eumelanin=None, pheomelanin=0.0,
+             beta_m=0.3, beta_n=0.3, alpha=2.0, eta=1.55) -> int:
+        """HairMaterial (hair.cpp CreateHairMaterial; builder.py:184-208):
+        sigma_a given, from a reflectance ``color`` (SigmaAFromReflectance)
+        or from melanin concentrations; sigma_a is stored in kd and
+        beta_m in roughness."""
+        if sigma_a is None:
+            if color is not None:
+                c = np.clip(_rgb(color), 1e-4, 0.999)
+                denom = (5.969 - 0.215 * beta_n + 2.532 * beta_n**2
+                         - 10.73 * beta_n**3 + 5.574 * beta_n**4
+                         + 0.245 * beta_n**5)
+                sigma_a = (np.log(c) / denom) ** 2
+            else:  # the reference's eumelanin 1.3 by default
+                sigma_a = sigma_a_from_concentration(
+                    1.3 if eumelanin is None else eumelanin,
+                    pheomelanin if eumelanin is not None else 0.0)
+        return self._add_mat(MAT_HAIR, kd=sigma_a, ks=(0, 0, 0), eta=eta,
+                             roughness=beta_m, beta_n=beta_n,
+                             hair_alpha=alpha)
+
+    def fourier_material(self, bsdffile=None, table=None) -> int:
+        """FourierMaterial (fourier.cpp:200-230; builder.py:964-978): a
+        tabulated BSDF from a SCATFUN ``.bsdf`` file or an in-memory
+        ``fourier.FourierTable``."""
+        if table is None:
+            if bsdffile is None:
+                raise ValueError("fourier material needs bsdffile= or table=")
+            table = read_bsdf_file(bsdffile)
+        self._fourier_tables.append(table)
+        return self._add_mat(MAT_FOURIER, kd=(0, 0, 0), ks=(0, 0, 0),
+                             eta=table.eta,
+                             fourier=len(self._fourier_tables) - 1)
 
     def matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0, kd_tex=-1) -> int:
         """Lambertian whatever ``sigma`` is, as the reference's matte BSDF
@@ -135,8 +232,9 @@ class SceneBuilder:
         return self._add_mat(MAT_TRANSLUCENT, kd, kt)
 
     def mix(self, m1: int, m2: int, amount=(0.5, 0.5, 0.5)) -> int:
-        """MixMaterial (mixmat.cpp): amount m1 + (1 - amount) m2, one level
-        deep (``check_slice`` refuses a mix of mixes)."""
+        """MixMaterial (mixmat.cpp): amount m1 + (1 - amount) m2.  A mix may
+        name a mix; the BSDFs read one level of sub-material, as the
+        reference's do (materials.py:267-283, 492-505)."""
         return self._add_mat(MAT_MIX, (0, 0, 0), (0, 0, 0), mix_m1=m1,
                              mix_m2=m2, mix_amount=amount)
 
@@ -870,6 +968,11 @@ class SceneBuilder:
             col(mat, "eta", torch.float32), col(mat, "roughness", torch.float32),
             stack(mat, "metal_eta"), stack(mat, "metal_k"), col(mat, "kd_tex"),
             col(mat, "mix_m1"), col(mat, "mix_m2"), stack(mat, "mix_amount"),
+            col(mat, "beta_n", torch.float32),
+            col(mat, "hair_alpha", torch.float32), stack(mat, "bss_sigma_a"),
+            stack(mat, "bss_sigma_s"), col(mat, "bss_table"),
+            bssrdf_tables(self._bss_tables, device), col(mat, "fourier"),
+            stack_fourier_tables(self._fourier_tables, device),
             material_kinds([r["mtype"] for r in mat]))
         atlas, img_offs = pack_atlas(self._images)
         tex = self._tex

@@ -10,20 +10,21 @@ CTM and every transformed point are computed in numpy float32 with the
 reference's expressions, so ``parse_file(p).build()`` equals
 ``scene_from_jax(bre_tpu parse_file(p).build())`` bit for bit.
 
-Three kinds of input, as the reference treats them and as the port must:
+Two kinds of input, as the reference treats them:
 - directives, materials, lights, shapes and media the reference does not
   know either: warn and skip, or fall back (matte, a point light,
   perspective), exactly as the reference does;
-- what the reference builds and the port cannot render (the hair,
-  subsurface, kdsubsurface and fourier materials, cameras other than
-  perspective): NotImplementedError naming the ROADMAP Queue 1 item, never
-  a silent skip that would render another scene;
-- everything else: built as the reference builds it.  Every shape the
-  reference reads is among them: the quadrics, curves, Loop subdivision
+- everything else: built as the reference builds it.  Every statement the
+  reference builds is among them.  The quadrics, curves, Loop subdivision
   surfaces and NURBS patches become the builder's triangles; a quadric's
   axis is the CTM's z axis, a "flat" curve (the default type) faces the
   camera's eye, a ribbon's two normals go through the inverse CTM, and a
-  malformed curve warns and is skipped, as there.
+  malformed curve warns and is skipped, as there.  Every camera (the
+  perspective with its thin lens, orthographic, environment, and the
+  realistic camera with its lens file, read beside the including file) and
+  every material (hair, fourier with its ``.bsdf`` file, subsurface,
+  kdsubsurface, and a mix of mixes) is built.  ``TransformTimes`` only
+  warns, as there: camera motion is the programmatic ``core.animated``.
 """
 
 from __future__ import annotations
@@ -41,20 +42,12 @@ from ..core import transform as tfm
 from ..io.image import read_image
 from ..io.ply import read_ply
 from .builder import SceneBuilder
-from .camera import Camera, make_perspective_camera
-from .scene import LIGHT_DIFFUSE_AREA, MAT_MIX, SHAPE_TRIANGLE
+from .camera import (Camera, make_environment_camera,
+                     make_orthographic_camera, make_perspective_camera,
+                     make_realistic_camera)
+from .scene import LIGHT_DIFFUSE_AREA, SHAPE_TRIANGLE
 
 _TOKEN_RE = re.compile(r'"[^"]*"|\[|\]|[^\s"\[\]#]+|#[^\n]*')
-
-_BREADTH = "ROADMAP Queue 1 item 5: breadth"
-# materials the reference builds and the port does not (ROADMAP Queue 1
-# item 5.8; bre_tpu/scene/parser.py:241-284)
-_REF_MATERIALS = ("hair", "fourier", "subsurface", "kdsubsurface")
-_REF_CAMERAS = ("orthographic", "realistic", "environment")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported ({_BREADTH}, {item})")
 
 
 def tokenize(text: str) -> List[str]:
@@ -259,10 +252,46 @@ def parse_string(text: str, include_dir: Path = Path("."),
                                _f(params, "roughness", 0.1))
         if mat_type == "translucent":
             return b.translucent(_p3(params, "Kd", (0.25,) * 3))
-        if mat_type == "fourier" and not str(
-                params.get("bsdffile", "")).strip('"'):
-            warnings.warn("fourier material needs bsdffile; using matte")
-            return b.matte()
+        if mat_type == "hair":
+            kw = {}
+            if "sigma_a" in params:
+                kw["sigma_a"] = _p3(params, "sigma_a", (0.5,) * 3)
+            elif "color" in params:
+                kw["color"] = _p3(params, "color", (0.5,) * 3)
+            elif "eumelanin" in params or "pheomelanin" in params:
+                kw["eumelanin"] = _f(params, "eumelanin", 1.3)
+                kw["pheomelanin"] = _f(params, "pheomelanin", 0.0)
+            return b.hair(beta_m=_f(params, "beta_m", 0.3),
+                          beta_n=_f(params, "beta_n", 0.3),
+                          alpha=_f(params, "alpha", 2.0),
+                          eta=_f(params, "eta", 1.55), **kw)
+        if mat_type == "fourier":
+            fn = str(params.get("bsdffile", "")).strip('"')
+            if not fn:
+                warnings.warn("fourier material needs bsdffile; using matte")
+                return b.matte()
+            return b.fourier_material(bsdffile=str(ts.include_dir / fn))
+        if mat_type == "subsurface":
+            kw = {}
+            if "name" in params:
+                kw["name"] = str(params["name"]).strip('"')
+            if "sigma_a" in params:
+                kw["sigma_a"] = _p3(params, "sigma_a", (0.0011, 0.0024, 0.014))
+            if "sigma_s" in params:
+                kw["sigma_s"] = _p3(params, "sigma_s", (2.55, 3.21, 3.77))
+            return b.subsurface(g=_f(params, "g", 0.0),
+                                eta=_f(params, "eta", 1.33),
+                                scale=_f(params, "scale", 1.0),
+                                kr=_p3(params, "Kr", (1.0,) * 3),
+                                kt=_p3(params, "Kt", (1.0,) * 3), **kw)
+        if mat_type == "kdsubsurface":
+            return b.kdsubsurface(kd=_p3(params, "Kd", (0.5,) * 3),
+                                  mfp=_p3(params, "mfp", (1.0,) * 3),
+                                  g=_f(params, "g", 0.0),
+                                  eta=_f(params, "eta", 1.33),
+                                  scale=_f(params, "scale", 1.0),
+                                  kr=_p3(params, "Kr", (1.0,) * 3),
+                                  kt=_p3(params, "Kt", (1.0,) * 3))
         if mat_type == "mix":
             m1 = named_materials.get(
                 str(params.get("namedmaterial1", "")).strip('"'), -1)
@@ -271,11 +300,7 @@ def parse_string(text: str, include_dir: Path = Path("."),
             if m1 < 0 or m2 < 0:
                 warnings.warn("mix material needs namedmaterial1/2")
                 return b.matte()
-            if b._mat[m1]["mtype"] == MAT_MIX or b._mat[m2]["mtype"] == MAT_MIX:
-                raise _not_ported("a mix of mixes", "materials")
             return b.mix(m1, m2, _p3(params, "amount", (0.5,) * 3))
-        if mat_type in _REF_MATERIALS:
-            raise _not_ported(f"material '{mat_type}'", "materials")
         if mat_type in ("", "none"):
             return -1
         warnings.warn(f"material '{mat_type}' not implemented; using matte")
@@ -343,8 +368,8 @@ def parse_string(text: str, include_dir: Path = Path("."),
             ts.next(), ts.next()  # start, end
             warnings.warn(
                 "TransformTimes: scene transforms are static here; camera "
-                "motion blur (core.animated) is not ported (ROADMAP Queue 1 "
-                "item 5)")
+                "motion blur is available programmatically via "
+                "core.animated + generate_rays_animated")
         elif tok == "ActiveTransform":
             ts.next()  # StartTime | EndTime | All
         elif tok == "Identity":
@@ -709,18 +734,45 @@ def parse_string(text: str, include_dir: Path = Path("."),
 
     camera = None
     if cam_to_world is not None:
+        c2w = np.asarray(cam_to_world)
         if cam_type == "perspective":
-            # lensradius and focaldistance are not read: the photon-beam
-            # camera pass generates rays without lens samples, as the
-            # reference's does (bre_tpu/integrators/photonbeam.py:214)
+            # the thin lens is read by volpath alone, which passes lens
+            # samples (bre_tpu/integrators/volpath.py:481-490)
             camera = make_perspective_camera(
-                np.asarray(cam_to_world),
-                _f(cam_params, "fov", 90.0),
-                width, height,
-                device=device,
-            )
-        elif cam_type in _REF_CAMERAS:
-            raise _not_ported(f"camera '{cam_type}'", "cameras")
+                c2w, _f(cam_params, "fov", 90.0), width, height,
+                lens_radius=_f(cam_params, "lensradius", 0.0),
+                focal_distance=_f(cam_params, "focaldistance", 1e6),
+                device=device)
+        elif cam_type == "orthographic":
+            camera = make_orthographic_camera(c2w, width, height,
+                                              device=device)
+        elif cam_type == "realistic":
+            # the lens file beside the including file; a missing or empty
+            # one warns and falls back to perspective (parser.py:746-768)
+            lens_file = str(cam_params.get("lensfile", "")).strip('"')
+            rows = []
+            try:
+                for line in (ts.include_dir / lens_file).read_text(
+                        ).splitlines():
+                    line = line.split("#")[0].strip()
+                    if line:
+                        rows.append([float(v) for v in line.split()])
+            except OSError as e:
+                warnings.warn(f"cannot read lens file '{lens_file}': {e}")
+            if rows:
+                camera = make_realistic_camera(
+                    c2w, rows, width, height,
+                    aperture_diameter=_f(cam_params, "aperturediameter", 1.0),
+                    focus_distance=_f(cam_params, "focusdistance", 10.0),
+                    film_diag=_f(cam_params, "filmdiag", 35.0) * 1e-3,
+                    device=device)
+            else:
+                warnings.warn("realistic camera without lensfile; perspective")
+                camera = make_perspective_camera(c2w, 45.0, width, height,
+                                                 device=device)
+        elif cam_type == "environment":
+            camera = make_environment_camera(c2w, width, height,
+                                             device=device)
         else:
             warnings.warn(f"camera '{cam_type}' unsupported; using perspective")
             camera = make_perspective_camera(

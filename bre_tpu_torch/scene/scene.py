@@ -4,9 +4,10 @@
 NamedTuples of tensors with integer tags; -1 means "none" (no material,
 vacuum, no area light).  Ids are int64 so they index directly; positions,
 colors and parameters are float32.  Only the fields the ported slice reads
-are carried: the analytic surface materials (matte, mirror, glass, metal,
-plastic, uber, substrate, translucent and one-level mixes) and the texture
-table, every light type of the reference (point, spot, goniometric and
+are carried: every material of the reference (matte, mirror, glass,
+metal, plastic, uber, substrate, translucent, hair, subsurface,
+kdsubsurface, the measured Fourier BSDF, and mixes, read one level deep)
+with the BSSRDF and Fourier tables, the texture table, every light type of the reference (point, spot, goniometric and
 projection lights, diffuse area lights on triangles and spheres, distant
 lights, and infinite lights, constant or image-mapped, with the light-image
 atlas and the one env map's sampling tables), homogeneous and grid-density
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from ..accel.lbvh import LBVH
+from ..bssrdf import BSSRDFTables
+from ..fourier import FourierTables
 from ..textures import Textures, textures_from_jax
 
 # Material type tags (bre_tpu/scene/scene.py:26-39)
@@ -39,15 +42,11 @@ MAT_UBER = 5  # uber.cpp (as plastic)
 MAT_SUBSTRATE = 6  # substrate.cpp (FresnelBlend)
 MAT_TRANSLUCENT = 7  # translucent.cpp (two-sided Lambert)
 MAT_MIX = 8  # mixmat.cpp (blend of two sub-materials)
-MAT_HAIR = 9  # hair.cpp: not ported
-MAT_SUBSURFACE = 10  # subsurface.cpp: not ported
-MAT_KDSUBSURFACE = 11  # kdsubsurface.cpp: not ported
-MAT_FOURIER = 12  # fourier.cpp: not ported
+MAT_HAIR = 9  # hair.cpp (Marschner / Chiang fiber BSDF)
+MAT_SUBSURFACE = 10  # subsurface.cpp (dielectric + TabulatedBSSRDF)
+MAT_KDSUBSURFACE = 11  # kdsubsurface.cpp (sigmas from a diffuse color)
+MAT_FOURIER = 12  # fourier.cpp (measured FourierBSDF table)
 N_MAT_TAGS = 13
-# the tags check_slice refuses, by name (ROADMAP Queue 1 item 5.8)
-_UNPORTED_MATERIALS = {MAT_HAIR: "hair", MAT_SUBSURFACE: "subsurface",
-                       MAT_KDSUBSURFACE: "kdsubsurface",
-                       MAT_FOURIER: "fourier"}
 
 # Light type tags (bre_tpu/scene/scene.py:42-48)
 LIGHT_POINT = 0  # point.cpp
@@ -111,6 +110,17 @@ class Materials(NamedTuple):
     mix_m1: torch.Tensor  # (Nm,) int64 first sub-material of a mix or -1
     mix_m2: torch.Tensor  # (Nm,) int64 second sub-material or -1
     mix_amount: torch.Tensor  # (Nm, 3) weight of m1
+    beta_n: torch.Tensor  # (Nm,) hair azimuthal roughness (beta_m is in
+    # roughness, sigma_a in kd)
+    hair_alpha: torch.Tensor  # (Nm,) hair scale tilt, degrees
+    # subsurface: world-space sigmas (after "scale", or inverted from Kd
+    # and mfp for kdsubsurface) and the row of the profile table
+    bss_sigma_a: torch.Tensor  # (Nm, 3)
+    bss_sigma_s: torch.Tensor  # (Nm, 3)
+    bss_table: torch.Tensor  # (Nm,) int64 row of bss_tables or -1
+    bss_tables: "object"  # bssrdf.BSSRDFTables
+    fourier: torch.Tensor  # (Nm,) int64 row of fourier_tables or -1
+    fourier_tables: "object"  # fourier.FourierTables
     # (N_MAT_TAGS,) bool, on the host whatever the device: which tags the
     # table holds, decided when it is built (the reference reads mtype
     # with numpy on each call); the BSDFs skip the lobes of absent tags
@@ -221,10 +231,8 @@ def check_slice(scene: Scene) -> None:
     """Raise NotImplementedError for scene content outside the ported slice;
     ValueError where a table's host-side ``kinds`` lacks a tag it holds."""
     m, L, mt = scene.materials, scene.lights, scene.media.mtype
-    n = m.mtype.shape[0]
-    is_mix = m.mtype == MAT_MIX
     # one host read for the presence of every material and light tag and
-    # for the refusals below; a second only where there are mixes
+    # for the refusals below
     flags = ([(m.mtype == tag).any() for tag in range(N_MAT_TAGS)]
              + [((m.mtype < MAT_MATTE) | (m.mtype >= N_MAT_TAGS)).any()]
              + [(L.ltype == tag).any() for tag in range(N_LIGHT_TAGS)]
@@ -238,11 +246,6 @@ def check_slice(scene: Scene) -> None:
     mat_held, held = held[:N_MAT_TAGS + 1], held[N_MAT_TAGS + 1:]
     light_held, held = held[:N_LIGHT_TAGS], held[N_LIGHT_TAGS:]
     bad_light, bad_area, bad_medium, two_grids = held
-    for tag, name in _UNPORTED_MATERIALS.items():
-        if mat_held[tag]:
-            raise NotImplementedError(
-                f"material '{name}' is not ported (ROADMAP Queue 1 item 5: "
-                "breadth, materials)")
     if mat_held[-1]:
         raise NotImplementedError("unknown material type tag")
     for what, kinds, held_tags, remedy in (
@@ -253,13 +256,6 @@ def check_slice(scene: Scene) -> None:
         if missing:
             raise ValueError(f"{what}.kinds lacks the tags {missing} that the "
                              f"table holds: rebuild it with {remedy}")
-    if mat_held[MAT_MIX]:
-        subs = torch.cat([m.mix_m1[is_mix], m.mix_m2[is_mix]])
-        if bool((m.mtype[subs.clamp(0, n - 1)] == MAT_MIX).any()):
-            raise NotImplementedError(
-                "a mix whose sub-material is a mix is not supported "
-                "(ROADMAP Queue 1 item 5: breadth, materials; the "
-                "reference's mix is one level deep too)")
     if bad_light:
         raise NotImplementedError("unknown light type tag")
     if bad_area:
@@ -317,6 +313,7 @@ def scene_from_jax(scene_jax, device="cuda") -> Scene:
     s, t = scene_jax.spheres, scene_jax.triangles
     m, L, md = scene_jax.materials, scene_jax.lights, scene_jax.media
     nt = np.asarray(t.p0).shape[0]
+    bt, ft = m.bss_tables, m.fourier_tables
 
     def vn(x):  # per-vertex normals: (0,3) in scenes built without them
         a = np.asarray(x)
@@ -333,7 +330,15 @@ def scene_from_jax(scene_jax, device="cuda") -> Scene:
         materials=Materials(
             i(m.mtype), f(m.kd), f(m.ks), f(m.eta), f(m.roughness),
             f(m.metal_eta), f(m.metal_k), i(m.kd_tex), i(m.mix_m1),
-            i(m.mix_m2), f(m.mix_amount), material_kinds(m.mtype)),
+            i(m.mix_m2), f(m.mix_amount), f(m.beta_n), f(m.hair_alpha),
+            f(m.bss_sigma_a), f(m.bss_sigma_s), i(m.bss_table),
+            BSSRDFTables(f(bt.rho), f(bt.radius), f(bt.profile),
+                         f(bt.rho_eff), f(bt.cdf)),
+            i(m.fourier),
+            FourierTables(f(ft.eta), f(ft.mu), f(ft.cdf), f(ft.a0),
+                          i(ft.a_offset), i(ft.m), f(ft.a),
+                          i(ft.n_channels), int(ft.m_max)),
+            material_kinds(m.mtype)),
         lights=Lights(
             i(L.ltype), f(L.position), f(L.direction), f(L.emit),
             i(L.shape_kind), i(L.shape_index), i(L.two_sided), i(L.medium),

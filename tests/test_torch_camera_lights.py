@@ -42,7 +42,7 @@ from bre_tpu_torch.core import spectrum as tspec
 from bre_tpu_torch.scene import camera as tcam
 from bre_tpu_torch.scene.builder import SceneBuilder
 from bre_tpu_torch.scene.scene import scene_from_jax
-from torch_parity import SMOKE_W2M, pcg_state, smoke_density, to_np
+from torch_parity import SMOKE_W2M, leaves, pcg_state, smoke_density, to_np
 
 LOOK = ((0.3, 0.5, -3.4), (0.0, 0.4, 0.0), (0, 1, 0))
 W, H = 24, 16
@@ -79,8 +79,8 @@ def test_sphere_area_light_builds_as_reference(scenes):
     ts, js = scenes
     ref = scene_from_jax(js, device="cpu")
     for part in ("spheres", "lights", "materials", "media"):
-        for name, a, b in zip(getattr(ts, part)._fields, getattr(ts, part),
-                              getattr(ref, part)):
+        for (name, a), (_, b) in zip(leaves(getattr(ts, part)),
+                                     leaves(getattr(ref, part))):
             np.testing.assert_array_equal(to_np(a), to_np(b),
                                           err_msg=f"{part}.{name}")
     np.testing.assert_array_equal(to_np(ts.world_min), to_np(ref.world_min))

@@ -983,3 +983,84 @@ def test_lbvh_gather_on_card_matches_cpu(dev):
         imgs.append(img.cpu())
     assert float(imgs[1].mean()) > 0
     assert abs(float(imgs[0].mean() / imgs[1].mean()) - 1) < 1e-3
+
+
+def test_cameras_and_fiber_materials_on_card_match_cpu(dev):
+    """Every camera kind's generate_rays (with lens samples) and the
+    realistic camera's weighted rays (weights equal), the hair, Fourier
+    and BSSRDF queries, card against CPU on the same inputs: rays atol
+    2e-5, the BSDFs and profiles rtol 2e-3 / atol 1e-5 of the largest
+    magnitude with at most 0.1% of the lanes further (tests/
+    test_torch_hair.py's rule: the card's exp, log, asin and atan2 round in
+    their own ways, and narrow hair lobes amplify them)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_parity import fiber_materials
+    from bre_tpu_torch import bssrdf as TB
+    from bre_tpu_torch import materials as TM
+    from bre_tpu_torch.scene import camera as TC
+
+    cpu = torch.device("cpu")
+    rs = np.random.RandomState(16)
+    n = 1 << 14
+    W, H = 64, 48
+    p = torch.from_numpy((rs.uniform(0, 1, (n, 2)) * (W, H)).astype(
+        np.float32))
+    u = torch.from_numpy(rs.uniform(0, 1, (n, 2)).astype(np.float32))
+    c2w = tfm.look_at((0, 1, -3.9), (0, 1, 0), (0, 1, 0))
+    rows = [[50.0, 5.0, 1.5, 30.0], [0.0, 2.0, 0.0, 6.0],
+            [-50.0, 45.0, 1.0, 30.0]]
+    makers = (
+        lambda d: TC.make_perspective_camera(c2w, 40.0, W, H, 0.05, 3.0,
+                                             device=d),
+        lambda d: TC.make_orthographic_camera(c2w, W, H, device=d),
+        lambda d: TC.make_environment_camera(c2w, W, H, device=d),
+        lambda d: TC.make_realistic_camera(c2w, rows, W, H, 12.0, 3.9,
+                                           device=d))
+    for make in makers:
+        outs = [TC.generate_rays_weighted(make(d), p.to(d), u.to(d))
+                for d in (dev, cpu)]
+        (oc, dc, wc), (oh, dh, wh) = ([x.cpu() for x in o] for o in outs)
+        assert torch.equal(wc, wh)
+        torch.testing.assert_close(oc, oh, rtol=0, atol=2e-5 * max(
+            float(oh.abs().max()), 1.0))
+        torch.testing.assert_close(dc, dh, rtol=0, atol=2e-5)
+
+    def mostly(a, b):
+        a, b = a.cpu(), b.cpu()
+        tol = 1e-5 * max(float(b.abs().max()), 1e-30) + 2e-3 * b.abs()
+        bad = (a - b).abs() > tol
+        if bad.dim() == 2:
+            bad = bad.any(-1)
+        assert int(bad.sum()) <= b.shape[0] // 1000
+
+    built = []
+    for d in (dev, cpu):
+        b = SceneBuilder()
+        ids = fiber_materials(b)
+        built.append(b.build(device=d))
+    names = ("hair", "hair_rough", "fourier", "subsurface", "mix_of_mixes")
+    mat = torch.from_numpy(np.asarray([ids[k] for k in names])[
+        rs.randint(0, len(names), n)])
+    nrm, wo, wi = (torch.nn.functional.normalize(torch.from_numpy(
+        rs.normal(size=(n, 3)).astype(np.float32)), dim=-1) for _ in range(3))
+    tan = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+    st = torch.from_numpy(rs.uniform(0.5, 20.0, (n, 3)).astype(np.float32))
+    rho = st / st.amax()
+    res = []
+    for d, sc in zip((dev, cpu), built):
+        m = sc.materials
+        s_ = TM.sample_bsdf(m, mat.to(d), nrm.to(d), wo.to(d), u.to(d),
+                            tangent=tan.to(d))
+        f, pdf = TM.eval_bsdf(m, mat.to(d), nrm.to(d), wo.to(d), wi.to(d),
+                              tangent=tan.to(d))
+        tid = torch.zeros(n, dtype=torch.int64, device=d)
+        res.append((s_.wi, s_.f, s_.pdf, f, pdf,
+                    TB.bssrdf_sr(m.bss_tables, tid, st.to(d), rho.to(d),
+                                 st[:, 0].to(d) * 0.01),
+                    TB.bssrdf_sample_sr(m.bss_tables, tid, st[:, 1].to(d),
+                                        rho[:, 1].to(d), u[:, 0].to(d))))
+    for a, b in zip(*res):
+        mostly(a, b)

@@ -34,7 +34,7 @@ from bre_tpu.scene.builder import SceneBuilder as JBuilder
 from bre_tpu_torch import materials as tm
 from bre_tpu_torch.scene.builder import SceneBuilder as TBuilder
 from bre_tpu_torch.scene.scene import check_slice, scene_from_jax
-from torch_parity import every_material, to_np
+from torch_parity import every_material, fiber_materials, to_np
 
 R = 4096
 RTOL, ATOL = 1e-5, 1e-6
@@ -59,6 +59,11 @@ CASES = {
     "substrate": ["substrate"],
     "translucent": ["translucent"],
     "mix": ["mix", "mix_specular"],
+    # a mix of mixes reads one level: its lanes that pick the sub-mix take
+    # the default lobe with the sub-mix's row, as the reference's do
+    "mix_of_mixes": ["mix_of_mixes", "mix"],
+    # their BSDF is glass's (subsurface.cpp:63-66)
+    "subsurface": ["subsurface", "kdsubsurface"],
     "textured": ["matte_tex", "plastic_tex"],
 }
 
@@ -177,8 +182,7 @@ def test_sample_and_eval_bsdf_match_jax(tables, case, mode):
         tkw = dict(tangent=T(tangent) if with_tangent else None)
         if tex:
             tkw.update(textures=ts.textures, p=T(p), uv=T(uv))
-        # the port's eval_bsdf takes no tangent: no ported lobe reads it
-        ekw = {k: v for k, v in tkw.items() if k != "tangent"}
+        ekw = tkw
         ref, spread, flips = _reference_spread(
             lambda *a: ref_sample(mat, *a), [n, wo, u, p, uv, tangent],
             ("wi", "f", "pdf"))
@@ -200,6 +204,54 @@ def test_sample_and_eval_bsdf_match_jax(tables, case, mode):
                                   **ekw)
             _assert_close("eval f", ft, e["f"], none, es["f"])
             _assert_close("eval pdf", pt, e["pdf"], none, es["pdf"])
+
+
+def test_kinds_skip_changes_no_bits():
+    """A matte table skips the hair, Fourier and glass lobes; computing
+    them anyway (every kind on, with Fourier tables to gather from)
+    changes no bit of sample_bsdf or eval_bsdf, nor of a volpath render
+    (the BSSRDF branch's draws follow the table's subsurface tags, as the
+    reference's do, so it stays off) or a photon-beam render."""
+    from bre_tpu_torch.core import transform as tfm
+    from bre_tpu_torch.integrators import photonbeam as tpb
+    from bre_tpu_torch.integrators import volpath as tvp
+    from bre_tpu_torch.scene.camera import make_perspective_camera
+    from bre_tpu_torch.scene.scene import MAT_KDSUBSURFACE, MAT_SUBSURFACE
+    from torch_parity import cornell_fog
+
+    skip = cornell_fog(TBuilder(), point_light=True, device="cpu")
+    fb = TBuilder()
+    fiber_materials(fb)
+    other = fb.build(device="cpu").materials
+    kinds = torch.ones_like(skip.materials.kinds)
+    kinds[MAT_SUBSURFACE] = kinds[MAT_KDSUBSURFACE] = False
+    full = skip._replace(materials=skip.materials._replace(
+        kinds=kinds, fourier_tables=other.fourier_tables))
+    assert int(skip.materials.kinds.sum()) == 1
+    ids = {"m": 0}
+    mat, n, wo, wi, u, tangent, p, uv = _lanes(ids, ["m"], seed=3)
+    T = torch.from_numpy
+    for mode in (tm.MODE_RADIANCE, tm.MODE_IMPORTANCE):
+        a, b = (tm.sample_bsdf(s.materials, T(mat), T(n), T(wo), T(u),
+                               mode=mode, tangent=T(tangent))
+                for s in (skip, full))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    a, b = (tm.eval_bsdf(s.materials, T(mat), T(n), T(wo), T(wi),
+                         tangent=T(tangent)) for s in (skip, full))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    W = 8
+    cam = make_perspective_camera(tfm.look_at((0, 0, -2.2), (0, 0, 1),
+                                              (0, 1, 0)), 50.0, W, W,
+                                  device="cpu")
+    cfg = tvp.VolPathConfig(maxdepth=3, spp=2, nee_mis=True)
+    a, b = (tvp.render_volpath(s, cam, W, W, cfg) for s in (skip, full))
+    assert float(a.mean()) > 0 and torch.equal(a, b)
+    pcfg = tpb.PhotonBeamConfig(iterations=1, photonsperiteration=500,
+                                maxdepth=3, initialbeamradius=0.15)
+    a, b = (tpb.render_photonbeam(s, cam, W, W, pcfg)[0]
+            for s in (skip, full))
+    assert float(a.mean()) > 0 and torch.equal(a, b)
 
 
 def test_fresnel_and_alpha_match_jax():
@@ -343,24 +395,26 @@ def test_plastic_white_furnace_bound():
 
 
 def test_check_slice_takes_every_ported_material():
-    """check_slice passes the ported materials and a one-level mix, and
-    names what stays unported: hair, subsurface, kdsubsurface, fourier and
-    a mix of mixes."""
+    """check_slice passes every material of the reference: the analytic
+    ones, a one-level mix, hair, subsurface, kdsubsurface, the Fourier
+    BSDF and a mix of mixes (read one level deep, as the reference
+    reads it)."""
+    from bre_tpu.fourier import lambertian_fourier_table
+
     b = JBuilder()
     every_material(b)
     check_slice(scene_from_jax(b.build(), device="cpu"))
     for name, make in (("hair", lambda b: b.hair()),
                        ("subsurface", lambda b: b.subsurface()),
-                       ("kdsubsurface", lambda b: b.kdsubsurface())):
+                       ("kdsubsurface", lambda b: b.kdsubsurface()),
+                       ("fourier", lambda b: b.fourier_material(
+                           table=lambertian_fourier_table(n_mu=8)))):
         b = JBuilder()
         make(b)
         b.sphere((0, 0, 0), 1.0, material=0)
-        with pytest.raises(NotImplementedError,
-                           match=rf"'{name}'.*ROADMAP Queue 1 item 5"):
-            check_slice(scene_from_jax(b.build(), device="cpu"))
+        check_slice(scene_from_jax(b.build(), device="cpu"))
     b = JBuilder()
     m = b.mix(b.matte(), b.glass())
     b.mix(m, b.matte())
     b.sphere((0, 0, 0), 1.0, material=0)
-    with pytest.raises(NotImplementedError, match="mix of mixes|is a mix"):
-        check_slice(scene_from_jax(b.build(), device="cpu"))
+    check_slice(scene_from_jax(b.build(), device="cpu"))

@@ -4,12 +4,14 @@ The lexer equals the reference's ``tokenize`` on every .pbrt in the repo;
 ``parse_params`` types values as the reference does; and on every .pbrt
 file and on synthetic strings for each construct (every material and
 texture class among them), ``parse_*(...).build(device="cpu")`` equals
-``scene_from_jax(reference.build())``.  Every construct the reference
-builds and the port cannot render (hair, subsurface, kdsubsurface, fourier,
-a mix of mixes, the cameras of ROADMAP Queue 1 item 5.7) raises
-NotImplementedError naming its ROADMAP item; the distant, infinite, spot,
-goniometric and projection LightSource statements and every Shape
-statement build as the reference's.
+``scene_from_jax(reference.build())``.  Nothing the reference builds
+raises: the statements of the old raise list (hair, subsurface,
+kdsubsurface, fourier, a mix of mixes, the orthographic, realistic and
+environment cameras) build as the reference's, as does every new Material
+and Camera statement with its parameters (a ``.bsdf`` file and a lens file
+written beside the scene); the distant, infinite, spot, goniometric and
+projection LightSource statements and every Shape statement build as the
+reference's.
 
 Tolerances: scene tensors compare with ``torch.equal`` (dtype, shape and
 bits: the CTM and every transformed point are computed with the
@@ -19,6 +21,7 @@ film, integrator and sampler fields exactly."""
 
 import glob
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -40,27 +43,35 @@ GLASS_PBRT = ["examples/glass_caustics.pbrt", "tests/data/caustics_golden.pbrt",
 IN_SLICE_PBRT = [p for p in ALL_PBRT if p not in GLASS_PBRT]
 
 
-def assert_scenes_equal(mine, ref):
-    """Every tensor of two port Scenes: dtype, shape and bits."""
-    for part in mine._fields:
-        a, b = getattr(mine, part), getattr(ref, part)
-        if a is None:  # tri_bvh below builder.BVH_MIN_TRIANGLES
-            assert b is None, part
-            continue
-        pairs = ([(part, a, b)] if isinstance(a, torch.Tensor) else
-                 [((part, n), getattr(a, n), getattr(b, n)) for n in a._fields])
-        for name, x, y in pairs:
-            if not isinstance(x, torch.Tensor):  # Textures.depth, an int
-                assert x == y, name
-                continue
-            assert x.dtype == y.dtype and x.shape == y.shape, (name, x, y)
-            assert torch.equal(x, y), name
+def assert_scenes_equal(mine, ref, name=()):
+    """Every tensor of two port Scenes, nested tables included: dtype,
+    shape and bits."""
+    if mine is None:  # tri_bvh below builder.BVH_MIN_TRIANGLES
+        assert ref is None, name
+    elif isinstance(mine, torch.Tensor):
+        assert mine.dtype == ref.dtype and mine.shape == ref.shape, (
+            name, mine, ref)
+        assert torch.equal(mine, ref), name
+    elif hasattr(mine, "_fields"):
+        for part in mine._fields:
+            assert_scenes_equal(getattr(mine, part), getattr(ref, part),
+                                name + (part,))
+    else:  # Textures.depth, FourierTables.m_max: ints
+        assert mine == ref, name
 
 
 def assert_cameras_equal(cam, cam_ref):
+    """The matrices to 1e-6; the kind, the lens and the lens stack (host
+    values) bit for bit the reference's float32 values."""
     for name in ("camera_to_world", "raster_to_camera"):
         np.testing.assert_allclose(to_np(getattr(cam, name)),
                                    to_np(getattr(cam_ref, name)), atol=1e-6)
+    assert cam.ctype == int(np.asarray(cam_ref.ctype))
+    for name in ("lens_radius", "focal_distance", "rear_radius", "rear_z",
+                 "lens_curv", "lens_thick", "lens_eta", "lens_aperture"):
+        want = np.asarray(getattr(cam_ref, name), np.float32).reshape(-1)
+        got = np.asarray(getattr(cam, name), np.float32).reshape(-1)
+        assert np.array_equal(got, want), name
 
 
 def assert_parsed_equal(ps, ps_ref):
@@ -566,14 +577,99 @@ def test_lights_parse_as_reference(case, tmp_path):
         assert int(lights.img_off[0]) == 0 and lights.atlas.shape[0] > 1
 
 
+def _write_assets(directory):
+    """A Fourier table and a singlet lens file beside the scene (no asset
+    is downloaded: tests/test_fourier.py and test_realistic_camera.py write
+    their own)."""
+    from bre_tpu_torch.fourier import (lambertian_fourier_table,
+                                       write_bsdf_file)
+
+    write_bsdf_file(directory / "x.bsdf",
+                    lambertian_fourier_table(rho=0.7, n_mu=12))
+    (directory / "singlet.dat").write_text(
+        "# biconvex singlet\n50 5 1.5 30\n0 2 0 6\n-50 45 1 30\n")
+
+
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_raises_naming_roadmap_item(case):
+def test_not_ported_raises_naming_roadmap_item(case, tmp_path):
+    """The name is from when these statements raised NotImplementedError
+    (the old raise list, ROADMAP Queue 1 items 5.7-5.8).  Each now parses
+    without it and builds the reference's scene and camera; a realistic
+    camera with no lens file warns and falls back to perspective, as
+    there."""
+    _write_assets(tmp_path)
     text = NOT_PORTED[case]
-    if not case.startswith("camera"):
+    if case.startswith("camera"):
+        text = text + "WorldBegin\n" + MESH + "WorldEnd\n"
+    else:
         text = HEAD + "WorldBegin\n" + text + MESH + "WorldEnd\n"
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 5: breadth"):
-        tparser.parse_string(text, device="cpu")
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        mine = tparser.parse_string(text, tmp_path, device="cpu")
+    ref = jparser.parse_string(text, tmp_path)
+    assert_parsed_equal(mine, ref)
+    if case == "camera realistic":
+        assert any("lens" in str(w.message) for w in got)
+        assert mine.camera.ctype == 0
+
+
+NEW_STATEMENTS = {
+    "camera perspective thin lens": HEAD,
+    "camera orthographic": 'LookAt 0.5 1 -4  0 0.2 0  0 1 0\n'
+                           'Camera "orthographic"\n',
+    "camera environment": 'LookAt 0.5 1 -4  0 0.2 0  0 1 0\n'
+                          'Camera "environment"\n',
+    "camera realistic": ('LookAt 0.5 1 -4  0 0.2 0  0 1 0\n'
+                         'Camera "realistic" "string lensfile" "singlet.dat" '
+                         '"float aperturediameter" 4 "float focusdistance" 2.5'
+                         ' "float filmdiag" 30\n'),
+    "camera realistic missing file": (
+        'Camera "realistic" "string lensfile" "none.dat"\n'),
+    "material hair": (
+        'Material "hair" "rgb sigma_a" [0.2 0.3 0.4] "float beta_m" 0.2 '
+        '"float beta_n" 0.4 "float alpha" 3 "float eta" 1.5\n'),
+    "material hair color": 'Material "hair" "rgb color" [0.6 0.4 0.2]\n',
+    "material hair melanin": ('Material "hair" "float eumelanin" 0.8 '
+                              '"float pheomelanin" 0.3\n'),
+    "material fourier": 'Material "fourier" "string bsdffile" "x.bsdf"\n',
+    "material fourier no file": 'Material "fourier"\n',
+    "material subsurface": (
+        'Material "subsurface" "rgb sigma_a" [0.01 0.02 0.03] '
+        '"rgb sigma_s" [1 2 3] "float scale" 4 "float eta" 1.4 '
+        '"float g" 0.2\n'),
+    "material subsurface named": ('Material "subsurface" "string name" '
+                                  '"Ketchup"\n'),
+    "material kdsubsurface": ('Material "kdsubsurface" "rgb Kd" [0.3 0.5 0.7]'
+                              ' "rgb mfp" [0.5 1 2] "float eta" 1.5\n'),
+    "material mix of mixes": (
+        'MakeNamedMaterial "h" "string type" "hair"\n'
+        'MakeNamedMaterial "g" "string type" "glass"\n'
+        'MakeNamedMaterial "m" "string type" "mix" '
+        '"string namedmaterial1" "h" "string namedmaterial2" "g"\n'
+        'Material "mix" "string namedmaterial1" "m" '
+        '"string namedmaterial2" "h" "rgb amount" [0.2 0.4 0.6]\n'),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEW_STATEMENTS))
+def test_new_statements_parse_as_reference(case, tmp_path):
+    """Every camera and material statement of ROADMAP Queue 1 items
+    5.7-5.8, with its parameters, bit for bit the reference's scene (the
+    BSSRDF and Fourier tables included) and camera (kind, lens, the
+    realistic camera's autofocused stack)."""
+    _write_assets(tmp_path)
+    text = NEW_STATEMENTS[case]
+    if case.startswith("camera"):  # HEAD's Film, Sampler, etc. kept
+        head = HEAD if text == HEAD else HEAD.split("LookAt")[0] + text
+        text = head + "WorldBegin\n" + MESH + "WorldEnd\n"
+    else:
+        text = HEAD + "WorldBegin\n" + text + MESH + "WorldEnd\n"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mine = tparser.parse_string(text, tmp_path, device="cpu")
+        ref = jparser.parse_string(text, tmp_path)
+    assert_parsed_equal(mine, ref)
+    assert mine.camera.ctype == int(np.asarray(ref.camera.ctype))
 
 
 def test_transform_needs_brackets():

@@ -65,14 +65,21 @@ def test_builder_matches_scene_from_jax():
         if isinstance(a, torch.Tensor):
             np.testing.assert_array_equal(to_np(a), to_np(b), err_msg=group)
             continue
-        for leaf in a._fields:
-            x, y = getattr(a, leaf), getattr(b, leaf)
-            if not isinstance(x, torch.Tensor):  # Textures.depth, an int
-                assert x == y, (group, leaf)
+        # the BSSRDF and Fourier tables are tuples inside Materials
+        leaves = [((leaf,), getattr(a, leaf), getattr(b, leaf))
+                  for leaf in a._fields]
+        while leaves:
+            name, x, y = leaves.pop()
+            if hasattr(x, "_fields"):
+                leaves += [(name + (k,), getattr(x, k), getattr(y, k))
+                           for k in x._fields]
                 continue
-            assert x.dtype == y.dtype, (group, leaf)
+            if not isinstance(x, torch.Tensor):  # Textures.depth, an int
+                assert x == y, (group, name)
+                continue
+            assert x.dtype == y.dtype, (group, name)
             np.testing.assert_array_equal(to_np(x), to_np(y),
-                                          err_msg=f"{group}.{leaf}")
+                                          err_msg=f"{group}.{name}")
     assert ts.n_triangles == 24 and ts.n_lights == 3
 
 
@@ -101,12 +108,18 @@ def _device_of(x):
 
 
 def test_unported_content_raises():
-    """Scenes outside the slice fail loudly instead of rendering wrongly."""
+    """Scenes outside the slice fail loudly instead of rendering wrongly.
+    Every material is ported now: a hair, subsurface, kdsubsurface or
+    Fourier material passes."""
+    from bre_tpu.fourier import lambertian_fourier_table
+
     b = JBuilder()
     b.hair()
+    b.subsurface()
+    b.kdsubsurface()
+    b.fourier_material(table=lambertian_fourier_table(n_mu=8))
     b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), material=0)
-    with pytest.raises(NotImplementedError, match="hair"):
-        check_slice(scene_from_jax(b.build(), device="cpu"))
+    check_slice(scene_from_jax(b.build(), device="cpu"))
     # every light type is ported: sphere area lights, and the spot,
     # distant, infinite (constant and image-mapped), goniometric and
     # projection lights

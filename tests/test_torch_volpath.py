@@ -312,17 +312,26 @@ def test_volpath_out_of_scope_raises(over, match):
 
 
 def test_volpath_subsurface_scene_raises():
-    """The reference's BSSRDF branch runs where maybe_has_bssrdf holds; the
-    port renders the analytic surface materials only, and a subsurface
-    material raises (ROADMAP Queue 1 item 5, breadth: materials)."""
+    """The name is from when a subsurface material raised (ROADMAP Queue 1
+    item 5.8).  It renders now, through the reference's BSSRDF branch
+    (tests/test_torch_volpath_lens.py holds it against bre_tpu); a table
+    whose ``kinds`` lacks a tag it holds still raises ValueError, as every
+    hand-made table without its kinds does."""
     scene, cam = _tiny()
     m = scene.materials
     mats = m._replace(mtype=torch.tensor([MAT_SUBSURFACE]),
                       kd=torch.ones(1, 3), kd_tex=torch.tensor([-1]))
-    with pytest.raises(NotImplementedError,
-                       match="'subsurface'.*Queue 1 item 5: breadth"):
+    with pytest.raises(ValueError, match="kinds lacks the tags"):
         tvp.render_volpath(scene._replace(materials=mats), cam, 4, 4,
                            tvp.VolPathConfig(spp=1))
+    from bre_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0, 0, 0), 0.8, material=b.subsurface(name="Skin1", scale=20))
+    b.point_light((0, 2, -2), (8, 8, 8))
+    img = tvp.render_volpath(b.build(device="cpu"), cam, 4, 4,
+                             tvp.VolPathConfig(spp=2, maxdepth=3))
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 
 
 def test_volpath_sample_batches_change_nothing(monkeypatch):

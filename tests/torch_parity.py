@@ -14,6 +14,16 @@ def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def leaves(x, name=()):
+    """(name, leaf) of every tensor or host value of a Scene part, the
+    tables nested in it (the BSSRDF and Fourier tables) included."""
+    if hasattr(x, "_fields"):
+        for k in x._fields:
+            yield from leaves(getattr(x, k), name + (k,))
+    else:
+        yield name, x
+
+
 def pixels_close(a, b, rtol=1e-3, atol=1e-6, frac=0.99):
     """The parity tests' per-pixel check: ``frac`` of the pixels within
     rtol, atol in every channel."""
@@ -123,8 +133,9 @@ def surface_scene(b, textured=True, **build_kw):
 
 
 def every_material(b):
-    """Every ported material, two of some, a mix of two diffuse and a mix
-    of two specular ones, and a textured matte and plastic, on either
+    """Every analytic material, two of some, a mix of two diffuse and a mix
+    of two specular ones, a mix of mixes, subsurface and kdsubsurface
+    (glass's BSDF), and a textured matte and plastic, on either
     package's SceneBuilder (a sphere holds material 0).  Returns their
     ids by name."""
     ids = dict(
@@ -142,9 +153,52 @@ def every_material(b):
     )
     ids["mix"] = b.mix(ids["matte"], ids["plastic"], (0.3, 0.6, 0.2))
     ids["mix_specular"] = b.mix(ids["glass"], ids["metal"], 0.5)
+    ids["mix_of_mixes"] = b.mix(ids["mix"], ids["glass"], (0.6, 0.5, 0.4))
+    ids["subsurface"] = b.subsurface(eta=1.4)
+    ids["kdsubsurface"] = b.kdsubsurface(kd=(0.4, 0.6, 0.8))
     t = b.tex_checkerboard((1, 1, 1), (0.2, 0.3, 0.4), scale=3.0)
     ids["matte_tex"] = b.matte(kd_tex=t)
     ids["plastic_tex"] = b.plastic(kd_tex=b.tex_fbm(scale=2.0))
+    b.sphere((0, 0, 0), 1.0, material=0)
+    return ids
+
+
+def glossy_fourier_table(n_mu=16, m_max=8):
+    """A three-channel Fourier table projected from a Lambertian plus
+    glossy reflection lobe (fourier.project_bsdf_table; no .bsdf asset is
+    in the tree), the same numpy table for both packages."""
+    from bre_tpu_torch.fourier import project_bsdf_table
+
+    rgb = np.array([0.2, 0.6, 0.35])  # the file's channels: Y, R, B
+
+    def f(mu_i, mu_o, phi):
+        if mu_i * mu_o >= 0:
+            return np.zeros((phi.shape[0], 3))
+        c = np.sqrt(max(0.0, 1 - mu_i * mu_i) * max(0.0, 1 - mu_o * mu_o))
+        lobe = np.exp(4.0 * (abs(mu_i * mu_o) - c * np.cos(phi) - 1.0))
+        return (0.3 / np.pi + 0.5 * lobe)[:, None] * rgb
+
+    return project_bsdf_table(f, n_mu=n_mu, m_max=m_max, n_channels=3,
+                              eta=1.0)
+
+
+def fiber_materials(b, table=None):
+    """The measured and fiber materials on either package's SceneBuilder:
+    two hairs, a Fourier table, subsurface and kdsubsurface (which scatter
+    as glass), a mix holding a hair and a mix of mixes (a sphere holds
+    material 0).  Returns their ids by name."""
+    ids = dict(
+        hair=b.hair(sigma_a=(0.25, 0.4, 0.8), beta_m=0.25, beta_n=0.35),
+        hair_rough=b.hair(color=(0.6, 0.4, 0.2), beta_m=0.6, beta_n=0.7,
+                          alpha=4.0, eta=1.5),
+        fourier=b.fourier_material(
+            table=table if table is not None else glossy_fourier_table()),
+        subsurface=b.subsurface(eta=1.4),
+        kdsubsurface=b.kdsubsurface(kd=(0.4, 0.6, 0.8), eta=1.33),
+        matte=b.matte((0.6, 0.5, 0.4)),
+    )
+    ids["mix_hair"] = b.mix(ids["hair"], ids["matte"], (0.4, 0.5, 0.6))
+    ids["mix_of_mixes"] = b.mix(ids["mix_hair"], ids["fourier"], 0.3)
     b.sphere((0, 0, 0), 1.0, material=0)
     return ids
 
@@ -429,3 +483,89 @@ def shapes_fog_pbrt(size, iters=16, photons=65536, loop_levels=None, hf=64,
                 f'"point P" [ {pts} ]\n  AttributeEnd\n')
     return (_FOG_BOX_HEAD.format(size=size, iters=iters, photons=photons)
             + _FOG_BOX_SHAPES.format(hf=hf, pz=pz, loop=loop))
+
+
+# --- the cameras and the measured and fiber materials (ROADMAP Queue 1
+# items 5.7-5.8) ---
+
+ROOT = __import__("os").path.dirname(__import__("os").path.dirname(
+    __import__("os").path.abspath(__file__)))
+# cornell_fog.pbrt's Camera line in place, and its replacements; the
+# realistic camera's singlet (tests/test_realistic_camera.py) is written
+# beside the scene by write_fiber_assets
+CAMERAS = {
+    "perspective": 'Camera "perspective" "float fov" 40',
+    "orthographic": 'Camera "orthographic"',
+    "environment": 'Camera "environment"',
+    "thin_lens": ('Camera "perspective" "float fov" 40 '
+                  '"float lensradius" 0.05 "float focaldistance" 3'),
+    "realistic": ('Camera "realistic" "string lensfile" "singlet.dat" '
+                  '"float aperturediameter" 12 "float focusdistance" 3.9'),
+}
+SINGLET_LENS = "# biconvex singlet\n50 5 1.5 30\n0 2 0 6\n-50 45 1 30\n"
+# a hair curve, a Fourier sphere (fiber.bsdf), a subsurface and a
+# kdsubsurface sphere in the fog, fog on both sides
+HAIR_WORLD = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "hair" "rgb color" [ .6 .4 .2 ] "float beta_m" 0.3
+  Shape "curve" "string type" "cylinder" "float width" 0.06
+      "point P" [ -0.7 0.2 0.2  -0.3 1.4 -0.2  0.3 0.4 0.3  0.7 1.6 0.0 ]
+AttributeEnd
+"""
+FOURIER_WORLD = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Translate 0.1 1.3 0.5
+  Material "fourier" "string bsdffile" "fiber.bsdf"
+  Shape "sphere" "float radius" 0.28
+AttributeEnd
+"""
+SSS_WORLD = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Translate -0.45 0.35 -0.2
+  Material "subsurface" "string name" "Skin1" "float scale" 20
+  Shape "sphere" "float radius" 0.3
+  Translate 0.9 0 0
+  Material "kdsubsurface" "rgb Kd" [ .7 .5 .3 ] "rgb mfp" [ .05 .05 .05 ]
+  Shape "sphere" "float radius" 0.3
+AttributeEnd
+"""
+FIBER_WORLD = HAIR_WORLD + FOURIER_WORLD + SSS_WORLD
+
+
+def write_fiber_assets(directory):
+    """The singlet lens file and a three-channel Fourier table
+    (glossy_fourier_table) written into ``directory``."""
+    import os
+
+    from bre_tpu_torch.fourier import write_bsdf_file
+
+    with open(os.path.join(directory, "singlet.dat"), "w") as f:
+        f.write(SINGLET_LENS)
+    write_bsdf_file(os.path.join(directory, "fiber.bsdf"),
+                    glossy_fourier_table())
+
+
+def cornell_fog_text(camera="perspective", size=None, iters=None,
+                     photons=None, world="", integrator=None):
+    """examples/cornell_fog.pbrt with its Camera line replaced by
+    CAMERAS[camera], optionally its resolution, iterations and photons,
+    ``world`` statements added before WorldEnd, and its Integrator block
+    replaced by ``integrator``."""
+    import os
+    import re
+
+    text = open(os.path.join(ROOT, "examples", "cornell_fog.pbrt")).read()
+    text = text.replace(CAMERAS["perspective"], CAMERAS[camera])
+    if size is not None:
+        text = re.sub(r'"integer ([xy])resolution" \[ \d+ \]',
+                      rf'"integer \1resolution" [ {size} ]', text)
+    if iters is not None:
+        text = re.sub(r'"integer iterations" \[ \d+ \]',
+                      f'"integer iterations" [ {iters} ]', text)
+    if photons is not None:
+        text = re.sub(r'"integer photonsperiteration" \[ \d+ \]',
+                      f'"integer photonsperiteration" [ {photons} ]', text)
+    if integrator is not None:
+        text = re.sub(r'Integrator "photonbeam"(\n    "[^\n]*)*',
+                      integrator, text, count=1)
+    return text.replace("WorldEnd", world + "WorldEnd")
