@@ -19,7 +19,9 @@ hand-written CUDA kernels (``ops/gather.py``, ``ops/gather_bwd.py``,
 and PLY I/O, checkpoint/resume and the command line,
 ``python -m bre_tpu_torch.cli scene.pbrt``; the reference's other
 integrators, and every material, texture, light, shape and camera its
-parser builds.
+parser builds; and the modules around them: the film's reconstruction
+filters (``film``), statistics and profiler traces (``utils.stats``),
+EFloat (``core.efloat``) and the command-line tools (``tools``).
 """
 
 from .integrators.photonbeam import PhotonBeamConfig, render_photonbeam

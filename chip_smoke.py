@@ -351,6 +351,29 @@ are XLA code; the photon-beam renders gather through row 1):
      lanes, card against CPU (phase 34 (c)'s rule; the hair lanes add
      tests/test_torch_hair.py's allowance).  Prints its own seconds.
 
+The tools, the film, EFloat and the trace (plain torch: numpy or XLA code
+in the reference; the scenes the tools write gather through row 1):
+ 38. (a) imgtool makesky --layout equirect --resolution 512 on the card
+     and on the CPU (float64 radiance within rtol 1e-12, the images one
+     float32 rounding apart at most), and cli.main on a 64x64 fog box
+     lit by an infinite light reading that sky (2 iterations x 16,384
+     photons), row 1 counted; (b) a UV sphere of 2,016 triangles with vt,
+     vn and an MTL through obj2pbrt, included in the fog box, cli.main at
+     64x64, row 1 counted, and at 16x16 card against CPU within the CLI's
+     bound; (c) 32 cyHair strands of 8 points through cyhair2pbrt as hair
+     in the fog, cli.main at 32x32, row 1 counted; (d) imgtool diff (exit
+     code by the reference's rule), convert (card against CPU, rtol 1e-5)
+     and assemble (the float64 sum) on --device cuda; (e) film.add_samples
+     of 2^20 samples into a 256x256 film per filter at width 2: twice bit
+     for bit, ms by CUDA events, against the CPU on 2^17 of them; (f)
+     ef_quadratic on 2^20 lanes with subnormal operands, card against CPU
+     bit for bit, the brackets holding their float64 roots; (g) bsdftest
+     --device cuda at 65,536 lanes, every figure within 1e-4 of the
+     CPU's; (h) (a)'s render inside stats.trace_to with
+     profile_phase("render"): the trace holds gather_dense_kernel and the
+     range; StatsAccumulator reports the CLI statistics of (a)-(c).
+     Prints its own seconds.
+
 Each phase's end is logged with the seconds since the start ("[time]").
 
 Prints, before the last line, one JSON line with each kernel's launches
@@ -362,7 +385,8 @@ the CLI, phase 29 (a) and (b), as launches_cli, and row 1 on the lit fog
 box, phase 35 (a), as launches_lit_fog_cli, and on the shapes fog boxes,
 phase 36 (a) and (b), as launches_shapes_cli, and on cornell_fog.pbrt
 with each camera and with the fiber materials, phase 37 (a) and (c), as
-launches_cameras_cli and launches_fibers_cli), max abs error (and, for
+launches_cameras_cli and launches_fibers_cli, and on the scenes the
+tools wrote, phase 38 (a)-(c), as launches_tools_cli), max abs error (and, for
 the backward kernels, max |diff| / max|ref| per cotangent), time beside
 its plain version's and its bound, and the
 splits per ray tile and blocks that its wrapper launched on its headline
@@ -375,6 +399,7 @@ line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 without a card.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -4762,6 +4787,538 @@ def phase_cameras_fibers(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The tools, the film, EFloat and the trace (phase 38)
+# ---------------------------------------------------------------------------
+
+# (a) the sky map and the fog box it lights
+TOOLS_SKY_RES = 512
+TOOLS_SKY_ELEVATION = 30.0  # imgtool makesky's default
+TOOLS_SIZE, TOOLS_ITERS, TOOLS_PHOTONS = 64, 2, 16384
+# (b) the card against the CPU at 16x16, 1 iteration of this many photons
+# (the CPU sweeps the sphere's 2,016 triangles for each: at 1,024 photons
+# that took about 6 s of the phase run alone on the H100 machine)
+TOOLS_CPU_PHOTONS = 512
+SKY_WORLD = """AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string mapname" "sky.pfm" "rgb L" [ 0.02 0.02 0.02 ]
+AttributeEnd
+"""
+# (b) a UV sphere (22 rings x 48 segments: 2,016 triangles) with vt, vn and
+# an MTL, converted by obj2pbrt and included in the fog
+SPHERE_RINGS, SPHERE_SEGMENTS = 22, 48
+SPHERE_WORLD = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Translate 0.1 0.6 0.3
+  Include "sphere.pbrt"
+AttributeEnd
+"""
+# (c) 32 strands of 8 points, converted by cyhair2pbrt, as hair in the fog
+HAIR_STRANDS, HAIR_POINTS, HAIR_SIZE = 32, 8, 32
+HAIR_FILE_WORLD = """AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "hair" "rgb color" [ .5 .35 .2 ] "float beta_m" 0.3
+  Include "hair.pbrt"
+AttributeEnd
+"""
+# (e) the film: samples, film side, filters at width 2; the CPU's splat of
+# 2^17 samples took about 1.2 s per filter on the H100 machine (the phase
+# run alone), so the card is held against the CPU on the first
+# TOOLS_FILM_CPU of them
+TOOLS_FILM_SAMPLES, TOOLS_FILM_SIDE = 1 << 20, 256
+TOOLS_FILM_CPU = 1 << 15
+TOOLS_FILTERS = ("box", "triangle", "gaussian", "mitchell", "sinc")
+# (f) EFloat lanes; (g) bsdftest's materials and lanes
+TOOLS_EF_LANES = 1 << 20
+BSDFTEST_MATERIALS = ("matte", "plastic", "metal", "substrate", "uber")
+BSDFTEST_N = 65536
+F32_ROUNDING = 2.0 ** -24  # one float32 rounding, relative
+
+
+def write_uv_sphere(directory, radius=0.3):
+    """sphere.obj (one 'sphere' group; quads between the rings, triangles at
+    the poles; each vertex with its vt and vn, the faces by negative and
+    positive indices) and sphere.mtl (Kd, Ks, Ns)."""
+    nr, ns = SPHERE_RINGS, SPHERE_SEGMENTS
+    lines = ["mtllib sphere.mtl", "o sphere"]
+    for i in range(nr + 1):
+        th = np.pi * i / nr
+        for j in range(ns + 1):
+            ph = 2.0 * np.pi * j / ns
+            n = (np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph))
+            lines.append("v %.6f %.6f %.6f" % tuple(radius * c for c in n))
+            lines.append("vt %.6f %.6f" % (j / ns, 1.0 - i / nr))
+            lines.append("vn %.6f %.6f %.6f" % n)
+    lines.append("usemtl clay")
+
+    def vid(i, j):
+        k = i * (ns + 1) + j + 1
+        return f"{k}/{k}/{k}"
+    for i in range(nr):
+        for j in range(ns):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j + 1), vid(i + 1, j)
+            if i == 0:
+                lines.append(f"f {a} {c} {d}")
+            elif i == nr - 1:
+                lines.append(f"f {a} {b} {d}")
+            else:
+                lines.append(f"f {a} {b} {c} {d}")
+    with open(os.path.join(directory, "sphere.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(directory, "sphere.mtl"), "w") as f:
+        f.write("newmtl clay\nKd 0.55 0.45 0.35\nKs 0.05 0.05 0.05\n"
+                "Ns 20\n")
+    return 2 * ns + 2 * ns * (nr - 2)
+
+
+def write_cyhair(path, seed=38):
+    """A cyHair file: HAIR_STRANDS strands of HAIR_POINTS points hanging
+    from a patch under the ceiling, per-point thickness."""
+    import struct
+
+    rs = np.random.RandomState(seed)
+    n = HAIR_STRANDS * HAIR_POINTS
+    root = np.stack([rs.uniform(-0.4, 0.4, HAIR_STRANDS),
+                     np.full(HAIR_STRANDS, 1.8),
+                     rs.uniform(-0.2, 0.6, HAIR_STRANDS)], -1)
+    t = np.linspace(0.0, 1.0, HAIR_POINTS)[None, :, None]
+    sway = rs.uniform(-0.3, 0.3, (HAIR_STRANDS, 1, 3)) * t ** 2
+    pts = (root[:, None, :] + np.array([0.0, -1.2, 0.0]) * t + sway)
+    thick = np.linspace(0.012, 0.004, HAIR_POINTS)
+    with open(path, "wb") as f:
+        f.write(b"HAIR")
+        f.write(struct.pack("<III", HAIR_STRANDS, n, 1 | 2 | 4))
+        f.write(struct.pack("<I", 0) + struct.pack("<f", 0.01)
+                + struct.pack("<f", 0.0) + struct.pack("<fff", 0, 0, 0))
+        f.write(b"\0" * 88)
+        f.write(np.full(HAIR_STRANDS, HAIR_POINTS - 1, "<u2").tobytes())
+        f.write(pts.astype("<f4").tobytes())
+        f.write(np.tile(thick, HAIR_STRANDS).astype("<f4").tobytes())
+
+
+@contextlib.contextmanager
+def _scene_triangles():
+    """Yields a list that gets the triangle count of each scene cli.main
+    renders (the CLI's render_photonbeam wrapped)."""
+    triangles, render = [], CLI.render_photonbeam
+
+    def counting(scene, *a, **k):
+        triangles.append(scene.n_triangles)
+        return render(scene, *a, **k)
+    CLI.render_photonbeam = counting
+    try:
+        yield triangles
+    finally:
+        CLI.render_photonbeam = render
+
+
+def _run_tool(main, argv):
+    """A tool's main in this process: (exit code, its standard output)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _ef_inputs(n, seed=38):
+    """ef_quadratic's float32 coefficients (A with a running error): random
+    in [-4, 4], every 97th A and every 89th C subnormal."""
+    rs = np.random.RandomState(seed)
+    abc = rs.uniform(-4, 4, (3, n)).astype(np.float32)
+    abc[0, ::97] = (np.float32(3e-39)
+                    * rs.uniform(0.1, 1, abc[0, ::97].shape)).astype(
+                        np.float32)
+    abc[2, ::89] = np.float32(-2e-39)
+    return abc, (np.abs(abc[0]) * 1e-6).astype(np.float32)
+
+
+def _ef_quadratic_on(dev, abc, err):
+    from bre_tpu_torch.core import efloat as E
+
+    t = [torch.from_numpy(x).to(dev) for x in (*abc, err)]
+    return E.ef_quadratic(E.efloat(t[0], t[3]), E.efloat(t[1]),
+                          E.efloat(t[2]))
+
+
+def _ef_brackets(abc, out):
+    """Lanes (of the ok ones) whose [low, high] misses the float64 root taken
+    with the float32 discriminant (the interval's guarantee), and the share
+    of ok lanes that also hold the exact roots (the discriminant's own
+    rounding is outside the interval, as in the reference)."""
+    ok, t0, t1 = out
+    ok = ok.cpu().numpy()
+    a, b, c = abc
+    disc32 = (b * b - np.float32(4.0) * a * c)[ok].astype(np.float64)
+    a64, b64, c64 = (x.astype(np.float64)[ok] for x in abc)
+    misses, exact = 0, np.ones(int(ok.sum()), bool)
+    for disc, strict in ((disc32, True), (b64 * b64 - 4 * a64 * c64, False)):
+        q = -0.5 * (b64 + np.copysign(np.sqrt(disc), b64))
+        with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+            roots = np.sort(np.stack([q / a64, c64 / q]), 0)
+        for r, t in zip(roots, (t0, t1)):
+            lo = t.low.cpu().numpy()[ok].astype(np.float64)
+            hi = t.high.cpu().numpy()[ok].astype(np.float64)
+            held = (lo <= r) & (r <= hi)
+            if strict:
+                misses += int((~held & np.isfinite(r)).sum())
+            else:
+                exact &= held
+    return misses, float(exact.mean()), int(ok.sum())
+
+
+def phase_tools(dev, card):
+    """38. The tools on the card, feeding the main path: (a) imgtool makesky
+    (equirect, 512) on the card and on the CPU, their float64 radiance
+    within rtol 1e-12 and the two images one float32 rounding apart at
+    most, then cli.main on a 64x64 fog box lit by an infinite light that
+    reads the sky (2 iterations x 16,384 photons), row 1 counted, inside
+    stats.trace_to with profile_phase("render") (h); (b) a UV sphere of
+    2,016 triangles with vt, vn and an MTL through obj2pbrt, included in
+    the fog box, through cli.main at 64x64, row 1 counted, and its 16x16
+    text on the card and the CPU within the CLI's bound; (c) a cyHair
+    file of 32 strands x 8 points through cyhair2pbrt, as hair in the fog,
+    at 32x32, one iteration, row 1 counted; (d) imgtool diff (the exit
+    code by the reference's rule), convert (card against CPU, rtol 1e-5)
+    and assemble (the float64 sum) with --device cuda; (e) film.add_samples
+    of 2^20 samples into a 256x256 film per filter at width 2, twice bit
+    for bit, ms by CUDA events, against the CPU on 2^17 of them within
+    rtol 1e-5 of max|image|; (f) ef_quadratic on 2^20 lanes with
+    subnormal operands, card against CPU bit for bit, every bracket holding
+    its float64 root; (g) bsdftest --device cuda at 65,536 lanes, exit 0
+    on five materials, translucent's exit code by the reference's rule,
+    every figure within 1e-4 of the CPU's; (h) the trace holds
+    gather_dense_kernel and the render range, and StatsAccumulator
+    reports the CLI statistics of (a)-(c)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_parity import cornell_fog_text
+    from bre_tpu_torch import film as FILM
+    from bre_tpu_torch.tools import bsdftest as BSDFTEST
+    from bre_tpu_torch.tools import cyhair2pbrt as CYHAIR
+    from bre_tpu_torch.tools import imgtool as IMGTOOL
+    from bre_tpu_torch.tools import obj2pbrt as OBJ2PBRT
+    from bre_tpu_torch.tools import sky as SKY
+    from bre_tpu_torch.utils import stats as STATS
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    secs = {}
+    cpu = torch.device("cpu")
+    stats_acc = STATS.StatsAccumulator()
+    with tempfile.TemporaryDirectory() as tmp, \
+            _scene_triangles() as triangles:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        def write(name, text):
+            with open(path(name), "w") as f:
+                f.write(text)
+            return path(name)
+
+        # (a) makesky on both devices
+        t0 = time.perf_counter()
+        for d in ("cuda", "cpu"):
+            rc, text = _run_tool(IMGTOOL.main, [
+                "makesky", "--device", d, "--layout", "equirect",
+                "--resolution", str(TOOLS_SKY_RES), "-o", path(f"sky_{d}.pfm")])
+            if rc != 0:
+                raise AssertionError(f"makesky --device {d} returned {rc}")
+        sun_theta = np.deg2rad(90.0 - TOOLS_SKY_ELEVATION)
+        f64 = {}
+        for d, devd in (("cuda", dev), ("cpu", cpu)):
+            th, ph, _ = SKY.sky_directions(TOOLS_SKY_RES, "equirect", devd)
+            f64[d] = SKY._hosek_rgb64(th, ph + np.pi / 2.0, sun_theta, 3.0,
+                                      0.5, devd).cpu().numpy()
+        rel64 = float(np.max(np.abs(f64["cuda"] - f64["cpu"])
+                             / np.maximum(np.abs(f64["cpu"]), 1e-300)))
+        skies = {d: IMG.read_pfm(path(f"sky_{d}.pfm")) for d in f64}
+        for d in skies:  # each file is its own device's grid, rounded
+            if not np.array_equal(skies[d], f64[d].astype(np.float32)):
+                raise AssertionError(f"makesky {d}: the file is not its grid")
+        rel32 = float(np.max(np.abs(skies["cuda"] - skies["cpu"])
+                             / np.maximum(np.abs(skies["cpu"]), 1e-30)))
+        n_diff = int((skies["cuda"] != skies["cpu"]).sum())
+        if rel64 > 1e-12 or rel32 > 2 * F32_ROUNDING:
+            raise AssertionError(f"makesky card against CPU: float64 "
+                                 f"{rel64:.3e}, float32 {rel32:.3e}")
+        secs["a_makesky"] = time.perf_counter() - t0
+        log(f"[tools] (a) imgtool makesky --layout equirect --resolution "
+            f"{TOOLS_SKY_RES} ({skies['cpu'].shape[1]}x"
+            f"{skies['cpu'].shape[0]}): card against CPU, float64 radiance "
+            f"within {rel64:.3e} relative, the images {n_diff} values apart "
+            f"(at most {rel32:.3e} relative, one float32 rounding); "
+            f"{secs['a_makesky']:.3f} s for both devices ({card})")
+        out["makesky"] = dict(rel_err_f64=rel64, rel_err_f32=rel32,
+                              values_apart=n_diff, s=secs["a_makesky"])
+        os.replace(path("sky_cuda.pfm"), path("sky.pfm"))
+
+        # (a) the fog box under the sky
+        sky_box = write("sky_box.pbrt", cornell_fog_text(
+            size=TOOLS_SIZE, iters=TOOLS_ITERS, photons=TOOLS_PHOTONS,
+            world=SKY_WORLD))
+        wall, counts, stats, img_sky = _cli_file(
+            sky_box, ["-o", path("sky_box.pfm")], "the sky box")
+        mean = check_image(img_sky, TOOLS_SIZE, "the fog box under the sky")
+        if counts["gather_forward"] <= 0:
+            raise AssertionError(f"the sky box: row 1 did not launch {counts}")
+        stats_acc.add(stats, prefix="sky box/")
+        log(f"[tools] (a) cli.main on the fog box lit by the sky "
+            f"(cornell_fog.pbrt + an infinite light reading sky.pfm): "
+            f"{triangles[-1]} triangles, {TOOLS_SIZE}x{TOOLS_SIZE}, "
+            f"{TOOLS_ITERS} iterations x {TOOLS_PHOTONS} photons: wall "
+            f"{wall:.3f} s; image mean {mean:.6f}; launches {counts} "
+            f"({card})")
+        out["sky_cli"] = dict(wall_s=wall, image_mean=mean, launches=counts,
+                              statistics=stats)
+
+        # (h) one iteration of it traced: the two-iteration render's trace
+        # (242,266 events) took 11.9-13.9 s to stop and write on the H100
+        # machine (the phase run alone), over the phase's 30 s
+        one = write("sky_box_1.pbrt", cornell_fog_text(
+            size=TOOLS_SIZE, iters=1, photons=TOOLS_PHOTONS, world=SKY_WORLD))
+        t0 = time.perf_counter()
+        with STATS.trace_to(path("trace"), device=dev):
+            with STATS.profile_phase("render"):
+                wall_h, counts_h, _, _ = _cli_file(
+                    one, ["-o", path("sky_box_1.pfm")], "the traced sky box")
+        secs["h_trace"] = time.perf_counter() - t0
+        # the names, counted in the text (json.load of it takes seconds)
+        with open(path("trace/trace.json")) as f:
+            text = f.read()
+        kernel_events = text.count("gather_dense_kernel")
+        has_range = '"name": "render"' in text
+        n_events = text.count('"ph":')
+        if not (kernel_events and has_range and counts_h["gather_forward"]):
+            raise AssertionError(f"the trace: {kernel_events} mentions of "
+                                 f"gather_dense_kernel, render range "
+                                 f"{has_range}, launches {counts_h}")
+        log(f"[tools] (h) stats.trace_to around cli.main on the sky box, 1 "
+            f"iteration, with profile_phase(\"render\"): wall {wall_h:.3f} "
+            f"s traced, {secs['h_trace']:.3f} s with the stop and the "
+            f"export; trace.json {len(text) / 1e6:.1f} MB, {n_events} "
+            f"events, gather_dense_kernel named {kernel_events} times "
+            f"(launches {counts_h}), the render range present ({card})")
+        out["trace"] = dict(wall_s=wall_h, s=secs["h_trace"],
+                            mb=len(text) / 1e6, events=n_events,
+                            gather_dense_kernel_mentions=kernel_events,
+                            launches=counts_h)
+        del text
+
+        # (b) obj2pbrt
+        t0 = time.perf_counter()
+        n_tris = write_uv_sphere(tmp)
+        rc, _ = _run_tool(OBJ2PBRT.main, [path("sphere.obj"),
+                                          path("sphere.pbrt")])
+        if rc != 0:
+            raise AssertionError(f"obj2pbrt returned {rc}")
+        obj_box = write("obj_box.pbrt", cornell_fog_text(
+            size=TOOLS_SIZE, iters=TOOLS_ITERS, photons=TOOLS_PHOTONS,
+            world=SPHERE_WORLD))
+        wall_b, counts_b, stats_b, img_obj = _cli_file(
+            obj_box, ["-o", path("obj_box.pfm")], "the sphere box")
+        mean_b = check_image(img_obj, TOOLS_SIZE, "the obj2pbrt sphere box")
+        if counts_b["gather_forward"] <= 0:
+            raise AssertionError(f"the sphere box: row 1 did not launch "
+                                 f"{counts_b}")
+        small = write("obj_16.pbrt", cornell_fog_text(
+            size=FIBER_CPU_SIZE, iters=1, photons=TOOLS_CPU_PHOTONS,
+            world=SPHERE_WORLD))
+        imgs16 = {}
+        for d in ("cuda", "cpu"):
+            t_d, _, _, imgs16[d] = _cli_file(
+                small, ["-o", path(f"obj_16_{d}.pfm"), "--device", d,
+                        "--quiet"], f"the sphere box 16, {d}")
+        rel, close = _images_agree(imgs16["cuda"], imgs16["cpu"],
+                                   "the sphere box 16x16", 5e-3)
+        stats_acc.add(stats_b, prefix="obj box/")
+        secs["b_obj2pbrt"] = time.perf_counter() - t0
+        log(f"[tools] (b) obj2pbrt: a UV sphere of {n_tris} triangles "
+            f"(vt, vn, an MTL) in the fog box, {triangles[-1]} triangles "
+            f"built; cli.main at {TOOLS_SIZE}x{TOOLS_SIZE}, {TOOLS_ITERS} "
+            f"iterations: wall {wall_b:.3f} s; image mean {mean_b:.6f}; "
+            f"launches {counts_b}; at 16x16 card against CPU: means "
+            f"{rel:+.2e} apart, {close:.4f} of the pixels within rtol 1e-3; "
+            f"{secs['b_obj2pbrt']:.3f} s ({card})")
+        out["obj_cli"] = dict(triangles_written=n_tris,
+                              triangles_built=triangles[-1], wall_s=wall_b,
+                              image_mean=mean_b, launches=counts_b,
+                              statistics=stats_b, rel_mean_16=rel,
+                              close_16=close)
+
+        # (c) cyhair2pbrt
+        t0 = time.perf_counter()
+        write_cyhair(path("strands.hair"))
+        rc, text = _run_tool(CYHAIR.main, [path("strands.hair"),
+                                           path("hair.pbrt")])
+        if rc != 0 or f"wrote {HAIR_STRANDS} strands" not in text:
+            raise AssertionError(f"cyhair2pbrt returned {rc}: {text}")
+        hair_box = write("hair_box.pbrt", cornell_fog_text(
+            size=HAIR_SIZE, iters=1, photons=TOOLS_PHOTONS,
+            world=HAIR_FILE_WORLD))
+        wall_c, counts_c, stats_c, img_hair = _cli_file(
+            hair_box, ["-o", path("hair_box.pfm")], "the hair box")
+        mean_c = check_image(img_hair, HAIR_SIZE, "the cyhair2pbrt box")
+        if counts_c["gather_forward"] <= 0:
+            raise AssertionError(f"the hair box: row 1 did not launch "
+                                 f"{counts_c}")
+        n_hair_tris = triangles[-1]
+        stats_acc.add(stats_c, prefix="hair box/")
+        secs["c_cyhair2pbrt"] = time.perf_counter() - t0
+        log(f"[tools] (c) cyhair2pbrt: {HAIR_STRANDS} strands x "
+            f"{HAIR_POINTS} points, {HAIR_STRANDS * (HAIR_POINTS - 1)} "
+            f"curves ({n_hair_tris} triangles with the box); cli.main at "
+            f"{HAIR_SIZE}x{HAIR_SIZE}, 1 iteration x {TOOLS_PHOTONS} "
+            f"photons: wall {wall_c:.3f} s; image mean {mean_c:.6f}; "
+            f"launches {counts_c}; {secs['c_cyhair2pbrt']:.3f} s ({card})")
+        out["hair_cli"] = dict(triangles=n_hair_tris, wall_s=wall_c,
+                               image_mean=mean_c, launches=counts_c,
+                               statistics=stats_c)
+
+        # (d) imgtool diff, convert, assemble on the card
+        t0 = time.perf_counter()
+        a16, b16 = path("obj_16_cuda.pfm"), path("obj_16_cpu.pfm")
+        diff = (IMG.read_pfm(a16).astype(np.float64)
+                - IMG.read_pfm(b16).astype(np.float64))
+        mse = float((diff * diff).mean())
+        tol = 0.5 * mse if mse > 0 else 1e-12
+        rc_d, text_d = _run_tool(IMGTOOL.main, [
+            "diff", a16, b16, "--tol", repr(tol), "--device", "cuda"])
+        if rc_d != (1 if mse > tol else 0):
+            raise AssertionError(f"imgtool diff --tol {tol}: exit {rc_d} at "
+                                 f"MSE {mse}")
+        conv = {}
+        for d in ("cuda", "cpu"):
+            rc, _ = _run_tool(IMGTOOL.main, [
+                "convert", path("sky_box.pfm"), path(f"conv_{d}.pfm"),
+                "--scale", "2", "--bloomlevel", "0.5", "--tonemap",
+                "--device", d])
+            if rc != 0:
+                raise AssertionError(f"imgtool convert --device {d}: {rc}")
+            conv[d] = IMG.read_pfm(path(f"conv_{d}.pfm"))
+        conv_err = float(np.abs(conv["cuda"] - conv["cpu"]).max()
+                         / np.abs(conv["cpu"]).max())
+        if conv_err > 1e-5:
+            raise AssertionError(f"imgtool convert card against CPU "
+                                 f"{conv_err:.3e}")
+        rc, _ = _run_tool(IMGTOOL.main, [
+            "assemble", path("asm.pfm"), path("sky_box.pfm"),
+            path("obj_box.pfm"), "--device", "cuda"])
+        want = (IMG.read_pfm(path("sky_box.pfm")).astype(np.float64)
+                + IMG.read_pfm(path("obj_box.pfm")).astype(np.float64))
+        if rc != 0 or not np.array_equal(IMG.read_pfm(path("asm.pfm")),
+                                         want.astype(np.float32)):
+            raise AssertionError("imgtool assemble: not the float64 sum")
+        secs["d_imgtool"] = time.perf_counter() - t0
+        log(f"[tools] (d) imgtool --device cuda: diff of (b)'s 16x16 card "
+            f"and CPU images at --tol {tol:.3e} (MSE {mse:.3e}) exit {rc_d}"
+            f" ({text_d.splitlines()[0] if text_d else ''}); convert "
+            f"--scale 2 --bloomlevel 0.5 --tonemap of (a)'s image card "
+            f"against CPU {conv_err:.3e} of max; assemble the float64 sum; "
+            f"{secs['d_imgtool']:.3f} s ({card})")
+        out["imgtool"] = dict(diff_exit=rc_d, diff_mse=mse, diff_tol=tol,
+                              convert_rel_err=conv_err, assemble_equal=True,
+                              s=secs["d_imgtool"])
+
+    # (e) the film's splat
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(38)
+    n, side = TOOLS_FILM_SAMPLES, TOOLS_FILM_SIDE
+    p = torch.from_numpy(rs.uniform(-1, side + 1, (n, 2)).astype(np.float32))
+    L = torch.from_numpy(rs.uniform(0, 2, (n, 3)).astype(np.float32))
+    p_d, L_d = p.to(dev), L.to(dev)
+    out["film"] = {}
+    for name in TOOLS_FILTERS:
+        spec = FILM.FilterSpec(name, 2.0, 2.0)
+
+        def splat(pp, LL, d):
+            return FILM.add_samples(FILM.make_film(side, side, device=d), pp,
+                                    LL, spec)
+        ms, first = cuda_ms(lambda: splat(p_d, L_d, dev), 3)
+        second = splat(p_d, L_d, dev)
+        if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(first, second)):
+            raise AssertionError(f"film {name}: two card runs differ")
+        m = TOOLS_FILM_CPU
+        card_m = splat(p_d[:m], L_d[:m], dev).image.cpu()
+        host = splat(p[:m], L[:m], cpu).image
+        err = float((card_m - host).abs().max() / host.abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"film {name}: card against CPU {err:.3e}")
+        log(f"[tools] (e) film.add_samples, {name} width 2, {n} samples into "
+            f"{side}x{side}: {ms:.3f} ms (CUDA events, mean of 3), two runs "
+            f"bit for bit; on {m} samples card against CPU {err:.3e} of "
+            f"max|image| ({card})")
+        out["film"][name] = dict(ms=ms, rel_err_cpu=err)
+    secs["e_film"] = time.perf_counter() - t0
+
+    # (f) EFloat
+    t0 = time.perf_counter()
+    abc, err = _ef_inputs(TOOLS_EF_LANES)
+    card_ef = _ef_quadratic_on(dev, abc, err)
+    host_ef = _ef_quadratic_on(cpu, abc, err)
+    lanes_apart = int((card_ef[0].cpu() != host_ef[0]).sum())
+    for x, y in zip(card_ef[1] + card_ef[2], host_ef[1] + host_ef[2]):
+        lanes_apart += int((x.cpu().view(torch.int32)
+                            != y.view(torch.int32)).sum())
+    misses, exact_share, n_ok = _ef_brackets(abc, card_ef)
+    secs["f_efloat"] = time.perf_counter() - t0
+    log(f"[tools] (f) ef_quadratic on {TOOLS_EF_LANES} lanes (every 97th A "
+        f"and 89th C subnormal): card against CPU {lanes_apart} values "
+        f"apart; {n_ok} lanes ok, {misses} brackets missing the float64 root "
+        f"of the float32 discriminant, {exact_share:.6f} of the ok lanes "
+        f"also holding the exact roots; {secs['f_efloat']:.3f} s ({card})")
+    if lanes_apart or misses:
+        raise AssertionError(f"ef_quadratic: {lanes_apart} values apart, "
+                             f"{misses} brackets miss")
+    out["efloat"] = dict(lanes=TOOLS_EF_LANES, values_apart=lanes_apart,
+                         ok_lanes=n_ok, bracket_misses=misses,
+                         exact_root_share=exact_share)
+
+    # (g) bsdftest
+    t0 = time.perf_counter()
+    rc_g, table = _run_tool(BSDFTEST.main, [
+        "--device", "cuda", "--n", str(BSDFTEST_N), "--materials",
+        *BSDFTEST_MATERIALS])
+    rc_t, table_t = _run_tool(BSDFTEST.main, [
+        "--device", "cuda", "--n", str(BSDFTEST_N), "--materials",
+        "translucent"])
+    worst = 0.0
+    figures = {}
+    for name in BSDFTEST_MATERIALS + ("translucent",):
+        c = BSDFTEST.test_material(name, BSDFTEST_N, device=dev)
+        h = BSDFTEST.test_material(name, BSDFTEST_N, device=cpu)
+        for k in ("rho_is", "rho_uni", "pdf_integral"):
+            worst = max(worst, abs(c[k] - h[k]) / max(abs(h[k]), 1e-12))
+        figures[name] = c
+    t = figures["translucent"]
+    rel_t = abs(t["rho_is"] - t["rho_uni"]) / max(t["rho_uni"], 1e-6)
+    secs["g_bsdftest"] = time.perf_counter() - t0
+    log(f"[tools] (g) bsdftest --device cuda --n {BSDFTEST_N}: exit {rc_g}\n"
+        + table + f"translucent alone: exit {rc_t} (rho(IS) against "
+        f"rho(uni) {rel_t:.3f} apart: the uniform estimate covers the upper "
+        f"hemisphere, the transmission lobe the lower)\n" + table_t
+        + f"every figure within {worst:.3e} of the CPU's; "
+        f"{secs['g_bsdftest']:.3f} s ({card})")
+    if rc_g != 0 or rc_t != (1 if rel_t >= 0.08 else 0) or worst > 1e-4:
+        raise AssertionError(f"bsdftest: exit {rc_g}, translucent {rc_t}, "
+                             f"card against CPU {worst:.3e}")
+    out["bsdftest"] = dict(exit=rc_g, translucent_exit=rc_t,
+                           max_rel_err_cpu=worst, figures=figures)
+
+    # (h) the CLI statistics of (a)-(c)
+    report_text = stats_acc.report()
+    log("[tools] (h) StatsAccumulator of the CLI statistics of (a)-(c):\n"
+        + report_text)
+    out["stats_report"] = report_text
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tools] phase 38 took {out['phase_s']:.2f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" ({card})")
+    return out
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-backward":
         return profile_backward(sys.argv[2])
@@ -4863,6 +5420,8 @@ def main():
     mark("shapes")
     report["cameras_fibers"] = phase_cameras_fibers(dev, report["card"])
     mark("cameras_fibers")
+    report["tools"] = phase_tools(dev, report["card"])
+    mark("tools")
     # each kernel's count from the main-path run that drives it: the
     # config-2 render (forward), the spec step's counted run (backward),
     # the config-3 render (dense hetero forward) and its counted run
@@ -4912,6 +5471,10 @@ def main():
                 for c, v in fib["cameras"].items()}
             k["launches_fibers_cli"] = fib["fibers_cli"]["launches"][
                 "gather_forward"]
+            # on the scenes the tools wrote (phase 38 (a)-(c))
+            k["launches_tools_cli"] = {
+                c: report["tools"][f"{c}_cli"]["launches"]["gather_forward"]
+                for c in ("sky", "obj", "hair")}
     report["kernels"] = kernels
     report["command_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4925,6 +5488,7 @@ def main():
         for key in ("err_over_max_ref", "launches_non_packed", "launches_cli",
                     "launches_lit_fog_cli", "launches_shapes_cli",
                     "launches_cameras_cli", "launches_fibers_cli",
+                    "launches_tools_cli",
                     "n_splits", "blocks", "beam_blocks", "regime"):
             if key in kk:
                 row[key] = kk[key]

@@ -1064,3 +1064,50 @@ def test_cameras_and_fiber_materials_on_card_match_cpu(dev):
                                         rho[:, 1].to(d), u[:, 0].to(d))))
     for a, b in zip(*res):
         mostly(a, b)
+
+
+def test_film_splat_on_card_same_bits_twice(dev):
+    """film.add_samples of 2^16 samples into a 64x64 film with a width-2
+    Gaussian: two runs on the card give the same bits (the splat is
+    core.math.ordered_index_sum, no atomics), and the card is within rtol
+    1e-5 of max|image| of the CPU."""
+    from bre_tpu_torch import film as F
+
+    rs = np.random.RandomState(38)
+    n = 1 << 16
+    p = torch.from_numpy(rs.uniform(-1, 65, (n, 2)).astype(np.float32))
+    L = torch.from_numpy(rs.uniform(0, 2, (n, 3)).astype(np.float32))
+    spec = F.FilterSpec("gaussian", 2.0, 2.0)
+
+    def run(d):
+        return F.add_samples(F.make_film(64, 64, device=d), p.to(d), L.to(d),
+                             spec)
+    a, b = run(dev), run(dev)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    host = run("cpu").image
+    err = float((a.image.cpu() - host).abs().max())
+    assert err <= 1e-5 * float(host.abs().max())
+
+
+def test_ef_quadratic_on_card_same_bits_as_cpu(dev):
+    """core.efloat.ef_quadratic on 2^16 lanes, some with subnormal
+    operands: the card's bits are the CPU's (IEEE operations that neither
+    device contracts or flushes; correctly rounded square roots)."""
+    from bre_tpu_torch.core import efloat as E
+
+    rs = np.random.RandomState(38)
+    n = 1 << 16
+    abc = rs.uniform(-4, 4, (3, n)).astype(np.float32)
+    abc[0, ::97] = np.float32(3e-39) * rs.uniform(0.1, 1, abc[0, ::97].shape)
+    abc[2, ::89] = np.float32(-2e-39)
+    err = (np.abs(abc[0]) * 1e-6).astype(np.float32)
+
+    def run(d):
+        t = [torch.from_numpy(x).to(d) for x in (*abc, err)]
+        return E.ef_quadratic(E.efloat(t[0], t[3]), E.efloat(t[1]),
+                              E.efloat(t[2]))
+    card, host = run(dev), run("cpu")
+    assert torch.equal(card[0].cpu(), host[0])
+    for x, y in zip(card[1] + card[2], host[1] + host[2]):
+        assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
