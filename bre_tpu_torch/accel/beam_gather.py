@@ -72,6 +72,7 @@ from ..ops.gather_bwd import (DR_CAMR, DR_DC, DR_DENS, DR_G, DR_SIGS,
                               gather_backward_sparse, gather_backward_twopass,
                               sparse_block_ids_chunk_major)
 from ..scene.scene import Media
+from ..utils import stats
 from .lbvh import morton3
 
 TILE = 256  # camera segments per ray tile
@@ -788,14 +789,26 @@ def _packed_forward(beams_packed, rays_packed, scalars, block_mask,
     exact).  The pick reads the live count on the host: the sweep's one
     host sync in this eager port.  The id lists and the sparse kernels'
     plans are built on the device (``sparse_block_ids``,
-    ``sparse_ray_plan``, ``sparse_beam_plan``) and sync nothing.  Returns
-    ((n_tiles*T, 3), the tile-major block ids of the sparse pick or None)."""
+    ``sparse_ray_plan``, ``sparse_beam_plan``) and sync nothing.  While a
+    profiler records, the sweep counts itself (``gather.sweeps``), its
+    blocks (``gather.blocks``), the live ones (``gather.live_blocks``) and
+    whether it took the sparse kernel (``gather.sparse_picks``, 0 or 1).
+    Returns ((n_tiles*T, 3), the tile-major block ids of the sparse pick
+    or None)."""
     idx = None
-    if sparse_cap > 0 and int((block_mask > 0).sum()) <= sparse_cap:
+    stats.count("gather.sweeps", 1)
+    stats.count("gather.blocks", block_mask.numel())
+    if sparse_cap > 0:
+        n_live = int((block_mask > 0).sum())
+        stats.count("gather.live_blocks", n_live)
+    else:
+        stats.count("gather.live_blocks", lambda: (block_mask > 0).sum())
+    if sparse_cap > 0 and n_live <= sparse_cap:
         idx, _ = sparse_block_ids(block_mask, sparse_cap)
         out = gather_sparse(rays_packed, beams_packed, scalars, idx)
     else:
         out = gather_forward(rays_packed, beams_packed, scalars, block_mask)
+    stats.count("gather.sparse_picks", int(idx is not None))
     n_tiles, tile = rays_packed.shape[0], rays_packed.shape[2]
     return out[:, :3, :].transpose(1, 2).reshape(n_tiles * tile, 3), idx
 

@@ -19,6 +19,7 @@ from ..integrators.photonbeam import PhotonBeamConfig
 from ..parallel.mesh import make_inverse_train_step, make_mesh
 from ..scene.camera import Camera
 from ..scene.scene import Scene
+from ..utils.stats import profile_phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,17 +83,18 @@ def optimize_medium(scene: Scene, camera, width: int, height: int, target,
     for it in range(inv_cfg.steps):
         vi = (it // max(inv_cfg.view_block, 1)) % len(cameras)
         loss, grads = step_fns[vi](params, targets_flat[vi], it, radius)
-        if inv_cfg.tv_weight > 0.0 and "density" in inv_cfg.optimize:
-            tv, tv_grad = tv_prior(params["density"], inv_cfg.tv_weight)
-            loss = loss + tv
-            grads = dict(grads, density=grads["density"] + tv_grad)
-        opt.zero_grad(set_to_none=True)
-        for k, p in zip(inv_cfg.optimize, fitted):
-            p.grad = grads[k]
-        opt.step()
-        with torch.no_grad():
-            for p in fitted:
-                p.clamp_(min=0.0)  # physical non-negativity
+        with profile_phase("bre.optimizer"):
+            if inv_cfg.tv_weight > 0.0 and "density" in inv_cfg.optimize:
+                tv, tv_grad = tv_prior(params["density"], inv_cfg.tv_weight)
+                loss = loss + tv
+                grads = dict(grads, density=grads["density"] + tv_grad)
+            opt.zero_grad(set_to_none=True)
+            for k, p in zip(inv_cfg.optimize, fitted):
+                p.grad = grads[k]
+            opt.step()
+            with torch.no_grad():
+                for p in fitted:
+                    p.clamp_(min=0.0)  # physical non-negativity
         losses_dev.append(loss)
         if callback is not None:
             callback(it, float(loss), params)

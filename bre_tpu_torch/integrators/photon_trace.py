@@ -28,6 +28,7 @@ from ..media import (_grid_ray_setup, gather_medium, grid_density,
                      hg_sample_p, sample_grid, sample_medium, tr_homogeneous)
 from ..scene.intersect import intersect
 from ..scene.scene import Scene, check_slice, world_span
+from ..utils.stats import traced
 
 _U32 = 0xFFFFFFFF
 
@@ -86,6 +87,7 @@ def trace_photon_beams(scene: Scene, light_distr: Distribution1D, iter_idx: int,
         detach_sampling=detach_sampling, long_beams=long_beams)
 
 
+@traced("bre.walk")
 def trace_photon_beams_by_index(scene: Scene, light_distr: Distribution1D,
                                 halton_index: torch.Tensor, max_depth: int,
                                 beam_radius, detach_sampling: bool = False,

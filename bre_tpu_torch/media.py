@@ -12,7 +12,8 @@ closed form.  The fixed-trip form (``early_exit=False``, what volpath
 takes, and ``tr_grid``'s ratio tracking) is the reference's ``lax.scan``
 of ``max_steps`` trips: the same loop, whose streams are then moved on by
 the draws of the trips it skipped (``pcg32_advance``), so they end
-``2 * max_steps`` draws on, as there."""
+``2 * max_steps`` draws on, as there.  While a profiler records, each
+trip is a ``bre.track.trip`` span (``utils.stats.profile_phase``)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .core.math import (INV_4PI, PI, coordinate_system, dot, length,
 from .core.rng import PCG32State, pcg32_advance, pcg32_next_f32
 from .core.samplers import stream_1d, stream_rng, stream_with_rng
 from .scene.scene import MEDIUM_GRID, Media
+from .utils.stats import profile_phase
 
 _MAX_F = 3.0e38
 
@@ -253,18 +255,19 @@ def sample_grid(media: Media, sigma_a, sigma_s, o, d, t_max,
     zero = torch.zeros((), dtype=torch.float32, device=t.device)
     trips = 0
     while trips < max_steps and bool(live.any()):  # one host sync per trip
-        rng, u1 = pcg32_next_f32(rng)
-        rng, u2 = pcg32_next_f32(rng)
-        term = -torch.log(1.0 - u1)
-        S = S + torch.where(live, term, zero)
-        t = t + term * inv_max_l / sigma_med_l
-        exited = t >= t1_l
-        dens = grid_density(dens_l, om_l + t[..., None] * dm_l)
-        accept = (dens * inv_max_l > u2) & live & ~exited
-        sampled = sampled | accept
-        S_hit = torch.where(accept, S, S_hit)
-        t_loop_hit = torch.where(accept, t, t_loop_hit)
-        live = live & ~exited & ~accept
+        with profile_phase("bre.track.trip"):
+            rng, u1 = pcg32_next_f32(rng)
+            rng, u2 = pcg32_next_f32(rng)
+            term = -torch.log(1.0 - u1)
+            S = S + torch.where(live, term, zero)
+            t = t + term * inv_max_l / sigma_med_l
+            exited = t >= t1_l
+            dens = grid_density(dens_l, om_l + t[..., None] * dm_l)
+            accept = (dens * inv_max_l > u2) & live & ~exited
+            sampled = sampled | accept
+            S_hit = torch.where(accept, S, S_hit)
+            t_loop_hit = torch.where(accept, t, t_loop_hit)
+            live = live & ~exited & ~accept
         trips += 1
     if early_exit:
         t_hit = t0 + S_hit * inv_max_density / sigma_med
@@ -347,18 +350,20 @@ def tr_grid(media: Media, sigma_a, sigma_s, o, d, t_max, rng: PCG32State,
     zero = torch.zeros((), dtype=torch.float32, device=t0.device)
     trips = 0
     while trips < max_steps and bool(live.any()):  # one host sync per trip
-        rng, u1 = pcg32_next_f32(rng)
-        t = t - torch.log(1.0 - u1) * inv_max_density / sigma_med
-        exited = t >= t1
-        dens = grid_density(media.density, om + t[..., None] * dm)
-        factor = 1.0 - torch.clamp_min(dens * inv_max_density, 0.0)
-        tr = torch.where(live & ~exited, tr * factor, tr)
-        rng, u2 = pcg32_next_f32(rng)
-        do_rr = live & ~exited & (tr < rr_threshold)
-        q = torch.clamp_min(1.0 - tr, 0.05)
-        killed = do_rr & (u2 < q).detach()
-        tr = torch.where(killed, zero, torch.where(do_rr, tr / (1.0 - q), tr))
-        live = live & ~exited & ~killed
+        with profile_phase("bre.track.trip"):
+            rng, u1 = pcg32_next_f32(rng)
+            t = t - torch.log(1.0 - u1) * inv_max_density / sigma_med
+            exited = t >= t1
+            dens = grid_density(media.density, om + t[..., None] * dm)
+            factor = 1.0 - torch.clamp_min(dens * inv_max_density, 0.0)
+            tr = torch.where(live & ~exited, tr * factor, tr)
+            rng, u2 = pcg32_next_f32(rng)
+            do_rr = live & ~exited & (tr < rr_threshold)
+            q = torch.clamp_min(1.0 - tr, 0.05)
+            killed = do_rr & (u2 < q).detach()
+            tr = torch.where(killed, zero,
+                             torch.where(do_rr, tr / (1.0 - q), tr))
+            live = live & ~exited & ~killed
         trips += 1
     rng = pcg32_advance(rng, 2 * (max_steps - trips))
     return rng, tr, live.sum()

@@ -6,15 +6,21 @@ profiler phases (ProfilePhase, stats.h:138-189) and the SIGPROF sampling
 profiler (stats.cpp:204-233).
 
 Counters are plain entries of the metrics dicts that the renders return;
-``StatsAccumulator`` sums them and prints pbrt's report.  ``profile_phase``
-is a ``torch.profiler.record_function`` range, and ``trace_to`` records a
-``torch.profiler`` trace (the card's kernels too on a CUDA device) and
-writes it as a Chrome trace.
+``StatsAccumulator`` sums them and prints pbrt's report.  ``trace_to``
+records a ``torch.profiler`` trace (the card's kernels too on a CUDA
+device) and writes it as a Chrome trace.
+
+The program's own measurement is gated on the profiler: ``profile_phase``
+opens a ``record_function`` range (a Kineto range, on the clock of the
+device operations in the same trace) and ``count`` adds to a module-level
+counter only while a profiler records; otherwise each costs one flag
+check.  Program spans are named ``bre.<layer>.<what>``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from collections import defaultdict
 from typing import Dict
@@ -58,16 +64,59 @@ class StatsAccumulator:
                     lines.append(f"    {title:<42}{val:>16.3f}")
         return "\n".join(lines)
 
+    def count(self, name: str, value) -> None:
+        """Add ``value`` to counter ``name``; a tensor is added where it
+        lives, with no host read."""
+        self._counters[name] = self._counters.get(name, 0) + value
+
+    def reset(self) -> None:
+        self._counters.clear()
+
     def as_dict(self) -> Dict[str, float]:
-        return dict(self._counters)
+        """The counters as numbers; a tensor counter is read here, once."""
+        return {k: v.item() if isinstance(v, torch.Tensor) else v
+                for k, v in self._counters.items()}
 
 
-@contextlib.contextmanager
+_profiling = torch._C._autograd._profiler_enabled
+_NULL_PHASE = contextlib.nullcontext()
+_COUNTERS = StatsAccumulator()
+
+
 def profile_phase(name: str):
     """Named trace range (the ProfilePhase analog): a ``record_function``
-    range in the trace that ``trace_to`` writes."""
-    with record_function(name):
-        yield
+    range while a profiler records, else one shared null context."""
+    return record_function(name) if _profiling() else _NULL_PHASE
+
+
+def traced(name: str):
+    """Decorator: the whole call runs inside ``profile_phase(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with profile_phase(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to the module's counter ``name`` while a profiler
+    records, so a traced run counts exactly what it profiled.  A tensor
+    is added on its device; a callable is called only while recording
+    (for a value that costs device work to compute)."""
+    if _profiling():
+        _COUNTERS.count(name, value() if callable(value) else value)
+
+
+def counters() -> Dict[str, float]:
+    """The module's counters, each tensor read once (call it after the
+    profiler has stopped)."""
+    return _COUNTERS.as_dict()
+
+
+def reset_counters() -> None:
+    _COUNTERS.reset()
 
 
 @contextlib.contextmanager
