@@ -26,8 +26,10 @@ the cotangent at an exact tie as ``jnp.maximum`` / ``jnp.clip`` do (a
 ``torch.clamp`` would give it all to the input).
 
 Packed route: the beam buffer is validity-compacted and Morton-sorted once per camera pass
-(``pack_beams_compact``); each depth step packs its camera segments, builds
-the exact chunk x tile AABB cull mask (``_block_overlap_mask``) and runs the
+(``pack_beams_compact``); each depth step puts its camera segments in
+Morton order of their midpoints (``_ray_order``, so a ray tile's box is
+small), packs them, builds the exact chunk x tile AABB cull mask
+(``_block_overlap_mask``) and runs the
 kernels of ``ops/gather.py``, picking at run time between the sparse
 live-block kernel (live blocks within ``sparse_cap``) and the dense masked
 kernel, as the reference does.  Ray tiles and beam chunks are 256 wide on
@@ -63,10 +65,11 @@ from ..core.math import cross, dot, length
 from ..media import gather_medium, grid_density, phase_hg
 from ..ops.gather import (_REF_BATCH_PAIRS_CARD, _REF_BATCH_PAIRS_CPU, BF_B0,
                           BF_B1, BF_PE, BF_PS, BF_RAD, BF_VALID, NB,
-                          POLY_D_COEFS, POLY_DENS_COEFS, RF_DC, RF_DENSC,
-                          RF_G, RF_SIGS, RF_SIGTC, RF_TR, gather_forward,
-                          gather_sparse, is_hetero, pack_beams, pack_rays,
-                          sparse_block_ids)
+                          POLY_D_COEFS, POLY_DENS_COEFS, RF_A0, RF_A1, RF_DC,
+                          RF_DENSC, RF_G, RF_INMED, RF_SIGS, RF_SIGTC, RF_TR,
+                          gather_forward, gather_sparse, is_hetero,
+                          pack_beams, pack_rays, ray_rows, sparse_block_ids,
+                          tile_rows)
 from ..ops.gather_bwd import (DR_CAMR, DR_DC, DR_DENS, DR_G, DR_SIGS,
                               DR_SIGTC, DR_TR, NDR, gather_backward_fused,
                               gather_backward_sparse, gather_backward_twopass,
@@ -756,11 +759,15 @@ def pack_beams_compact(beams, d_poly=None, sigma_t=None):
     return packed, valid_f.sum()
 
 
-def _block_overlap_mask(beams_packed, seg_a0, seg_a1, tile: int, cam_radius):
+def _block_overlap_mask(beams_packed, seg_a0, seg_a1, tile: int, cam_radius,
+                        in_med_f):
     """(n_chunks, n_tiles) f32 conservative cull mask: 1 where the chunk's
-    radius-inflated AABB overlaps the tile's cam_radius-inflated segment
-    AABB.  Disjoint boxes guarantee zero contribution, so the skip is exact;
-    dead chunks get empty boxes and mask 0."""
+    radius-inflated AABB overlaps the tile's cam_radius-inflated AABB of
+    its in-medium segments.  Disjoint boxes guarantee zero contribution, so
+    the skip is exact; dead chunks get empty boxes and mask 0.  A segment
+    with ``in_med_f`` 0 widens no tile's box: its sigma_s is folded to 0,
+    so each of its pairs adds +0.0; a tile with none in the medium gets an
+    empty box and mask 0."""
     bp = beams_packed.detach()
     start = bp[:, BF_B0:BF_B0 + 3, :].transpose(1, 2)
     end = bp[:, BF_B1:BF_B1 + 3, :].transpose(1, 2)
@@ -773,9 +780,10 @@ def _block_overlap_mask(beams_packed, seg_a0, seg_a1, tile: int, cam_radius):
     n_tiles = seg_a0.shape[0] // tile
     a0 = seg_a0.detach().reshape(n_tiles, tile, 3)
     a1 = seg_a1.detach().reshape(n_tiles, tile, 3)
+    out = (in_med_f.detach() <= 0.0).reshape(n_tiles, tile, 1)
     r = torch.as_tensor(cam_radius, dtype=torch.float32, device=bp.device)
-    tmin = torch.minimum(a0.amin(1), a1.amin(1)) - r
-    tmax = torch.maximum(a0.amax(1), a1.amax(1)) + r
+    tmin = torch.minimum(a0, a1).masked_fill(out, 3e37).amin(1) - r
+    tmax = torch.maximum(a0, a1).masked_fill(out, -3e37).amax(1) + r
     hit = ((cmax[:, None, :] >= tmin[None, :, :])
            & (cmin[:, None, :] <= tmax[None, :, :])).all(-1)
     return hit.to(torch.float32)
@@ -887,6 +895,72 @@ class _GatherCorePacked(torch.autograd.Function):
         return d_beams, d_rays, None, None, None, None
 
 
+def _ray_order(a0, a1, in_med_f):
+    """Stable order of one sweep's camera segments by position, so that a
+    256-ray tile's box holds nearby segments: those in the medium first,
+    the rest last, each group by the 30-bit Morton code of the segment
+    midpoint in the box of the in-medium midpoints.  Built on the device,
+    with no host read and no Python constant copied to the card.  Returns
+    (order, its inverse)."""
+    mid = 0.5 * (a0 + a1)
+    out = (in_med_f <= 0.0)[:, None]
+    mn = mid.masked_fill(out, float("inf")).amin(0)
+    mx = mid.masked_fill(out, float("-inf")).amax(0)
+    any_in = ~out.all()
+    mn = torch.where(any_in, mn, torch.zeros_like(mn))
+    mx = torch.where(any_in, mx, torch.ones_like(mx))
+    codes = morton3((mid - mn) / torch.clamp_min(mx - mn, 1e-12))  # < 2^30
+    key = torch.where(out[:, 0], codes + (1 << 30), codes)
+    order = torch.argsort(key, stable=True).detach()
+    return order, _inverse_permutation(order)
+
+
+def _sweep_rows(media: Media, seg_a0, seg_a1, seg_dir, seg_medium,
+                seg_tr_full, power_scale: float, hetero: bool) -> dict:
+    """One sweep's per-ray rows in the caller's order: the geometry
+    detached, the medium factors gathered (power_scale * in_medium folded
+    into sigma_s, as the kernels assume) and, in grid media, the camera
+    segments' tables (geometry detached, medium parameters attached)."""
+    _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
+    in_med_f = seg_in_med.to(torch.float32)
+    seg = dict(
+        a0=seg_a0.detach(), a1=seg_a1.detach(), dir=seg_dir.detach(),
+        len=torch.clamp_min(length(seg_a1 - seg_a0), 1e-30).detach(),
+        tr_full=seg_tr_full,
+        sigma_s=sigma_s_seg * (power_scale * in_med_f)[:, None],
+        g=g_seg, in_med_f=in_med_f,
+    )
+    if hetero:
+        dp_c, dens_c, sigt_c = medium_interval_poly(
+            media, seg_medium, seg_a0.detach(), seg_a1.detach())
+        seg.update(d_cam_poly=dp_c, sigma_t_cam=sigt_c, dens_cam_poly=dens_c)
+    return seg
+
+
+def _pack_sweep(beams_packed, n_valid, seg: dict, cam_radius,
+                power_scale: float, min_sin_theta: float, order=None,
+                inv_order=None):
+    """The rows of ``_sweep_rows``, put in ``order`` if one is given (one
+    ``permute_cols`` of every field), zero-padded to whole tiles (a pad row
+    is outside the medium) and packed; the (1, 4) scalars; the cull mask
+    of that order.  Returns (rays_packed, scalars, block_mask)."""
+    rows = ray_rows(seg)
+    if order is not None:
+        rows = permute_cols(rows, order, inv_order)
+    nf, R = rows.shape
+    dev = rows.device
+    R_pad = -(-R // TILE) * TILE
+    if R_pad != R:
+        rows = torch.cat([rows, rows.new_zeros((nf, R_pad - R))], 1)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    scalars = torch.stack([f32(cam_radius), f32(power_scale),
+                           f32(min_sin_theta), f32(n_valid)]).reshape(1, 4)
+    mask = _block_overlap_mask(beams_packed, rows[RF_A0:RF_A0 + 3].T,
+                               rows[RF_A1:RF_A1 + 3].T, TILE, cam_radius,
+                               rows[RF_INMED])
+    return tile_rows(rows, TILE), scalars, mask
+
+
 def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
                         seg_dir, seg_medium, seg_tr_full, cam_radius,
                         power_scale: float = 1.0, min_sin_theta: float = 0.05,
@@ -895,41 +969,34 @@ def gather_beams_packed(beams_packed, n_valid, media: Media, seg_a0, seg_a1,
     """Packed-mode gather (normalized BRE, geometry detached) over
     ``pack_beams_compact``'s chunks: per-ray medium factors are gathered
     here (and, for beams packed with grid tables, the camera segments'
-    tables, geometry detached, medium parameters attached), rays are padded
-    to a tile multiple and packed, and ``sparse_cap > 0`` enables the
+    tables, geometry detached, medium parameters attached); a sweep of
+    more than one tile puts its rays in ``_ray_order`` (one
+    ``permute_cols`` of the packed fields, whose backward brings the
+    gradients back to the caller's order); the rays are padded to a tile
+    multiple, packed and culled, and ``sparse_cap > 0`` enables the
     sparse-block kernels.  ``grad_extras`` False skips the radius and HG g
-    cotangents.  Returns (R, 3).  Counts its calls in
-    ``gather_beams_packed.calls``."""
+    cotangents.  Returns
+    (R, 3) in the caller's order: each ray's sum is the same bits in any
+    order, since the chunk splits depend on the shapes and n_valid alone
+    and a chunk the cull drops holds no in-range pair of the ray.  Counts
+    its calls in ``gather_beams_packed.calls``; while a profiler records,
+    each sweep's rays (``gather.rays``) and those in the medium
+    (``gather.rays_in_medium``, a device sum)."""
     gather_beams_packed.calls += 1
     R = seg_a0.shape[0]
-    dev = seg_a0.device
-    _, sigma_s_seg, g_seg, _, seg_in_med = gather_medium(media, seg_medium)
-    in_med_f = seg_in_med.to(torch.float32)
-    seg = dict(
-        a0=seg_a0.detach(), a1=seg_a1.detach(), dir=seg_dir.detach(),
-        len=torch.clamp_min(length(seg_a1 - seg_a0), 1e-30).detach(),
-        tr_full=seg_tr_full,
-        # power_scale * in_med folds into sigma_s (kernel assumption)
-        sigma_s=sigma_s_seg * (power_scale * in_med_f)[:, None],
-        g=g_seg, in_med_f=in_med_f,
-    )
-    if beams_packed.shape[1] > NB:  # grid media: the camera-side tables
-        dp_c, dens_c, sigt_c = medium_interval_poly(
-            media, seg_medium, seg_a0.detach(), seg_a1.detach())
-        seg.update(d_cam_poly=dp_c, sigma_t_cam=sigt_c, dens_cam_poly=dens_c)
-    R_pad = -(-R // TILE) * TILE
-    if R_pad != R:
-        seg = {k: torch.cat([v, torch.zeros((R_pad - R,) + v.shape[1:],
-                                            dtype=v.dtype, device=dev)], 0)
-               for k, v in seg.items()}
-    rays_packed = pack_rays(seg, TILE)
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-    scalars = torch.stack([f32(cam_radius), f32(power_scale),
-                           f32(min_sin_theta), f32(n_valid)]).reshape(1, 4)
-    mask = _block_overlap_mask(beams_packed, seg["a0"], seg["a1"], TILE,
-                               cam_radius)
-    return _GatherCorePacked.apply(beams_packed, rays_packed, scalars, mask,
-                                   sparse_cap, grad_extras)[:R]
+    seg = _sweep_rows(media, seg_a0, seg_a1, seg_dir, seg_medium, seg_tr_full,
+                      power_scale, beams_packed.shape[1] > NB)
+    stats.count("gather.rays", R)
+    stats.count("gather.rays_in_medium", lambda: seg["in_med_f"].sum())
+    order = inv_order = None
+    if R > TILE:  # a sweep of one tile has no box to tighten
+        order, inv_order = _ray_order(seg["a0"], seg["a1"], seg["in_med_f"])
+    rays_packed, scalars, mask = _pack_sweep(beams_packed, n_valid, seg,
+                                             cam_radius, power_scale,
+                                             min_sin_theta, order, inv_order)
+    out = _GatherCorePacked.apply(beams_packed, rays_packed, scalars, mask,
+                                  sparse_cap, grad_extras)[:R]
+    return out if order is None else permute_rows(out, inv_order, order)
 
 
 def gather_beams_bruteforce(beams, media: Media, seg_a0, seg_a1, seg_dir,

@@ -50,9 +50,8 @@ def _expand_bits(v: torch.Tensor) -> torch.Tensor:
 
 def morton3(p01: torch.Tensor) -> torch.Tensor:
     """(N,3) float in [0,1] -> 30-bit Morton codes (int64)."""
-    q = torch.clamp(p01 * 1024.0, 0.0, 1023.0).to(torch.int64)
-    return ((_expand_bits(q[..., 2]) << 2) | (_expand_bits(q[..., 1]) << 1)
-            | _expand_bits(q[..., 0]))
+    e = _expand_bits(torch.clamp(p01 * 1024.0, 0.0, 1023.0).to(torch.int64))
+    return (e[..., 2] << 2) | (e[..., 1] << 1) | e[..., 0]
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:

@@ -97,12 +97,10 @@ _REF_BATCH_PAIRS_CPU = 1 << 22
 _REF_BATCH_PAIRS_CARD = 1 << 24
 
 
-def pack_rays(seg: dict, tile: int) -> torch.Tensor:
-    """seg dict (R-sized tensors, R a multiple of ``tile``) -> (n_tiles, NF,
-    T) packed feature rows; (n_tiles, NF_HET, T) when ``seg`` carries the
-    heterogeneous tables d_cam_poly (R, 5), sigma_t_cam (R, 3) and
-    dens_cam_poly (R, 6)."""
-    R = seg["a0"].shape[0]
+def ray_rows(seg: dict) -> torch.Tensor:
+    """seg dict (R-sized tensors) -> the (NF, R) field-major feature rows;
+    (NF_HET, R) when ``seg`` carries the heterogeneous tables d_cam_poly
+    (R, 5), sigma_t_cam (R, 3) and dens_cam_poly (R, 6)."""
     rows = [
         seg["a0"][:, 0], seg["a0"][:, 1], seg["a0"][:, 2],
         seg["a1"][:, 0], seg["a1"][:, 1], seg["a1"][:, 2],
@@ -117,9 +115,21 @@ def pack_rays(seg: dict, tile: int) -> torch.Tensor:
         rows += [seg["d_cam_poly"][:, k] for k in range(POLY_D_COEFS)]
         rows += [seg["sigma_t_cam"][:, ch] for ch in range(3)]
         rows += [seg["dens_cam_poly"][:, k] for k in range(POLY_DENS_COEFS)]
-    nf = len(rows)
-    packed = torch.stack(rows, 0)  # (nf, R)
-    return packed.reshape(nf, R // tile, tile).permute(1, 0, 2).contiguous()
+    return torch.stack(rows, 0)
+
+
+def tile_rows(rows: torch.Tensor, tile: int) -> torch.Tensor:
+    """(nf, R) feature rows, R a multiple of ``tile`` -> (n_tiles, nf, T)
+    packed rays."""
+    nf, R = rows.shape
+    return rows.reshape(nf, R // tile, tile).permute(1, 0, 2).contiguous()
+
+
+def pack_rays(seg: dict, tile: int) -> torch.Tensor:
+    """seg dict (R-sized tensors, R a multiple of ``tile``) -> (n_tiles, NF,
+    T) packed feature rows (``ray_rows``); (n_tiles, NF_HET, T) in grid
+    media."""
+    return tile_rows(ray_rows(seg), tile)
 
 
 def pack_beams(pb: dict, chunk: int) -> torch.Tensor:

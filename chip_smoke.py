@@ -3241,7 +3241,8 @@ def at_radius(rays, beams, scal, r):
     sc[0, 0] = r
     a0 = rays[:, G.RF_A0:G.RF_A0 + 3].transpose(1, 2).reshape(-1, 3)
     a1 = rays[:, G.RF_A1:G.RF_A1 + 3].transpose(1, 2).reshape(-1, 3)
-    return b, sc, BG._block_overlap_mask(b, a0, a1, BG.TILE, r)
+    in_med = rays[:, G.RF_INMED].reshape(-1)
+    return b, sc, BG._block_overlap_mask(b, a0, a1, BG.TILE, r, in_med)
 
 
 def modelled_tail(work, slots):

@@ -426,6 +426,58 @@ def test_default_route_on_card_matches_cpu(dev):
     assert rel < 1e-3, rel
 
 
+def _recorded_sweeps(monkeypatch, scene, cam, W, cfg):
+    """The arguments of every packed gather sweep of one render."""
+    from bre_tpu_torch.integrators import photonbeam as PB
+    calls = []
+    real = PB.gather_beams_packed
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(PB, "gather_beams_packed", record)
+        render_photonbeam(scene, cam, W, W, cfg)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["cornell", "hetero"])
+def test_ray_order_keeps_the_packed_forward_bits(dev, case, monkeypatch):
+    """Every sweep of one iteration at config 2's shapes (256^2, 1M
+    photons) and config 3's (the grid smoke, 512^2, 100k photons; the
+    HETERO kernels): ``gather_beams_packed``, which sorts the rays by
+    position before the pack and the cull, equals bit for bit
+    ``_packed_forward`` on the same rays in row order with the mask that
+    ``_block_overlap_mask`` builds for that order."""
+    hetero = case == "hetero"
+    W = 512 if hetero else 256
+    cfg = PhotonBeamConfig(
+        iterations=1, maxdepth=5,
+        photonsperiteration=100_000 if hetero else 1_000_000,
+        initialbeamradius=0.15 if hetero else 0.12,
+        alpha=0.5 if hetero else 0.7, gather="auto", grad_geometry=False)
+    scene = _smoke(dev, n=32) if hetero else _cornell(dev)
+    cam = make_perspective_camera(
+        tfm.look_at(*(((0, 0, -3.2), (0, 0, 0)) if hetero
+                      else ((0, 0, -2.2), (0, 0, 1))), (0, 1, 0)),
+        50.0, W, W, device=dev)
+    calls = _recorded_sweeps(monkeypatch, scene, cam, W, cfg)
+    assert len(calls) >= 2 and any(a[3].shape[0] > BG.TILE for a, _ in calls)
+    with torch.no_grad():
+        for a, kw in calls:
+            bp, nv, media, a0, a1, sd, med, tr, rad = a
+            assert (bp.shape[1] > G.NB) == hetero
+            got = BG.gather_beams_packed(*a, **kw)
+            seg = BG._sweep_rows(media, a0, a1, sd, med, tr,
+                                 kw["power_scale"], hetero)
+            rp, sc, mask = BG._pack_sweep(bp, nv, seg, rad,
+                                          kw["power_scale"], 0.05)
+            want, _ = BG._packed_forward(bp, rp, sc, mask,
+                                         kw.get("sparse_cap", 0))
+            assert float(want.abs().max()) > 0
+            assert torch.equal(got, want[:a0.shape[0]]), a0.shape[0]
+
+
 def test_gather_gradient_on_card(dev):
     """On CUDA tensors the packed gather's output carries a grad_fn and its
     gradients (through the backward kernels) equal the CPU ones (through

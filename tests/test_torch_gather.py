@@ -153,7 +153,8 @@ def test_pack_beams_and_block_mask_exact():
     m_j = jbg._block_overlap_mask(bp_j, jnp.asarray(a0), jnp.asarray(a1), 256,
                                   jnp.float32(0.2))
     m_t = tbg._block_overlap_mask(bp_t, torch.from_numpy(a0),
-                                  torch.from_numpy(a1), 256, 0.2)
+                                  torch.from_numpy(a1), 256, 0.2,
+                                  torch.ones(512))
     np.testing.assert_array_equal(to_np(m_t), to_np(m_j))
     assert 0 < float(m_t.sum()) < m_t.numel()  # dead chunk culled
 
@@ -183,3 +184,95 @@ def test_gather_beams_packed_matches(sparse_cap):
     assert float(np.abs(to_np(j)).max()) > 0
     np.testing.assert_allclose(to_np(t), to_np(j), rtol=RTOL, atol=ATOL)
     assert float(t[torch.from_numpy(med < 0)].abs().max()) == 0.0
+
+
+def _count_sorts(monkeypatch):
+    """Count the calls of ``_ray_order`` (one per sweep that is sorted)."""
+    calls = []
+    real = tbg._ray_order
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+    monkeypatch.setattr(tbg, "_ray_order", counted)
+    return calls
+
+
+@pytest.mark.parametrize("R", [300, 200])
+def test_gather_beams_packed_in_any_ray_order(R, monkeypatch):
+    """Rays given in a shuffled order, a fifth of them outside the medium:
+    the port sorts a sweep of more than one tile by position (200 rays
+    fit one tile and take no sort) and returns each ray's sum in the
+    caller's order: the reference's row-order result, and bit for bit the
+    port's own on the unshuffled rays."""
+    jb = JBuilder()
+    jb.homogeneous_medium((0.05,) * 3, (0.5,) * 3, 0.3)
+    jb.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    js = jb.build()
+    ts = scene_from_jax(js, device="cpu")
+    b = _beams_np()
+    bp_j, nv_j = jbg.pack_beams_compact(_jbeams(b), 256)
+    bp_t, nv_t = tbg.pack_beams_compact(_tbeams(b))
+    rows = _segments(R=R)
+    j = to_np(jbg.gather_beams_packed(
+        bp_j, nv_j, js.media, *(jnp.asarray(x) for x in rows),
+        jnp.float32(0.2), chunk=256, power_scale=1e-3, grad_extras=False))
+    perm = np.random.RandomState(R).permutation(R)
+
+    def port(a0, a1, sd, med, trf):
+        return tbg.gather_beams_packed(
+            bp_t, nv_t, ts.media, *(torch.from_numpy(x) for x in (a0, a1, sd)),
+            torch.from_numpy(med.astype(np.int64)), torch.from_numpy(trf),
+            0.2, power_scale=1e-3)
+
+    sorts = _count_sorts(monkeypatch)
+    t_row = port(*rows)
+    t_shuf = port(*(x[perm] for x in rows))
+    assert len(sorts) == (2 if R > 256 else 0)
+    assert float(np.abs(j).max()) > 0
+    np.testing.assert_allclose(to_np(t_shuf), j[perm], rtol=RTOL, atol=ATOL)
+    assert torch.equal(t_shuf, t_row[torch.from_numpy(perm)])
+    assert float(t_shuf[torch.from_numpy(rows[3][perm] < 0)].abs().max()) == 0.0
+
+
+def test_ray_order_mask_keeps_every_in_range_pair():
+    """On scattered short segments, a fifth of them outside the medium:
+    every in-range pair of an in-medium ray and a valid beam (the kernels'
+    own r^2 < 1 test, ``pair_geometry_ref``) lies in a live block of the
+    mask built in ``_ray_order``, and that mask keeps fewer blocks than
+    the row-order mask of the same rays."""
+    from bre_tpu_torch.scene.builder import SceneBuilder as TBuilder
+    tb = TBuilder()
+    tb.homogeneous_medium((0.05,) * 3, (0.5,) * 3, 0.3)
+    tb.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    media = tb.build(device="cpu").media
+    rs = np.random.RandomState(11)
+    B, R, r = 2048, 2048, 0.05
+    start = rs.uniform(-1, 1, (B, 3)).astype(np.float32)
+    b = dict(_beams_np(B=B, seed=12), start=start,
+             end=start + rs.uniform(-0.15, 0.15, (B, 3)).astype(np.float32),
+             radius=np.full((B,), r, np.float32))
+    bp, nv = tbg.pack_beams_compact(_tbeams(b))
+    a0 = torch.from_numpy(rs.uniform(-1, 1, (R, 3)).astype(np.float32))
+    a1 = a0 + torch.from_numpy(rs.uniform(-0.15, 0.15, (R, 3)).astype(np.float32))
+    sd = (a1 - a0) / torch.linalg.norm(a1 - a0, dim=-1, keepdim=True)
+    med = torch.from_numpy(np.where(rs.rand(R) < 0.8, 0, -1))
+    seg = tbg._sweep_rows(media, a0, a1, sd, med, torch.ones((R, 3)), 1.0,
+                          False)
+    order = tbg._ray_order(seg["a0"], seg["a1"], seg["in_med_f"])
+    rp, sc, mask = tbg._pack_sweep(bp, nv, seg, r, 1.0, 0.05, *order)
+    _, _, mask_row = tbg._pack_sweep(bp, nv, seg, r, 1.0, 0.05)
+    n_chunks, n_tiles = mask.shape
+    assert 0 < float(mask.sum()) < float(mask_row.sum())
+    ray_in = rp[:, tg.RF_INMED] > 0  # (n_tiles, T)
+    beam_ok = bp[:, tg.BF_VALID] > 0  # (n_chunks, C)
+    n_pairs = 0
+    for ti in range(n_tiles):
+        q = tg.pair_geometry_ref(rp[ti:ti + 1].expand(n_chunks, -1, -1), bp,
+                                 sc[0, 0], sc[0, 2])
+        pairs = ((q["in_range"] > 0) & ray_in[ti][None, None, :]
+                 & beam_ok[:, :, None])  # (n_chunks, C, T)
+        hit = pairs.any(2).any(1)
+        n_pairs += int(pairs.sum())
+        assert bool((mask[hit, ti] > 0).all()), ti
+    assert n_pairs > 0

@@ -28,7 +28,8 @@ from bre_tpu_torch.accel import beam_gather as tbg
 from bre_tpu_torch.ops import gather as tg
 from bre_tpu_torch.ops import gather_bwd as tgb
 from bre_tpu_torch.scene.scene import scene_from_jax
-from test_torch_gather import _beams_np, _jbeams, _packed_inputs, _segments, _tbeams
+from test_torch_gather import (_beams_np, _count_sorts, _jbeams, _packed_inputs,
+                               _segments, _tbeams)
 from torch_parity import to_np
 
 
@@ -179,4 +180,67 @@ def test_packed_gather_grad_matches_jax(sparse_cap, grad_extras):
             continue
         assert np.abs(j).max() > 0, name
         err = np.abs(to_np(t.grad) - j).max()
+        assert err <= 3e-4 * np.abs(j).max(), (name, err, np.abs(j).max())
+
+
+@pytest.mark.parametrize("R", [300, 200])
+def test_packed_gather_grad_in_any_ray_order(R, monkeypatch):
+    """Rays given in a shuffled order, a fifth of them outside the medium:
+    the port sorts a sweep of more than one tile by position (200 rays fit
+    one tile and take no sort), and ``permute_rows``' backward brings the
+    gradients back unpermuted.  Output and gradients (beam powers,
+    sigma_s, g, the camera transmittance) meet the row-order reference's
+    criterion above; each output row is the port's row-order one."""
+    jb = JBuilder()
+    jb.homogeneous_medium((0.05,) * 3, (0.5,) * 3, 0.3)
+    jb.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    js = jb.build()
+    ts = scene_from_jax(js, device="cpu")
+    b = _beams_np(B=700, seed=3)
+    rows = _segments(R=R)
+    W = np.random.RandomState(9).rand(R, 3).astype(np.float32)
+    perm = np.random.RandomState(R).permutation(R)
+
+    def jloss(ps, pe, ss, g, trf_):
+        bb = _jbeams(b)._replace(power_start=ps, power_end=pe)
+        md = js.media._replace(sigma_s=ss, g=g)
+        bp, nv = jbg.pack_beams_compact(bb, 256)
+        out = jbg.gather_beams_packed(
+            bp, nv, md, *(jnp.asarray(x) for x in rows[:4]), trf_,
+            jnp.float32(0.2), chunk=256, power_scale=1e-3)
+        return jnp.sum(out * jnp.asarray(W)), out
+
+    j_args = (jnp.asarray(b["power_start"]), jnp.asarray(b["power_end"]),
+              js.media.sigma_s, js.media.g, jnp.asarray(rows[4]))
+    (_, j_out), j_grads = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(*j_args)
+
+    sorts = _count_sorts(monkeypatch)
+
+    def port(p):
+        args = [torch.tensor(to_np(x), requires_grad=True) for x in j_args]
+        ps, pe, ss, g, trf = args
+        args[4] = trf_p = torch.tensor(to_np(trf)[p], requires_grad=True)
+        a0, a1, sd, med, _ = (x[p] for x in rows)
+        bp, nv = tbg.pack_beams_compact(_tbeams(b)._replace(
+            power_start=ps, power_end=pe))
+        out = tbg.gather_beams_packed(
+            bp, nv, ts.media._replace(sigma_s=ss, g=g),
+            *(torch.from_numpy(x) for x in (a0, a1, sd)),
+            torch.from_numpy(med.astype(np.int64)), trf_p, 0.2,
+            power_scale=1e-3)
+        (out * torch.from_numpy(W[p])).sum().backward()
+        return out, [x.grad for x in args]
+
+    t_out, t_grads = port(perm)
+    row_out, _ = port(np.arange(R))
+    assert len(sorts) == (2 if R > 256 else 0)
+    assert torch.equal(t_out, row_out[torch.from_numpy(perm)])
+    np.testing.assert_allclose(to_np(t_out), to_np(j_out)[perm], rtol=3e-4,
+                               atol=1e-8)
+    for name, t, j in zip(("power_start", "power_end", "sigma_s", "g", "tr"),
+                          t_grads, j_grads):
+        j = to_np(j)[perm] if name == "tr" else to_np(j)
+        assert np.abs(j).max() > 0, name
+        err = np.abs(to_np(t) - j).max()
         assert err <= 3e-4 * np.abs(j).max(), (name, err, np.abs(j).max())

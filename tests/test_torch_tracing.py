@@ -72,6 +72,9 @@ def test_traced_render_shows_spans_and_counts_blocks(tmp_path, sparse_cap):
     assert got["gather.blocks"] >= got["gather.live_blocks"] > 0
     assert isinstance(got["gather.blocks"], int)
     assert isinstance(got["gather.live_blocks"], int)
+    # each packed sweep's rays, and those in the medium (a device sum)
+    assert got["gather.rays"] >= got["gather.rays_in_medium"] > 0
+    assert isinstance(got["gather.rays"], int)
     # every sweep counts itself and its pick, 0 or 1; only the full-film
     # sweeps take the cap, the ray budgets' take none
     sweeps, picks = got["gather.sweeps"], got["gather.sparse_picks"]
